@@ -1,0 +1,67 @@
+"""Scatter and segment helpers shared by the map and mesh modules.
+
+JAX's `mode="drop"` scatters skip out-of-bounds targets silently; torch
+raises on them, so every such scatter here takes an explicit lane mask.
+Segment sums are taken without atomics (a stable sort by segment, then a
+segmented reduction), so the f32 result is the same on every run instead of
+depending on the order in which CUDA atomics land.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s rounded as one IEEE f32 division.
+
+    PyTorch's CUDA kernel turns division by a Python scalar into a multiply
+    by its reciprocal, which can differ by one ulp; grid quantization
+    (floor(p / size)) must not, so the divisor goes in as a device tensor."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def set_drop(dst: torch.Tensor, idx: torch.Tensor, src, ok: torch.Tensor
+             ) -> None:
+    """In place: dst[idx[l]] = src[l] for every lane l with ok[l].
+
+    `idx` and `ok` share one shape (the lanes); `src` is a scalar or a
+    tensor of the lanes' shape plus dst's trailing dims.  Targets of the
+    selected lanes must be distinct (as they are at every call site)."""
+    sel = ok.reshape(-1).nonzero().squeeze(1)
+    tgt = idx.reshape(-1)[sel].long()
+    if torch.is_tensor(src):
+        src = src.reshape((-1,) + src.shape[ok.dim():])[sel]
+    dst[tgt] = src
+
+
+def add_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+             ok: torch.Tensor) -> None:
+    """In place: dst[idx[l]] += src[l] for every lane l with ok[l] (1-D
+    lanes; the selected targets are distinct at every call site, so the sum
+    order does not depend on the device)."""
+    sel = ok.nonzero().squeeze(1)
+    dst.index_add_(0, idx[sel].long(), src[sel])
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Σ of values (N, ...) rows per segment id in [0, num_segments).
+
+    On the CPU the rows of a segment are summed in input order from zero,
+    the order of a sequential scatter-add; on the card the segmented
+    reduction is deterministic as well."""
+    seg = seg.long()
+    order = torch.argsort(seg, stable=True)
+    lengths = torch.bincount(seg, minlength=num_segments)
+    return torch.segment_reduce(values[order], "sum", lengths=lengths, axis=0)
+
+
+def compact_indices(keep: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of True entries in order, compacted to (k,); padded with N."""
+    n = keep.shape[0]
+    pos = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32) - 1
+    out = torch.full((k,), n, dtype=torch.int32, device=keep.device)
+    ids = torch.arange(n, dtype=torch.int32, device=keep.device)
+    set_drop(out, pos, ids, keep & (pos < k))
+    return out

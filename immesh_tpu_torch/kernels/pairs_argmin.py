@@ -1,0 +1,153 @@
+"""Edge-neighbor Delaunay argmin — the CUDA kernel's binding, its plain
+PyTorch version, and the rule that picks between them.
+
+Replaces immesh_tpu/mesh/delaunay.py::_pairs_kernel (launched by
+`_pairs_argmin_tpu`).  For every voxel a and directed pair i→j:
+
+    W[a, i, j] = first argmin over valid k with d > ε of Np / d, or −1,
+    d  = (p_j − p_i) × (p_k − p_i)                    (2·area, k left of i→j)
+    Np = (L_k − L_i)·|p_j − p_i|² − ((p_k − p_i)·(p_j − p_i))·(L_j − L_i)
+
+with L the perturbed paraboloid lift; rows with i invalid are all −1, and a
+NaN ratio anywhere in a row's k-sweep gives −1 (jnp.min propagates NaN).
+
+Dispatch: a CPU tensor takes `pairs_argmin_plain`; a CUDA tensor launches
+the kernel in csrc/pairs_argmin.cu or raises — there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "pairs_argmin.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+_LIB = os.path.join(_BUILD_DIR, "libpairs_argmin.so")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+MAX_K = 128
+_BIG = 3.4e38
+
+_lock = threading.Lock()
+_lib = None
+launches = 0  # kernel launches since the last reset_launches()
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/pairs_argmin.cu for sm_90a into immesh_tpu_torch/_build/
+    (if missing or older than the source) and return the library path."""
+    fresh = (os.path.exists(_LIB)
+             and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC))
+    if force or not fresh:
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
+        subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC], check=True)
+        os.replace(tmp, _LIB)
+    return _LIB
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.pairs_argmin_launch
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                                    ctypes.c_void_p,
+                                                    ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def pairs_argmin_cuda(u, v, lift, valid, d_eps) -> torch.Tensor:
+    """Launch the kernel: (A, K) f32 u, v, lift, valid (1.0/0.0) and (A,)
+    f32 d_eps on one CUDA device → W (A, K, K) int32."""
+    global launches
+    A, K = u.shape
+    for name, x, shape in (("u", u, (A, K)), ("v", v, (A, K)),
+                           ("lift", lift, (A, K)), ("valid", valid, (A, K)),
+                           ("d_eps", d_eps, (A,))):
+        if x.device.type != "cuda" or x.device != u.device:
+            raise ValueError(f"{name} must lie on u's CUDA device")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 0 < K <= MAX_K:
+        raise ValueError(f"K={K} outside (0, {MAX_K}]")
+    W = torch.empty((A, K, K), dtype=torch.int32, device=u.device)
+    if A == 0:
+        return W
+    lib = _load()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pairs_argmin_launch(
+            u.data_ptr(), v.data_ptr(), lift.data_ptr(), valid.data_ptr(),
+            d_eps.data_ptr(), A, K, W.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_argmin kernel launch failed: CUDA error {err}")
+    launches += 1
+    return W
+
+
+def pairs_argmin_plain(u, v, lift, valid, d_eps) -> torch.Tensor:
+    """Plain PyTorch version with the kernel's difference formula and
+    operation order, looping over the edge tail i so no (A, K, K, K) tensor
+    exists.  Same arguments and result as pairs_argmin_cuda."""
+    A, K = u.shape
+    dev = u.device
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    kio = torch.arange(K, dtype=torch.int32, device=dev)
+    kbig = torch.tensor(0x3FFFFFFF, dtype=torch.int32, device=dev)
+    ok = valid > 0.0
+    okjk = ok[:, :, None] & ok[:, None, :]                  # (A, j, k)
+    eps = d_eps[:, None, None]
+    W = torch.full((A, K, K), -1, dtype=torch.int32, device=dev)
+    # (A, j, 1) and (A, 1, k) views of the channels
+    uj, vj, Lj = u[:, :, None], v[:, :, None], lift[:, :, None]
+    uk, vk, Lk = u[:, None, :], v[:, None, :], lift[:, None, :]
+    for i in range(K):
+        ui = u[:, i, None, None]
+        vi = v[:, i, None, None]
+        Li = lift[:, i, None, None]
+        du_j, dv_j, dL_j = uj - ui, vj - vi, Lj - Li
+        du_k, dv_k, dL_k = uk - ui, vk - vi, Lk - Li
+        d = du_j * dv_k - dv_j * du_k       # 2·area, k left of i→j
+        mp = du_k * du_j + dv_k * dv_j      # (p_k−p_i)·(p_j−p_i)
+        e2 = du_j * du_j + dv_j * dv_j      # |p_j−p_i|²
+        Np = dL_k * e2 - mp * dL_j
+        vld = okjk & (d > eps)
+        r = torch.where(vld, Np / torch.where(vld, d, 1.0), big)
+        best = torch.amin(r, dim=-1)                          # (A, j)
+        bk = torch.amin(torch.where(r == best[..., None], kio, kbig), dim=-1)
+        row = torch.where(best < big, bk, -1)
+        W[:, i, :] = torch.where(ok[:, i, None], row, -1)
+    return W
+
+
+def pairs_argmin(u, v, lift, valid, d_eps) -> torch.Tensor:
+    """W (A, K, K) int32: the plain version for CPU tensors, the kernel for
+    CUDA tensors."""
+    if u.device.type == "cpu":
+        return pairs_argmin_plain(u, v, lift, valid, d_eps)
+    return pairs_argmin_cuda(u, v, lift, valid, d_eps)

@@ -1,0 +1,145 @@
+"""Per-frame LIO step: propagate → deskew → downsample → update → grow map.
+
+Port of immesh_tpu/lio/pipeline.py (reference service_LiDAR_update,
+src/voxel_mapping.cpp:1660-2050), IMU-less constant-twist branch with
+identity LiDAR→IMU extrinsics — the KITTI operating point.  The IMU branch
+and non-identity extrinsics are not ported yet and raise.
+
+The full deskewed world-frame scan is returned for the meshing stage.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from immesh_tpu_torch.config import ImMeshConfig
+from immesh_tpu_torch.core.geometry import lidar_point_cov_body
+from immesh_tpu_torch.core.state import EsikfState
+from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.frontend.types import ScanBundle
+from immesh_tpu_torch.lio import imu as imu_mod
+from immesh_tpu_torch.lio.downsample import voxel_downsample
+from immesh_tpu_torch.lio.esikf import lio_update
+from immesh_tpu_torch.map.hash import EMPTY
+from immesh_tpu_torch.map.voxel_map import VoxelMap, _key_centers
+
+_IDENTITY_R = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+
+
+def lio_step(state: EsikfState, vm: VoxelMap, bundle: ScanBundle,
+             cfg: ImMeshConfig):
+    """One LiDAR frame. Returns (state, vm, world_scan, diag); `vm` is
+    updated in place.  world_scan is the full deskewed scan in world frame,
+    shaped like bundle.pts with bundle.mask validity."""
+    lio_cfg, map_cfg, imu_cfg = cfg.lio, cfg.voxel_map, cfg.imu
+    if (tuple(imu_cfg.extrinsic_t) != (0.0, 0.0, 0.0)
+            or tuple(imu_cfg.extrinsic_r) != _IDENTITY_R):
+        raise NotImplementedError("non-identity LiDAR→IMU extrinsics")
+    if imu_cfg.imu_en:
+        raise NotImplementedError("IMU propagation (imu_en=True)")
+    pts_body = bundle.pts
+
+    # 1. constant-twist propagate + deskew: the filter's bg slot carries the
+    # body angular rate, so the deskew twist is {ω̂·T, v·T}
+    state_prop = imu_mod.const_velocity_propagate(
+        state, bundle.scan_duration, imu_cfg)
+    pts_end = imu_mod.deskew_const_twist(
+        pts_body, bundle.t_rel, bundle.scan_duration,
+        state.bg * bundle.scan_duration, state.vel * bundle.scan_duration,
+    )
+
+    # 2. scan downsample for registration/map (reference downSizeFilterSurf)
+    down_pts, down_mask = voxel_downsample(
+        pts_end, bundle.mask, lio_cfg.downsample_voxel,
+        lio_cfg.map_update_points)
+
+    # 3. iterated ESIKF update (reference lio_state_estimation)
+    pcov = lidar_point_cov_body(down_pts, map_cfg.dept_err, map_cfg.beam_err)
+    state_new, diag = lio_update(
+        state_prop, vm, down_pts, pcov, down_mask, lio_cfg, map_cfg)
+
+    # 4. map growth with the posterior pose (reference map_incremental_grow)
+    if lio_cfg.update_map:
+        pts_world_down = state_new.transform_points(down_pts)
+        sigma2 = (pcov[:, 0, 0] + pcov[:, 1, 1] + pcov[:, 2, 2]) / 3.0
+        vm.update(pts_world_down, sigma2, down_mask)
+
+    world_scan = state_new.transform_points(pts_end)
+    return state_new, vm, world_scan, diag
+
+
+class LioPipeline:
+    """Host-side wrapper holding filter + map state across frames."""
+
+    def __init__(self, cfg: ImMeshConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.state = EsikfState.identity(
+            gravity=cfg.imu.gravity,
+            init_rot_cov=cfg.lio.init_rot_cov, init_pos_cov=cfg.lio.init_pos_cov,
+            init_vel_cov=cfg.lio.init_vel_cov,
+            init_bias_cov=cfg.lio.init_bias_cov,
+            init_grav_cov=cfg.lio.init_grav_cov, device=self.device,
+        )
+        self.vm = VoxelMap.create(cfg.voxel_map, device=self.device)
+        self.frame_idx = 0
+        self.n_compactions = 0
+        self.compact_ms = 0.0   # wall time spent inside compaction events
+        self._occ_pending = None  # previous frame's occupancy (device scalar)
+
+    def step(self, bundle: ScanBundle):
+        self.state, self.vm, world_scan, diag = lio_step(
+            self.state, self.vm, bundle, self.cfg)
+        self.frame_idx += 1
+        self.maybe_compact()
+        return world_scan, diag
+
+    def maybe_compact(self) -> bool:
+        """Occupancy-triggered map lifetime management (reference
+        laser_map_fov_segment, voxel_mapping_common.cpp:214-288).
+
+        The decision reads the PREVIOUS frame's occupancy, as the reference's
+        one-frame-delayed async poll does, so compactions fall on the same
+        frames in both."""
+        mc = self.cfg.voxel_map
+        if mc.compact_check_every <= 0:
+            return False
+        high = mc.compact_high_water * mc.capacity
+        pending = self._occ_pending
+        self._occ_pending = self.vm.n_voxels()
+        if pending is None or int(pending) <= high:
+            return False
+        self._occ_pending = None
+        self.n_compactions += 1
+        t0 = time.perf_counter()
+        # hysteresis: compact down to the LOW water mark, radius solved in
+        # one pass as a distance quantile
+        low = int(mc.compact_low_water * mc.capacity)
+        radius = _keep_radius_vm(self.vm, self.state.pos, low,
+                                 mc.local_map_radius)
+        self.vm.compact(self.state.pos, radius)
+        r = float(radius) * 0.7
+        for _ in range(2):  # quantile-granularity guard, rarely taken
+            if int(self.vm.n_voxels()) <= high:
+                break
+            self.vm.compact(self.state.pos, torch.tensor(
+                r, dtype=torch.float32, device=self.device))
+            r *= 0.7
+        self.compact_ms += 1e3 * (time.perf_counter() - t0)
+        return True
+
+
+def _keep_radius_vm(vm: VoxelMap, center: torch.Tensor, low: int,
+                    r_max: float) -> torch.Tensor:
+    """Largest keep radius whose Chebyshev cube holds ≤ `low` live voxels
+    (per-level centers, the rule VoxelMap.compact evicts by)."""
+    keys = vm.table.keys
+    live = keys[:, 0] != EMPTY
+    vcen = _key_centers(keys, vm.cfg.voxel_size, torch.float32)
+    d = torch.amax(torch.abs(vcen - center[None, :]), dim=-1)
+    d = torch.sort(torch.where(live, d, torch.full_like(d, float("inf"))))[0]
+    r = torch.clamp(d[min(low, d.shape[0]) - 1], max=r_max)
+    return torch.where(torch.isfinite(r), r * (1.0 - 1e-6),
+                       torch.full_like(r, r_max))

@@ -1,0 +1,287 @@
+"""Probabilistic hash-voxel plane map — the keystone structure.
+
+Port of immesh_tpu/map/voxel_map.py (reference src/voxel_loc.{hpp,cpp} and
+buildVoxelMap/updateVoxelMap, src/voxel_mapping.cpp:110-151,320-354):
+one open-addressing table keyed by (ix, iy, iz, level) holding running
+moments {Σp, Σppᵀ, N, Σσ²} per voxel, closed-form plane refits over every
+touched voxel at once, and a multi-level descent through non-planar voxels.
+
+The JAX reference updates the map functionally inside a donated program;
+here `update` and `compact` modify the tensors of this object in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from immesh_tpu_torch.config import VoxelMapConfig
+from immesh_tpu_torch.core.geometry import plane_from_moments
+from immesh_tpu_torch.core.ops import add_drop, segment_sum, set_drop
+from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.map.hash import (
+    EMPTY, HashTable, frame_unique_coords, voxel_coords)
+
+# upper-triangle index pairs for symmetric 3×3 ↔ length-6 storage
+_TRI = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def _sym_pack(M: torch.Tensor) -> torch.Tensor:
+    return torch.stack([M[..., i, j] for i, j in _TRI], dim=-1)
+
+
+def _sym_unpack(v: torch.Tensor) -> torch.Tensor:
+    xx, xy, xz, yy, yz, zz = (v[..., k] for k in range(6))
+    return torch.stack(
+        [
+            torch.stack([xx, xy, xz], dim=-1),
+            torch.stack([xy, yy, yz], dim=-1),
+            torch.stack([xz, yz, zz], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _key_centers(keys: torch.Tensor, voxel_size: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Voxel center of each (k, 4) key at its own level (children are
+    half-size): (c + 0.5) · voxel_size / 2^level."""
+    size = voxel_size / torch.exp2(keys[:, 3].to(dtype))  # exact: 2^-level
+    return (keys[:, :3].to(dtype) + 0.5) * size[:, None]
+
+
+@dataclass
+class VoxelMap:
+    table: HashTable
+    # running moments
+    sum_p: torch.Tensor       # (cap, 3)
+    sum_ppT: torch.Tensor     # (cap, 6) packed symmetric
+    count: torch.Tensor       # (cap,) f32
+    sigma2_sum: torch.Tensor  # (cap,) Σ per-point isotropic noise
+    # fitted plane
+    normal: torch.Tensor      # (cap, 3)
+    d: torch.Tensor           # (cap,)
+    center: torch.Tensor      # (cap, 3)
+    cov_nn: torch.Tensor      # (cap, 6) packed symmetric normal covariance
+    var_c: torch.Tensor       # (cap,)
+    lam: torch.Tensor         # (cap, 3) eigenvalues ascending
+    plane_valid: torch.Tensor  # (cap,) bool — fitted & planar
+    subdivided: torch.Tensor   # (cap,) bool — voxel spilled to children
+    cfg: VoxelMapConfig
+
+    _MOMENTS = ("sum_p", "sum_ppT", "count", "sigma2_sum")
+    _FIELDS = _MOMENTS + ("normal", "d", "center", "cov_nn", "var_c", "lam",
+                          "plane_valid", "subdivided")
+
+    @classmethod
+    def create(cls, cfg: VoxelMapConfig, dtype=torch.float32,
+               device="cuda") -> "VoxelMap":
+        dev = resolve_device(device)
+        cap = cfg.capacity
+
+        def z(*s):
+            return torch.zeros(s, dtype=dtype, device=dev)
+
+        return cls(
+            table=HashTable.create(cap, cfg.max_probe, device=dev),
+            sum_p=z(cap, 3), sum_ppT=z(cap, 6), count=z(cap), sigma2_sum=z(cap),
+            normal=z(cap, 3), d=z(cap), center=z(cap, 3), cov_nn=z(cap, 6),
+            var_c=z(cap), lam=z(cap, 3),
+            plane_valid=torch.zeros(cap, dtype=torch.bool, device=dev),
+            subdivided=torch.zeros(cap, dtype=torch.bool, device=dev),
+            cfg=cfg,
+        )
+
+    # ==================================================================
+    # growth (reference buildVoxelMap / updateVoxelMap)
+    # ==================================================================
+    def update(self, pts_world: torch.Tensor, point_sigma2: torch.Tensor,
+               mask: torch.Tensor, max_voxels: int = 0) -> "VoxelMap":
+        """Insert a scan into the map and refit touched planes, in place.
+
+        pts_world (N, 3), point_sigma2 (N,) isotropic noise tr(Σ)/3, mask
+        (N,); max_voxels caps unique voxels per level (0 =
+        cfg.touched_voxels_per_scan).  Returns self."""
+        max_voxels = max_voxels or self.cfg.touched_voxels_per_scan
+        self._update_level(pts_world, point_sigma2, mask, 0, max_voxels)
+        m = mask
+        for lvl in range(1, self.cfg.max_layers):
+            # points whose full parent chain is subdivided feed level lvl
+            # (reference cut_octo_tree recursion, voxel_loc.cpp:161-217); an
+            # empty level is skipped — an all-false mask makes the level
+            # update a no-op, so the skip is exact
+            cprev = voxel_coords(pts_world, self.cfg.voxel_size, lvl - 1)
+            parent = self.table.lookup(cprev)
+            m = m & (parent >= 0) & self.subdivided[parent.clamp(min=0).long()]
+            if bool(m.any()):
+                self._update_level(pts_world, point_sigma2, m, lvl, max_voxels)
+        return self
+
+    def scan_aggregates(self, pts, sigma2, mask, level: int, max_voxels: int):
+        """Per-scan segment aggregation: (uniq_coords (U,4), agg (U,11), ok).
+
+        agg columns: Σp (3) | Σppᵀ packed (6) | N (1) | Σσ² (1), with moments
+        relative to each point's voxel center (exact in f32 at world scale)."""
+        cfg = self.cfg
+        n = pts.shape[0]
+        coords = voxel_coords(pts, cfg.voxel_size, level)
+        seg, first, _ = frame_unique_coords(coords[:, :3], mask, max_voxels)
+        seg_ok = seg < max_voxels
+
+        size = cfg.voxel_size / (2 ** level)
+        pl = pts - (coords[:, :3].to(pts.dtype) + 0.5) * size
+        w = seg_ok.to(pts.dtype)
+        feats = torch.cat(
+            [
+                pl * w[:, None],                                       # (3)
+                _sym_pack(pl[:, :, None] * pl[:, None, :]) * w[:, None],  # (6)
+                w[:, None],                                            # (1)
+                (sigma2 * w)[:, None],                                 # (1)
+            ],
+            dim=-1,
+        )
+        agg = segment_sum(feats, seg, max_voxels + 1)[:-1]
+
+        uniq_valid = first < n
+        uniq_coords = coords[first.clamp(max=n - 1).long()]
+        return uniq_coords, agg, uniq_valid
+
+    def apply_aggregates(self, uniq_coords, agg, uniq_valid, level: int
+                         ) -> "VoxelMap":
+        """Insert the aggregated voxels and add their moments, in place."""
+        cfg = self.cfg
+        slots, _ = self.table.insert(uniq_coords, uniq_valid)
+        ok = uniq_valid & (slots >= 0)
+        sl = slots.clamp(min=0).long()
+        # freeze full voxels (reference voxel_loc.cpp:243-248)
+        frozen = torch.where(ok, self.count[sl] >= cfg.max_points_per_voxel,
+                             True)
+        add = ok & ~frozen
+        add_drop(self.sum_p, slots, agg[:, 0:3], add)
+        add_drop(self.sum_ppT, slots, agg[:, 3:9], add)
+        add_drop(self.count, slots, agg[:, 9], add)
+        add_drop(self.sigma2_sum, slots, agg[:, 10], add)
+        return self._refit(slots, ok, level)
+
+    def _update_level(self, pts, sigma2, mask, level: int, max_voxels: int
+                      ) -> "VoxelMap":
+        uniq_coords, agg, ok = self.scan_aggregates(
+            pts, sigma2, mask, level, max_voxels)
+        return self.apply_aggregates(uniq_coords, agg, ok, level)
+
+    def _refit(self, slots: torch.Tensor, ok: torch.Tensor,
+               level: int) -> "VoxelMap":
+        """Batched plane refit of the touched slots (gather → eigh → scatter)."""
+        cfg = self.cfg
+        s = torch.where(ok, slots, 0).long()
+        n = self.count[s]
+        sigma2_mean = self.sigma2_sum[s] / torch.clamp(n, min=1.0)
+        size = cfg.voxel_size / (2 ** level)
+        anchor = (self.table.keys[s, :3].to(self.sum_p.dtype) + 0.5) * size
+        fit = plane_from_moments(
+            self.sum_p[s], _sym_unpack(self.sum_ppT[s]), n, sigma2_mean,
+            min_count=cfg.min_plane_points, anchor=anchor,
+        )
+        planar = fit["valid"] & (fit["lam"][..., 0] < cfg.planer_threshold)
+        set_drop(self.normal, slots, fit["normal"], ok)
+        set_drop(self.d, slots, fit["d"], ok)
+        set_drop(self.center, slots, fit["center"], ok)
+        set_drop(self.cov_nn, slots, _sym_pack(fit["cov_nn"]), ok)
+        set_drop(self.var_c, slots, fit["var_c"], ok)
+        set_drop(self.lam, slots, fit["lam"], ok)
+        set_drop(self.plane_valid, slots, planar, ok)
+        if level < cfg.max_layers - 1:
+            # non-finest levels spill to children when the fit is not planar
+            set_drop(self.subdivided, slots, fit["valid"] & ~planar, ok)
+        return self
+
+    # ==================================================================
+    # queries
+    # ==================================================================
+    def query_planes(self, pts_world: torch.Tensor):
+        """Multi-level plane lookup for (N, 3) points: the coarsest planar
+        level, descending through subdivided parents (reference
+        voxel_mapping.cpp:247-318)."""
+        n = pts_world.shape[0]
+        dev = pts_world.device
+        slot = torch.zeros(n, dtype=torch.int32, device=dev)
+        found = torch.zeros(n, dtype=torch.bool, device=dev)
+        descend = torch.ones(n, dtype=torch.bool, device=dev)
+        for lvl in range(self.cfg.max_layers):
+            c = voxel_coords(pts_world, self.cfg.voxel_size, lvl)
+            s = self.table.lookup(c)
+            sc = s.clamp(min=0)
+            present = descend & (s >= 0)
+            use = present & self.plane_valid[sc.long()] & ~found
+            slot = torch.where(use, sc, slot)
+            found = found | use
+            descend = present & self.subdivided[sc.long()]
+        sl = slot.long()
+        return {
+            "found": found,
+            "slot": slot,
+            "normal": self.normal[sl],
+            "d": self.d[sl],
+            "center": self.center[sl],
+            "cov_nn": _sym_unpack(self.cov_nn[sl]),
+            "var_c": self.var_c[sl],
+        }
+
+    def lookup_planes_stack(self, pts_stack: torch.Tensor):
+        """Multi-level plane lookup for a (P, N, 3) stack of query positions,
+        all P·max_layers hash lookups as one batched probe loop.  Returns
+        (found (P, N), slot (P, N)) with query_planes' descent semantics."""
+        P, N, _ = pts_stack.shape
+        L = self.cfg.max_layers
+        dev = pts_stack.device
+        flat = pts_stack.reshape(P * N, 3)
+        keys = torch.cat(
+            [voxel_coords(flat, self.cfg.voxel_size, lvl) for lvl in range(L)],
+            dim=0)                                         # (L·P·N, 4)
+        s_all = self.table.lookup(keys).reshape(L, P, N)
+
+        slot = torch.zeros((P, N), dtype=torch.int32, device=dev)
+        found = torch.zeros((P, N), dtype=torch.bool, device=dev)
+        descend = torch.ones((P, N), dtype=torch.bool, device=dev)
+        for lvl in range(L):
+            s = s_all[lvl]
+            sc = s.clamp(min=0)
+            present = descend & (s >= 0)
+            use = present & self.plane_valid[sc.long()] & ~found
+            slot = torch.where(use, sc, slot)
+            found = found | use
+            descend = present & self.subdivided[sc.long()]
+        return found, slot
+
+    def n_voxels(self) -> torch.Tensor:
+        return self.table.occupancy()
+
+    def n_planes(self) -> torch.Tensor:
+        return torch.sum(self.plane_valid)
+
+    # ==================================================================
+    # lifetime management (reference laser_map_fov_segment,
+    # voxel_mapping_common.cpp:214-288)
+    # ==================================================================
+    def compact(self, center: torch.Tensor, keep_radius) -> "VoxelMap":
+        """Evict voxels outside a Chebyshev `keep_radius` cube around
+        `center` and rehash the survivors into a fresh table, in place."""
+        cfg = self.cfg
+        keys = self.table.keys
+        live = keys[:, 0] != EMPTY
+        vcen = _key_centers(keys, cfg.voxel_size, self.sum_p.dtype)
+        cheb = torch.amax(torch.abs(vcen - center[None, :]), dim=-1)
+        keep = live & (cheb <= keep_radius)
+
+        fresh = HashTable.create(cfg.capacity, cfg.max_probe,
+                                 device=keys.device)
+        slots, _ = fresh.insert(keys, keep)
+        ok = keep & (slots >= 0)
+        for name in self._FIELDS:
+            src = getattr(self, name)
+            out = torch.zeros_like(src)
+            set_drop(out, slots, src, ok)
+            setattr(self, name, out)
+        self.table = fresh
+        return self

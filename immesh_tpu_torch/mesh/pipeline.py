@@ -1,0 +1,157 @@
+"""Per-frame incremental meshing step + host wrapper.
+
+Port of immesh_tpu/mesh/pipeline.py (reference
+`incremental_mesh_reconstruction`, ImMesh_mesh_reconstruction.cpp:92-267:
+append → per-voxel pull/commit/push).  The map and store are updated in
+place.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from immesh_tpu_torch.config import ImMeshConfig
+from immesh_tpu_torch.core.ops import div
+from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.map.hash import EMPTY
+from immesh_tpu_torch.mesh.global_map import GlobalPointMap
+from immesh_tpu_torch.mesh.triangles import (
+    TriangleStore, mesh_voxels, remap_store)
+
+
+def mesh_step(gm: GlobalPointMap, store: TriangleStore,
+              pts_world: torch.Tensor, mask: torch.Tensor,
+              sensor_pos: torch.Tensor, chunk: int = 16):
+    """Append one world-frame scan and re-mesh the active voxels.  Returns
+    (gm, store, n_active, slots, smask, diag) like the reference."""
+    gm, slots, smask, drops = gm.append_frame(pts_world, mask)
+    if gm.cfg.pull_smooth_lam > 0:
+        # refresh the stored smoothed positions of the active voxels' own
+        # points BEFORE triangulation (mesh_rec_geometry.cpp:333-369)
+        gm.smooth_active(slots, smask)
+    store, n_emitted, tri_drop = mesh_voxels(
+        gm, store, slots, smask, sensor_pos, chunk)
+    gm.mark_meshed(slots, smask)
+    diag = {f"drop_{k}": v for k, v in drops.items()}
+    diag["drop_tris"] = tri_drop
+    diag["tris_emitted"] = n_emitted
+    return gm, store, torch.sum(smask.to(torch.int32)), slots, smask, diag
+
+
+class MeshPipeline:
+    """Host-side wrapper holding the global map + triangle store."""
+
+    def __init__(self, cfg: ImMeshConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.gm = GlobalPointMap.create(cfg.mesh, device=self.device)
+        self.store = TriangleStore.create(cfg.mesh, device=self.device)
+        self.frame_idx = 0
+        self.last_active = None   # (slots, smask) of the most recent step
+        self.last_drops = None    # drop counters of the most recent step
+        self.n_compactions = 0
+        self.compact_ms = 0.0     # wall time spent inside compaction events
+        self._occ_pending = None  # previous frame's occupancy (device scalars)
+
+    def step(self, pts_world, mask, sensor_pos):
+        """Returns the active-voxel count as a device scalar."""
+        if pts_world.shape[0] == 0:  # static shapes need ≥1 row; mask it out
+            pts_world = torch.zeros((1, 3), dtype=torch.float32)
+            mask = torch.zeros(1, dtype=torch.bool)
+        (self.gm, self.store, n_active, slots, smask,
+         self.last_drops) = mesh_step(
+            self.gm, self.store, torch.as_tensor(pts_world, device=self.device),
+            torch.as_tensor(mask, device=self.device),
+            torch.as_tensor(sensor_pos, device=self.device),
+            self.cfg.mesh.mesh_chunk)
+        self.last_active = (slots, smask)
+        self.frame_idx += 1
+        self.maybe_compact(sensor_pos)
+        return n_active
+
+    def maybe_compact(self, sensor_pos) -> bool:
+        """Occupancy-triggered lifetime management (reference
+        pointcloud_rgbd.cpp:278-294,425-455): when the point store or voxel
+        table crossed the high-water mark on the PREVIOUS frame (the
+        reference's one-frame-delayed async poll), evict outside the
+        local-map radius and remap the triangle store."""
+        mc = self.cfg.mesh
+        if mc.compact_check_every <= 0:
+            return False
+        high_p = mc.compact_high_water * mc.points_capacity
+        high_v = mc.compact_high_water * mc.voxel_capacity
+        pending = self._occ_pending
+        self._occ_pending = (self.gm.n_points(), self.gm.vox.occupancy())
+        if pending is None:
+            return False
+        if int(pending[0]) <= high_p and int(pending[1]) <= high_v:
+            return False
+        self._occ_pending = None  # state changes below invalidate the poll
+        self.n_compactions += 1
+        t0 = time.perf_counter()
+        # hysteresis: target the LOW water mark, radius solved in one pass
+        low_p = mc.compact_low_water * mc.points_capacity
+        low_v = mc.compact_low_water * mc.voxel_capacity
+        center = torch.as_tensor(sensor_pos, device=self.device)
+        radius = _keep_radius_mesh(self.gm, center, int(low_p), int(low_v),
+                                   mc.local_map_radius)
+        _compact_mesh(self.gm, self.store, center, radius)
+        r = float(radius) * 0.7
+        for _ in range(2):  # quantile-granularity guard, rarely taken
+            if (int(self.gm.n_points()) <= high_p
+                    and int(self.gm.vox.occupancy()) <= high_v):
+                break
+            _compact_mesh(self.gm, self.store, center, torch.tensor(
+                r, dtype=torch.float32, device=self.device))
+            r *= 0.7
+        self.compact_ms += 1e3 * (time.perf_counter() - t0)
+        return True
+
+    def extract(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The current mesh on the host: (verts (P, 3), faces (F, 3)) with
+        faces indexing the compacted vertex array."""
+        tri = self.store.tri_ids.reshape(-1, 3).cpu().numpy()
+        tri = tri[np.all(tri >= 0, axis=-1)]
+        pts = self.gm.pts.cpu().numpy()
+        used = np.unique(tri)
+        remap = np.full(pts.shape[0], -1, np.int64)
+        remap[used] = np.arange(used.size)
+        return pts[used], remap[tri]
+
+
+def _compact_mesh(gm: GlobalPointMap, store: TriangleStore,
+                  center: torch.Tensor, radius) -> None:
+    _, maps = gm.compact(center, radius)
+    remap_store(store, maps["slot_map"], maps["idmap"])
+
+
+def _keep_radius_mesh(gm: GlobalPointMap, center: torch.Tensor,
+                      low_p: int, low_v: int, r_max: float) -> torch.Tensor:
+    """Largest keep radius whose Chebyshev cube holds ≤ low-water voxels AND
+    points: the (low_k)-th smallest live distance, one sort per table."""
+    res = gm.cfg.voxel_resolution
+    inf = float("inf")
+
+    vkeys = gm.vox.keys
+    vlive = vkeys[:, 0] != EMPTY
+    vcen = (vkeys[:, :3].to(torch.float32) + 0.5) * res
+    dv = torch.amax(torch.abs(vcen - center[None, :]), dim=-1)
+    dv = torch.sort(torch.where(vlive, dv, torch.full_like(dv, inf)))[0]
+    rv = dv[min(low_v, dv.shape[0]) - 1]
+
+    alloc = (torch.arange(gm.pts.shape[0], device=gm.pts.device)
+             < gm.pt_count)
+    # a point survives iff its VOXEL center is inside the cube
+    pc = (torch.floor(div(gm.pts, res)) + 0.5) * res
+    dp = torch.amax(torch.abs(pc - center[None, :]), dim=-1)
+    dp = torch.sort(torch.where(alloc, dp, torch.full_like(dp, inf)))[0]
+    rp = dp[min(low_p, dp.shape[0]) - 1]
+
+    r = torch.clamp(torch.minimum(rv, rp), max=r_max)
+    # strictly below the quantile sample so the counted element is evicted
+    return torch.where(torch.isfinite(r), r * (1.0 - 1e-6),
+                       torch.full_like(r, r_max))

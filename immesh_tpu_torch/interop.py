@@ -12,11 +12,16 @@ reference's field names, e.g.
 
 so a test can start both implementations from one state and compare a
 single step without accumulated drift.
+
+`load_reference_checkpoint` reads the four .npz files the reference's
+`ImMeshRuntime.save_state` writes (and the port's, which has the same
+layout) into the port's objects.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -28,6 +33,7 @@ from immesh_tpu_torch.map.hash import HashTable
 from immesh_tpu_torch.map.voxel_map import VoxelMap
 from immesh_tpu_torch.mesh.global_map import GlobalPointMap
 from immesh_tpu_torch.mesh.triangles import TriangleStore
+from immesh_tpu_torch.runtime.export import load_checkpoint
 
 _GM_TABLE_PROBE = 32  # GlobalPointMap.create's max_probe for both tables
 
@@ -38,8 +44,8 @@ def _tensor_fields(cls):
 
 
 def _table(d: dict, max_probe: int, dev) -> HashTable:
-    keys = torch.from_numpy(np.asarray(d["keys"], np.int32)).to(dev)
-    fp = torch.from_numpy(np.asarray(d["fp"], np.int32)).to(dev)
+    keys = torch.from_numpy(np.array(d["keys"], np.int32)).to(dev)
+    fp = torch.from_numpy(np.array(d["fp"], np.int32)).to(dev)
     return HashTable(keys=keys, fp=fp, capacity=keys.shape[0],
                      max_probe=int(d.get("max_probe", max_probe)))
 
@@ -88,3 +94,28 @@ def to_numpy(obj):
                 "max_probe": obj.max_probe}
     return {name: to_numpy(getattr(obj, name))
             for name in _tensor_fields(type(obj))}
+
+
+def load_reference_checkpoint(prefix: str, cfg: ImMeshConfig,
+                              device="cuda") -> dict:
+    """State saved by `ImMeshRuntime.save_state(prefix)` of either package:
+    {"state", "vm"} from `<prefix>.lio.npz` / `.vmap.npz`, plus {"gm",
+    "store"} from `.gmap.npz` / `.tris.npz` when meshing was on.  Shapes
+    and static fields come from `cfg`, which must be the saving run's."""
+    dev = resolve_device(device)
+    lio = cfg.lio
+    out = {
+        "state": load_checkpoint(prefix + ".lio.npz", EsikfState.identity(
+            gravity=cfg.imu.gravity, init_rot_cov=lio.init_rot_cov,
+            init_pos_cov=lio.init_pos_cov, init_vel_cov=lio.init_vel_cov,
+            init_bias_cov=lio.init_bias_cov,
+            init_grav_cov=lio.init_grav_cov, device=dev)),
+        "vm": load_checkpoint(prefix + ".vmap.npz",
+                              VoxelMap.create(cfg.voxel_map, device=dev)),
+    }
+    if os.path.exists(prefix + ".gmap.npz"):
+        out["gm"] = load_checkpoint(prefix + ".gmap.npz",
+                                    GlobalPointMap.create(cfg.mesh, device=dev))
+        out["store"] = load_checkpoint(prefix + ".tris.npz",
+                                       TriangleStore.create(cfg.mesh, device=dev))
+    return out

@@ -18,23 +18,15 @@ the kernel in csrc/pairs_argmin.cu or raises — there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "pairs_argmin.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_LIB = os.path.join(_BUILD_DIR, "libpairs_argmin.so")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+from immesh_tpu_torch.kernels import build as _build
+
+NAME = "pairs_argmin"
 MAX_K = 128
 _BIG = 3.4e38
 
-_lock = threading.Lock()
-_lib = None
 launches = 0  # kernel launches since the last reset_launches()
 
 
@@ -43,37 +35,13 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def build(force: bool = False) -> str:
-    """Compile csrc/pairs_argmin.cu for sm_90a into immesh_tpu_torch/_build/
-    (if missing or older than the source) and return the library path."""
-    fresh = (os.path.exists(_LIB)
-             and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC))
-    if force or not fresh:
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC], check=True)
-        os.replace(tmp, _LIB)
-    return _LIB
-
-
 def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.pairs_argmin_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                    ctypes.c_void_p,
-                                                    ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    lib = _build.load(NAME)
+    fn = lib.pairs_argmin_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def pairs_argmin_cuda(u, v, lift, valid, d_eps) -> torch.Tensor:

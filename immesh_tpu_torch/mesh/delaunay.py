@@ -11,18 +11,23 @@ kernel on the card, its plain version on the CPU).  Cocircular ties are
 broken by perturbing the lift with a hash of each point's identity, so every
 voxel resolves a tie the same way.
 
-The O(K⁴) incircle oracle `delaunay_mask` and its Pallas kernel are not
-ported yet.
+`delaunay_mask` is the O(K⁴) incircle oracle: every C(K,3) candidate
+triangle is kept iff no point lies inside its circumcircle, the min-score
+sweep running in kernels/incircle.py (the reference's TPU branch; its jnp
+fallback, which masks own vertices explicitly, is not carried).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from immesh_tpu_torch.core.geometry import eigh3x3
+from immesh_tpu_torch.kernels.incircle import incircle_min_scores
 from immesh_tpu_torch.kernels.pairs_argmin import pairs_argmin
 
 
@@ -48,15 +53,12 @@ def pca_project(pts: torch.Tensor, mask: torch.Tensor
     return uv, mean, vecs
 
 
-def pairs_channels(uv: torch.Tensor, mask: torch.Tensor,
-                   eps_scale: float = 1e-6,
-                   tiebreak: Optional[torch.Tensor] = None,
-                   tie_scale: float = 256.0 * 1e-6):
-    """The pairs-argmin inputs of delaunay_pairs_w: (u, v, lift, valid,
-    d_eps), contiguous f32 — lift = u² + v² plus the identity-hash
-    perturbation, valid 1.0/0.0, d_eps = eps_scale·scale² per voxel."""
+def _lifted(uv: torch.Tensor, mask: torch.Tensor, eps_scale: float,
+            tiebreak: Optional[torch.Tensor], tie_scale: float):
+    """(u, v, lift, scale): the paraboloid lift u² + v² plus the
+    identity-hash tie perturbation, and the per-voxel characteristic scale
+    the epsilons are sized by."""
     A, K, _ = uv.shape
-    dt = uv.dtype
     u, v = uv[..., 0], uv[..., 1]
     lift = u * u + v * v
     zero = torch.zeros_like(u)
@@ -69,12 +71,64 @@ def pairs_channels(uv: torch.Tensor, mask: torch.Tensor,
     if tiebreak is None:
         tiebreak = torch.arange(K, dtype=torch.int32,
                                 device=uv.device)[None].expand(A, K)
-    tb = ((tiebreak * -1640531527) & 0xFFFF).to(dt) * (1.0 / 65536.0)
+    tb = ((tiebreak * -1640531527) & 0xFFFF).to(uv.dtype) * (1.0 / 65536.0)
     eta = max(tie_scale, 256.0 * eps_scale) * scale * scale
-    lift = lift + eta[:, None] * tb
+    return u, v, lift + eta[:, None] * tb, scale
+
+
+def pairs_channels(uv: torch.Tensor, mask: torch.Tensor,
+                   eps_scale: float = 1e-6,
+                   tiebreak: Optional[torch.Tensor] = None,
+                   tie_scale: float = 256.0 * 1e-6):
+    """The pairs-argmin inputs of delaunay_pairs_w: (u, v, lift, valid,
+    d_eps), contiguous f32 — lift = u² + v² plus the identity-hash
+    perturbation, valid 1.0/0.0, d_eps = eps_scale·scale² per voxel."""
+    u, v, lift, scale = _lifted(uv, mask, eps_scale, tiebreak, tie_scale)
     d_eps = eps_scale * scale * scale                           # (A,)
     return (u.contiguous(), v.contiguous(), lift.contiguous(),
             mask.to(torch.float32).contiguous(), d_eps.contiguous())
+
+
+@functools.lru_cache(maxsize=8)
+def _tri_candidates_np(k: int) -> np.ndarray:
+    idx = np.arange(k)
+    i, j, l = np.meshgrid(idx, idx, idx, indexing="ij")
+    m = (i < j) & (j < l)
+    return np.stack([i[m], j[m], l[m]], axis=-1).astype(np.int32)
+
+
+def _tri_candidates(k: int, device) -> torch.Tensor:
+    """All C(k,3) index triples (i<j<l) in lexicographic order, (T, 3)
+    int32 on `device`."""
+    return torch.from_numpy(_tri_candidates_np(k)).to(device)
+
+
+def delaunay_mask(uv: torch.Tensor, mask: torch.Tensor,
+                  eps_scale: float = 1e-6,
+                  tiebreak: Optional[torch.Tensor] = None,
+                  tie_scale: float = 256.0 * 1e-6
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Incircle test of every candidate triangle of every voxel.
+
+    uv: (A, K, 2) projected points, mask: (A, K) validity, tiebreak: optional
+    (A, K) int32 point identities for the symbolic perturbation of
+    cocircular ties (as in delaunay_pairs_w).  Returns (tris (T, 3) shared
+    candidate triples, keep (A, T) bool).
+
+    ε discipline (f32): |2·area| is O(scale²) and incircle scores O(scale⁴);
+    a candidate is kept iff its min score over the voxel's points is
+    ≥ −eps_scale·scale⁴, and it is degenerate (−inf) iff |2·area| ≤
+    eps_scale·scale².  Own vertices are not masked: they score ±f32
+    rounding ≈ 1e-7·scale⁴ ≪ ε."""
+    A, K, _ = uv.shape
+    tris = _tri_candidates(K, uv.device)                        # (T, 3)
+    u, v, lift, scale = _lifted(uv, mask, eps_scale, tiebreak, tie_scale)
+    eps = eps_scale * scale[:, None] ** 4                       # (A, 1)
+    min_area = eps_scale * scale ** 2                           # (A,)
+    min_s = incircle_min_scores(
+        u.contiguous(), v.contiguous(), lift.contiguous(),
+        mask.to(torch.float32).contiguous(), min_area.contiguous(), tris)
+    return tris, min_s >= -eps
 
 
 def delaunay_pairs_w(uv: torch.Tensor, mask: torch.Tensor,

@@ -249,7 +249,9 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, immesh_tpu_torch, immesh_tpu_torch.runtime.joint, "
-            "immesh_tpu_torch.interop; "
+            "immesh_tpu_torch.interop, immesh_tpu_torch.runtime.app, "
+            "immesh_tpu_torch.runtime.demo, immesh_tpu_torch.eval, "
+            "immesh_tpu_torch.eval.mesh_quality; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'immesh_tpu')]; "
             "assert not bad, bad")

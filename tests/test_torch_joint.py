@@ -11,9 +11,14 @@ near-cocircular diagonals.  Held invariants, per frame:
   * pose within 1e-3 m of the reference's;
   * the same stored vertex sets at 1e-4 m, but for ≤ 0.1 % of points;
   * compactions and hi/lo budget decisions on the same frames;
-  * live triangle counts within 5 % (they run 1-3 % apart on this
-    sequence; fed identical world scans the mesh steps agree exactly,
-    tests/test_torch_lio_mesh.py; ROADMAP queue 3)."""
+  * live triangle counts within 5 % (the port runs 1-3 % above the
+    reference on this sequence, seed 0, and -1.5…+0.2 % from it on seeds
+    1-6; why seed 0 leans one way is open, ROADMAP queue 3 item 9).
+
+Where the triangle gap enters: either side's mesh stage, fed the other
+side's world scans, reproduces the other side's counts exactly, so the gap
+is carried by the world scans alone, which differ by the ulp-level pose
+difference of the two ESIKFs."""
 
 import dataclasses
 
@@ -25,15 +30,18 @@ from scipy.spatial import cKDTree
 import immesh_tpu.runtime.joint as jjoint
 import immesh_tpu_torch.runtime.joint as tjoint
 from immesh_tpu.config import PRESETS as JPRESETS
+from immesh_tpu.mesh.pipeline import MeshPipeline as JMeshPipe
 from immesh_tpu.frontend.sim import (
     ForwardTrajectory, LidarImuSimulator, outdoor_scene)
 from immesh_tpu.frontend.types import ScanBundle as JBundle
 from immesh_tpu_torch.config import ImMeshConfig as TConfig
 from immesh_tpu_torch.frontend.types import ScanBundle as TBundle
+from immesh_tpu_torch.mesh.pipeline import MeshPipeline as TMeshPipe
 
 N_RAYS, N_FRAMES = 8192, 8
 TRI_RTOL = 0.05
 VERTEX_MISS = 1e-3
+MIN_SPLIT_SHARE = 0.25  # measured minimum 0.30 (frame 2: 21 more, 9 fewer)
 
 
 def _config():
@@ -50,6 +58,28 @@ def _config():
             compact_check_every=8, local_map_radius=40.0,
             active_voxels_per_frame=128, file_voxels_per_frame=1024,
             max_pts_per_frame=2000, mesh_chunk=64))
+
+
+def _voxel_tris(keys, tri_ids, tri_n, pts):
+    """{voxel key: set of triangles as sorted vertex-position triples}."""
+    out = {}
+    for s in np.nonzero(tri_n > 0)[0]:
+        out[tuple(keys[s, :3])] = {
+            tuple(sorted(map(tuple, pts[t]))) for t in tri_ids[s, :tri_n[s]]}
+    return out
+
+
+def _split(jax_tris, port_tris):
+    """Voxels whose triangle sets differ: (port has more, port has fewer,
+    same count)."""
+    more = fewer = same = 0
+    for key in set(jax_tris) | set(port_tris):
+        a, b = jax_tris.get(key, set()), port_tris.get(key, set())
+        if a != b:
+            more += len(b) > len(a)
+            fewer += len(b) < len(a)
+            same += len(b) == len(a)
+    return more, fewer, same
 
 
 def _budget_recorder(module, log):
@@ -83,10 +113,23 @@ def runs():
             f = sim.frame(k)
             args = (f.pts, f.t_rel, f.imu_stamps, f.imu_acc, f.imu_gyr,
                     f.scan_duration, N_RAYS, cfg.imu.max_imu_per_scan)
-            _, jd = jp.step(JBundle.from_numpy(*args))
-            _, td = tp.step(TBundle.from_numpy(*args, device="cpu"))
+            jb = JBundle.from_numpy(*args)
+            jw, jd = jp.step(jb)
+            tw, td = tp.step(TBundle.from_numpy(*args, device="cpu"))
             n_j = int(jp.mesh.gm.pt_count)
+            split = _split(
+                _voxel_tris(np.asarray(jp.mesh.gm.vox.keys),
+                            np.asarray(jp.store.tri_ids),
+                            np.asarray(jp.store.tri_n),
+                            np.asarray(jp.mesh.gm.pts)),
+                _voxel_tris(tp.mesh.gm.vox.keys.numpy(),
+                            tp.store.tri_ids.numpy(), tp.store.tri_n.numpy(),
+                            tp.mesh.gm.pts.numpy()))
             frames.append(dict(
+                scans=((np.array(jw), np.array(jb.mask),
+                        np.array(jp.state.pos)),
+                       (tw.numpy(), np.asarray(jb.mask), tp.state.pos.numpy())),
+                split=split,
                 pos=(np.asarray(jp.state.pos), tp.state.pos.numpy()),
                 n_pts=(n_j, int(tp.mesh.gm.pt_count)),
                 pts=(np.asarray(jp.mesh.gm.pts)[:n_j],
@@ -122,6 +165,32 @@ def test_joint_pipeline_exercises_compaction_and_budgets(runs):
     assert budgets["jax"] == budgets["port"]
     assert set(budgets["port"]) == {128, 256}      # both variants ran
     assert frames[-1]["comp"][1][0] >= 1           # the mesh map compacted
+
+
+def test_triangle_gap_enters_through_the_world_scan(runs):
+    """Each side's mesh stage, fed the other side's world scans, gives the
+    other side's triangle counts exactly; the scans differ by the pose
+    difference of the two filters (≤ 1e-4 m in position).  The voxels whose
+    triangle sets differ lean toward the port on this sequence (9/5 … 78/58
+    port-more/port-fewer, at most 70 % one way on a frame); why is open
+    (ROADMAP queue 3 item 9), and the lean is held where it was measured:
+    on every frame each way holds at least MIN_SPLIT_SHARE of them."""
+    frames = runs[0]
+    cfg = _config()
+    jm = JMeshPipe(cfg)
+    tm = TMeshPipe(TConfig.from_dict(cfg.to_dict()), device="cpu")
+    for f in frames:
+        (jw, m, jpos), (tw, _, tpos) = f["scans"]
+        jm.step(tw, m, tpos)
+        tm.step(torch.from_numpy(jw), torch.from_numpy(m),
+                torch.from_numpy(jpos))
+        nj, nt = f["tris"]
+        assert (int(jm.store.n_triangles()), int(tm.store.n_triangles())) \
+            == (nt, nj)
+        assert np.abs(jpos - tpos).max() <= 1e-4
+        more, fewer, _ = f["split"]
+        assert min(more, fewer) >= MIN_SPLIT_SHARE * (more + fewer), \
+            (more, fewer)
 
 
 def test_default_device_is_the_card():

@@ -1,10 +1,11 @@
 """Where a frame of the PyTorch port's main path spends its time on the GPU.
 
-    python3 tools/torch_profile.py [--frames N] [--out FILE]
+    python3 tools/torch_profile.py [--path kitti|avia] [--frames N] [--out FILE]
 
-Runs JointPipeline at the KITTI operating point of chip_smoke.py (131,072-ray
-outdoor scans), warms up, then profiles N frames with torch.profiler and
-prints: wall ms per frame, the device's busy share (sum of kernel times over
+Runs one of chip_smoke.py's paths — JointPipeline at the KITTI operating
+point (131,072-ray outdoor scans), or ImMeshRuntime.process_frame at the
+Avia preset (32,768-point scans, IMU on) — warms up, then profiles N frames
+with torch.profiler and prints: wall ms per frame, the device's busy share (sum of kernel times over
 wall time), host↔device synchronisations per frame, and the top operators by
 device time and by host time; --out FILE also gets the full operator table.
 """
@@ -34,6 +35,7 @@ def _self_dev_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("kitti", "avia"), default="kitti")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--out", default=None)
@@ -41,23 +43,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tools/torch_profile.py needs a CUDA device")
         return 2
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
     from immesh_tpu_torch.runtime.joint import JointPipeline
 
     dev = torch.device("cuda", 0)
-    cfg = chip_smoke.kitti_config()
-    sim = chip_smoke.make_sim(cfg.preprocess.max_points, 64)
     n = args.warmup + args.frames
+    if args.path == "kitti":
+        cfg = chip_smoke.kitti_config()
+        sim = chip_smoke.make_sim(cfg.preprocess.max_points, 64)
+        pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
+        step = pipe.step
+    else:
+        cfg = chip_smoke.avia_config()
+        sim = chip_smoke.make_avia_sim(cfg)
+        rt = ImMeshRuntime(cfg, device=dev)
+        rt.static_init(*sim.static_imu(100))
+        step = rt.process_frame
     frames = [chip_smoke.bundle(sim.frame(k), cfg, dev) for k in range(n)]
-    pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
     for b in frames[:args.warmup]:
-        pipe.step(b)
+        step(b)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in frames[args.warmup:]:
-            pipe.step(b)
+            step(b)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.frames
 
@@ -71,7 +82,7 @@ def main() -> int:
     by_host = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)
 
     lines = [f"{chip_smoke.smi_line()}",
-             f"frames {args.frames} (after {args.warmup} warm-up): "
+             f"path {args.path}: frames {args.frames} (after {args.warmup} warm-up): "
              f"{wall_ms:.1f} ms/frame wall (profiler on), device busy "
              f"{busy_ms:.1f} ms/frame ({100 * busy_ms / wall_ms:.1f} %), "
              f"{syncs / args.frames:.0f} sync/copy calls per frame",

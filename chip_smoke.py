@@ -8,8 +8,12 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
   1. build    — compiles every kernel from csrc/ with nvcc, one process per
                 source, all started together;
   2. kernels  — holds each kernel (pairs_argmin, incircle) against its plain
-                PyTorch version on the card at the paths' shapes
-                (value-identical results) and times both;
+                PyTorch version on the card (value-identical results):
+                pairs_argmin at the KITTI chunk (512, 48), the Avia chunk
+                (64, 48), ~5 %, ~50 % and 100 % valid points, K = 20 and
+                128; then times each with CUDA events (device time per
+                launch, and one wrapper call with its checks and host
+                work) beside its bound and its plain version;
   3. ints     — the wrapping int32 hash arithmetic gives the same bits on the
                 card as on the CPU, and segment sums are deterministic;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
@@ -27,9 +31,10 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 checks pose, mesh accuracy, logs, PLY and checkpoint
                 round-trips;
   7. audit    — the voxels re-meshed on the runtime's last frame go through
-                the O(K⁴) incircle oracle delaunay_mask (the incircle
-                kernel) and the production delaunay_pairs; every triangle
-                on which they disagree must be a tie.
+                pairs_argmin in the path's chunks (bit parity, device time,
+                fill), the O(K⁴) incircle oracle delaunay_mask (the
+                incircle kernel) and the production delaunay_pairs; every
+                triangle on which the last two disagree must be a tie.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -158,14 +163,14 @@ def bundle(f, cfg, device):
 # ---------------------------------------------------------------------------
 # phase 2: pairs_argmin against its plain version
 # ---------------------------------------------------------------------------
-def pairs_inputs(seed: int, A: int, K: int):
+def pairs_inputs(seed: int, A: int, K: int, fill: float = 0.5):
     """Channel inputs as delaunay_pairs_w builds them, from voxel-sized
-    point sets with the cases the kernel must get right: ~50 % masked
-    points, a gridded (cocircular) voxel, an all-masked voxel, voxels with
-    one and two valid points."""
+    point sets with the cases the kernel must get right: a share `fill` of
+    valid points, a gridded (cocircular) voxel, an all-masked voxel, voxels
+    with one and two valid points."""
     rng = np.random.default_rng(seed)
     uv = rng.uniform(-0.3, 0.3, (A, K, 2)).astype(np.float32)
-    mask = rng.random((A, K)) < 0.5
+    mask = rng.random((A, K)) < fill
     g = np.stack(np.meshgrid(np.arange(7), np.arange(7)), -1).reshape(-1, 2)
     g = (g[:K] * 0.1 - 0.3).astype(np.float32)
     uv[0, :len(g)] = g
@@ -189,7 +194,8 @@ def channels(uv, mask, tb, device):
 
 
 def event_ms(fn, reps: int) -> float:
-    """Median over `reps` single calls, each timed with CUDA events."""
+    """Median over `reps` single calls, each timed with CUDA events (host
+    work inside fn included)."""
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -199,6 +205,26 @@ def event_ms(fn, reps: int) -> float:
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def device_ms(launch, n: int = 50, batches: int = 5) -> float:
+    """Device time of one launch: the median over `batches` of n back-to-back
+    launches between two CUDA events, averaged over n.  A spin kernel holds
+    the stream while the host enqueues them, so the host's time per launch
+    stays out of the reading."""
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clock
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            launch()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
     return statistics.median(times)
 
 
@@ -230,14 +256,21 @@ def pairs_bound_ms(u, v, valid, d_eps) -> tuple:
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
+# (seed, A, K, share of valid points): the KITTI chunk (512, 48) at three
+# seeds and at ~5 % and 100 % fill, the Avia chunk (64, 48), and the
+# smallest and largest K the kernel takes
+PAIRS_CASES = ((0, 512, 48, 0.5), (1, 512, 48, 0.5), (2, 509, 48, 0.5),
+               (3, 64, 48, 0.5), (4, 512, 48, 0.05), (5, 512, 48, 1.0),
+               (6, 64, 20, 0.5), (7, 64, 128, 0.5), (8, 64, 128, 1.0))
+
+
 def phase_kernels(dev):
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.mesh.delaunay import delaunay_pairs_w
 
-    K = 48
     max_err = 0
-    for seed, A in ((0, 512), (1, 512), (2, 509)):
-        uv, mask, tb = pairs_inputs(seed, A, K)
+    for seed, A, K, fill in PAIRS_CASES:
+        uv, mask, tb = pairs_inputs(seed, A, K, fill)
         ch = channels(uv, mask, tb, dev)
         Wk = pk.pairs_argmin_cuda(*ch)
         Wp = pk.pairs_argmin_plain(*ch)
@@ -247,7 +280,8 @@ def phase_kernels(dev):
         if not torch.equal(Wk, Wp):
             raise AssertionError(
                 f"pairs_argmin: kernel and plain version differ at "
-                f"{int((Wk != Wp).sum())} of {Wk.numel()} entries (seed {seed})")
+                f"{int((Wk != Wp).sum())} of {Wk.numel()} entries "
+                f"(seed {seed}, A={A}, K={K}, fill {fill})")
         # the whole Delaunay core: card (kernel) against CPU (plain version)
         Wg, eg = delaunay_pairs_w(
             torch.from_numpy(uv).to(dev), torch.from_numpy(mask).to(dev),
@@ -260,26 +294,34 @@ def phase_kernels(dev):
                 f"delaunay_pairs_w: card and CPU differ (seed {seed}): W at "
                 f"{int((Wg.cpu() != Wc).sum())}, emit at "
                 f"{int((eg.cpu() != ec).sum())}")
-        log(f"[kernels] pairs_argmin seed={seed} A={A} K={K}: W bit-identical "
-            f"({Wk.numel()} entries, {int((Wk >= 0).sum())} with a third "
-            f"vertex), delaunay_pairs_w W/emit equal, "
-            f"{int(ec.sum())} triangles")
+        log(f"[kernels] pairs_argmin seed={seed} A={A} K={K} fill "
+            f"{float(mask.mean()):.3f}: W bit-identical ({Wk.numel()} "
+            f"entries, {int((Wk >= 0).sum())} with a third vertex), "
+            f"delaunay_pairs_w W/emit equal, {int(ec.sum())} triangles")
 
-    uv, mask, tb = pairs_inputs(0, 512, K)
-    ch = channels(uv, mask, tb, dev)
-    for _ in range(3):
-        pk.pairs_argmin_cuda(*ch)
-    ms = event_ms(lambda: pk.pairs_argmin_cuda(*ch), 50)
-    plain_ms = event_ms(lambda: pk.pairs_argmin_plain(*ch), 5)
-    bound_ms, bound_by = pairs_bound_ms(ch[0], ch[1], ch[3], ch[4])
-    log(f"[kernels] pairs_argmin (512, 48): kernel {1e3 * ms:.1f} us "
-        f"(median of 50), plain version {1e3 * plain_ms:.1f} us, "
-        f"bound {1e3 * bound_ms:.2f} us ({bound_by})")
-    return {"name": "pairs_argmin", "route": "cuda",
-            "source": "immesh_tpu_torch/csrc/pairs_argmin.cu",
-            "replaces": "immesh_tpu/mesh/delaunay.py:289",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    lib = pk._library()
+    entry = {"name": "pairs_argmin", "route": "cuda",
+             "source": "immesh_tpu_torch/csrc/pairs_argmin.cu",
+             "replaces": "immesh_tpu/mesh/delaunay.py:289",
+             "max_abs_err": max_err, "library_ms": None}
+    for A, key in ((512, ""), (64, "_64")):
+        uv, mask, tb = pairs_inputs(0, A, 48)
+        ch = channels(uv, mask, tb, dev)
+        W = torch.empty((A, 48, 48), dtype=torch.int32, device=dev)
+        ms = device_ms(lambda: pk._launch(lib, *ch, W))
+        wrapper_ms = event_ms(lambda: pk.pairs_argmin_cuda(*ch), 50)
+        bound_ms, bound_by = pairs_bound_ms(ch[0], ch[1], ch[3], ch[4])
+        entry.update({"ms" + key: ms, "wrapper_ms" + key: wrapper_ms,
+                      "bound_ms" + key: bound_ms, "bound_by" + key: bound_by})
+        if A == 512:
+            entry["plain_ms"] = event_ms(lambda: pk.pairs_argmin_plain(*ch), 5)
+        log(f"[kernels] pairs_argmin ({A}, 48): kernel {1e3 * ms:.2f} us "
+            f"(device time, median of 5 x 50 launches), wrapper call "
+            f"{1e3 * wrapper_ms:.2f} us (median of 50), bound "
+            f"{1e3 * bound_ms:.2f} us ({bound_by})"
+            + (f", plain version {1e3 * entry['plain_ms']:.1f} us"
+               if A == 512 else ""))
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -369,20 +411,23 @@ def phase_incircle(dev):
             f"{int((ok >= -1e-6).sum())} ≥ −1e-6)")
 
     args = incircle_inputs(0, 512, 48, dev)
-    for _ in range(3):
-        out = ik.incircle_min_scores_cuda(*args)
-    ms = event_ms(lambda: ik.incircle_min_scores_cuda(*args), 50)
+    out = torch.empty((512, args[5].shape[0]), dtype=torch.float32,
+                      device=dev)
+    ms = device_ms(lambda: ik._launch(*args, out))
+    wrapper_ms = event_ms(lambda: ik.incircle_min_scores_cuda(*args), 50)
     plain_ms = event_ms(lambda: ik.incircle_min_scores_plain(*args), 5)
     bound_ms, bound_by = incircle_bound_ms(args[3], out)
     log(f"[kernels] incircle (512, 48), T={args[5].shape[0]}: kernel "
-        f"{1e3 * ms:.1f} us (median of 50), plain version "
-        f"{1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.2f} us "
+        f"{1e3 * ms:.1f} us (device time, median of 5 x 50 launches), "
+        f"wrapper call {1e3 * wrapper_ms:.1f} us (median of 50), plain "
+        f"version {1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.2f} us "
         f"({bound_by})")
     return {"name": "incircle", "route": "cuda",
             "source": "immesh_tpu_torch/csrc/incircle.cu",
             "replaces": "immesh_tpu/mesh/delaunay.py:44",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": max_err, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -782,6 +827,36 @@ def lifted_margins(u, v, lift, w, tri, scale):
     return -s.min(-1) / scale ** 4
 
 
+def pairs_on_real_voxels(uv, mask, tb, mcfg) -> None:
+    """pairs_argmin on the runtime's last re-meshed voxels, in the chunks of
+    mesh_chunk the path hands it: W bit-identical to the plain version, the
+    device time and bound of each chunk, and the voxels' fill."""
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.mesh.delaunay import pairs_channels
+
+    lib = pk._library()
+    A, K = mask.shape
+    C = mcfg.mesh_chunk
+    ms, bounds = [], []
+    for a0 in range(0, A, C):
+        ch = pairs_channels(uv[a0:a0 + C], mask[a0:a0 + C],
+                            tiebreak=tb[a0:a0 + C], tie_scale=mcfg.tie_scale)
+        W = pk.pairs_argmin_cuda(*ch)
+        if not torch.equal(W, pk.pairs_argmin_plain(*ch)):
+            raise AssertionError(f"pairs_argmin: kernel and plain version "
+                                 f"differ on real voxels {a0}..{a0 + C}")
+        ms.append(device_ms(lambda: pk._launch(lib, *ch, W), 20, 3))
+        bounds.append(pairs_bound_ms(ch[0], ch[1], ch[3], ch[4])[0])
+    fill = mask.float().mean(-1)
+    log(f"[audit] pairs_argmin on the {A} voxels of the last re-mesh in "
+        f"{len(ms)} chunks of {C}: W bit-identical; kernel "
+        f"{1e3 * statistics.median(ms):.2f} us median per chunk "
+        f"({', '.join(f'{1e3 * x:.2f}' for x in ms)}), bound "
+        f"{1e3 * statistics.median(bounds):.2f} us median; fill "
+        f"{float(fill.mean()):.3f} mean ({int(mask.sum(-1).float().mean())} "
+        f"of K={K} points, {float(fill.min()):.3f}-{float(fill.max()):.3f})")
+
+
 def phase_audit(dev, rt) -> int:
     """Re-run the runtime's last frame's voxels through delaunay_mask (the
     incircle kernel) and delaunay_pairs on the same inputs; returns the
@@ -798,6 +873,7 @@ def phase_audit(dev, rt) -> int:
     mask = pull["mask"]
     uv, _, _ = pca_project(pull["pts_sm"], mask)
     tb = _pos_hash(pull["pts"])
+    pairs_on_real_voxels(uv, mask, tb, mcfg)
     ik.reset_launches()
     tris, keep = delaunay_mask(uv, mask, tiebreak=tb,
                                tie_scale=mcfg.tie_scale)
@@ -870,13 +946,17 @@ def main() -> int:
     pairs["launches"] = phase_main(dev, args.frames, 3, pairs["ms"])
     phase_parity(dev)
     rt = phase_runtime(dev, AVIA_FRAMES, 3)
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    pairs["launches_runtime"] = pk.launches  # counted from 0 by phase 6
     incircle["launches"] = phase_audit(dev, rt)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line())
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (pairs, incircle)]}))
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys}, **{k: x for k, x in e.items()
+                                        if k not in keys}}
+        for e in (pairs, incircle)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,13 +37,37 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _load():
-    lib = _build.load(NAME)
-    fn = lib.incircle_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built, loaded and its entry point's arguments
+    declared at first use."""
+    global _lib
+    if _lib is None:
+        lib = _build.load(NAME)
+        lib.incircle_launch.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+        lib.incircle_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _launch(u, v, lift, w, min_area, tris, out) -> None:
+    """One counted launch on the current stream into the preallocated out,
+    without checks: incircle_min_scores_cuda's last step, and what timing
+    code calls."""
+    global launches
+    A, K = u.shape
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().incircle_launch(
+            u.data_ptr(), v.data_ptr(), lift.data_ptr(), w.data_ptr(),
+            min_area.data_ptr(), tris.data_ptr(), A, K, tris.shape[0],
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"incircle kernel launch failed: CUDA error {err}")
+    launches += 1
 
 
 def _check(u, v, lift, w, min_area, tris, cuda: bool):
@@ -68,29 +92,22 @@ def _check(u, v, lift, w, min_area, tris, cuda: bool):
         raise ValueError(f"K={K} outside (0, {MAX_K}]")
     if T and (int(tris.min()) < 0 or int(tris.max()) >= K):
         raise ValueError(f"tris holds a vertex index outside [0, {K})")
+    # the kernel folds masked points in as exact zeros (csrc/incircle.cu)
+    if bool(((w != 0.0) & (w != 1.0)).any()):
+        raise ValueError("w holds a value other than 1.0 and 0.0")
 
 
 def incircle_min_scores_cuda(u, v, lift, w, min_area, tris) -> torch.Tensor:
     """Launch the kernel: (A, K) f32 u, v, lift, w (1.0/0.0), (A,) f32
     min_area and a (T, 3) int32 candidate table on one CUDA device →
     (A, T) f32 min scores."""
-    global launches
     _check(u, v, lift, w, min_area, tris, cuda=True)
     A, K = u.shape
     T = tris.shape[0]
     out = torch.empty((A, T), dtype=torch.float32, device=u.device)
     if A == 0 or T == 0:
         return out
-    lib = _load()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.incircle_launch(
-            u.data_ptr(), v.data_ptr(), lift.data_ptr(), w.data_ptr(),
-            min_area.data_ptr(), tris.data_ptr(), A, K, T, out.data_ptr(),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"incircle kernel launch failed: CUDA error {err}")
-    launches += 1
+    _launch(u, v, lift, w, min_area, tris, out)
     return out
 
 

@@ -35,8 +35,9 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _load():
-    lib = _build.load(NAME)
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point's arguments on a loaded library of
+    csrc/pairs_argmin.cu."""
     fn = lib.pairs_argmin_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p, ctypes.c_void_p]
@@ -44,10 +45,37 @@ def _load():
     return lib
 
 
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built, loaded and bound at first use."""
+    global _lib
+    if _lib is None:
+        _lib = _bind(_build.load(NAME))
+    return _lib
+
+
+def _launch(lib: ctypes.CDLL, u, v, lift, valid, d_eps, W) -> None:
+    """One counted launch on the current stream into the preallocated W,
+    without checks: pairs_argmin_cuda's last step, and what timing code
+    calls with `_library()`."""
+    global launches
+    A, K = u.shape
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pairs_argmin_launch(
+            u.data_ptr(), v.data_ptr(), lift.data_ptr(), valid.data_ptr(),
+            d_eps.data_ptr(), A, K, W.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"pairs_argmin kernel launch failed: CUDA error {err}")
+    launches += 1
+
+
 def pairs_argmin_cuda(u, v, lift, valid, d_eps) -> torch.Tensor:
     """Launch the kernel: (A, K) f32 u, v, lift, valid (1.0/0.0) and (A,)
     f32 d_eps on one CUDA device → W (A, K, K) int32."""
-    global launches
     A, K = u.shape
     for name, x, shape in (("u", u, (A, K)), ("v", v, (A, K)),
                            ("lift", lift, (A, K)), ("valid", valid, (A, K)),
@@ -66,15 +94,7 @@ def pairs_argmin_cuda(u, v, lift, valid, d_eps) -> torch.Tensor:
     W = torch.empty((A, K, K), dtype=torch.int32, device=u.device)
     if A == 0:
         return W
-    lib = _load()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pairs_argmin_launch(
-            u.data_ptr(), v.data_ptr(), lift.data_ptr(), valid.data_ptr(),
-            d_eps.data_ptr(), A, K, W.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pairs_argmin kernel launch failed: CUDA error {err}")
-    launches += 1
+    _launch(_library(), u, v, lift, valid, d_eps, W)
     return W
 
 

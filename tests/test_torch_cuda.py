@@ -7,10 +7,14 @@ reference, so on the GPU machine (which has no JAX) it runs on its own:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
+from immesh_tpu_torch.kernels import build
 from immesh_tpu_torch.kernels import incircle as ik
 from immesh_tpu_torch.kernels import pairs_argmin as pk
 from immesh_tpu_torch.map.hash import _fingerprint, _hash, frame_unique_coords
@@ -27,14 +31,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _voxels(seed, A, K):
+def _voxels(seed, A, K, fill=0.6):
     """Voxel point sets with a cocircular grid, an all-masked voxel and one
-    with a single valid point, ~40 % masking elsewhere."""
+    with a single valid point, a share `fill` of valid points elsewhere."""
     rng = np.random.default_rng(seed)
     uv = rng.uniform(-0.5, 0.5, (A, K, 2)).astype(np.float32)
     g = np.stack(np.meshgrid(np.arange(7), np.arange(7)), -1).reshape(-1, 2)
     uv[0, :len(g[:K])] = g[:K] * 0.1
-    mask = rng.random((A, K)) < 0.6
+    mask = rng.random((A, K)) < fill
     mask[0, :len(g[:K])] = True
     mask[1] = False
     mask[2] = False
@@ -44,15 +48,106 @@ def _voxels(seed, A, K):
             torch.from_numpy(tb))
 
 
-@pytest.mark.parametrize("A,K", [(512, 48), (509, 48), (64, 128), (8, 1)])
-def test_kernel_matches_plain_version_bitwise(dev, A, K):
-    uv, mask, tb = (x.to(dev) for x in _voxels(A + K, A, K))
+@pytest.mark.parametrize("A,K,fill", [
+    (512, 48, 0.6), (509, 48, 0.6), (64, 128, 0.6), (8, 1, 0.6),
+    (64, 48, 0.5), (64, 20, 0.5), (512, 48, 0.05), (512, 48, 1.0),
+    (64, 128, 1.0)])
+def test_kernel_matches_plain_version_bitwise(dev, A, K, fill):
+    uv, mask, tb = _voxels(A + K, A, K, fill)
+    if A > 4 and K >= 3:
+        # voxel 3: every valid point left of the edge 0→1 (right of 1→0);
+        # voxel 4: every valid point on one line (no third vertex anywhere)
+        uv[3, :, 1] = torch.linspace(0.1, 0.45, K)
+        uv[3, :2] = torch.tensor([[0.0, 0.0], [0.5, 0.0]])
+        mask[3] = True
+        uv[4, :, 0] = torch.linspace(-0.4, 0.4, K)
+        uv[4, :, 1] = 0.0
+        mask[4] = True
+    uv, mask, tb = uv.to(dev), mask.to(dev), tb.to(dev)
     ch = td.pairs_channels(uv, mask, tiebreak=tb, tie_scale=0.02)
     before = pk.launches
     Wk = pk.pairs_argmin(*ch)
     torch.cuda.synchronize()
     assert pk.launches == before + 1
     assert torch.equal(Wk, pk.pairs_argmin_plain(*ch))
+    if A > 4 and K >= 3:
+        assert (Wk[4] == -1).all()
+        assert (Wk[3, 1, 0] == -1) and (Wk[3, 0, 1] >= 2)
+
+
+def test_kernel_matches_plain_version_on_hard_geometry(dev):
+    """Near-ties for the kernel's certified sweep (points on near-parallel
+    scan lines, duplicated points, a voxel at the 1e-3 scale floor) and its
+    exact fallback (a coordinate past 2^16, a negative eps)."""
+    rng = np.random.default_rng(7)
+    A, K = 64, 48
+    uv = rng.uniform(-0.3, 0.3, (A, K, 2)).astype(np.float32)
+    mask = rng.random((A, K)) < 0.7
+    for a in range(0, 16):                       # three scan lines
+        t = rng.uniform(-0.3, 0.3, K).astype(np.float32)
+        line = rng.integers(0, 3, K)
+        uv[a, :, 0] = t
+        uv[a, :, 1] = 0.05 * line + 1e-4 * rng.standard_normal(K) + 0.01 * t
+    uv[16:24, K // 2:] = uv[16:24, :K // 2]      # every point twice
+    uv[24:32] *= 1e-3
+    uv[32, 5] = [7e4, 1.0]
+    mask[32, 5] = True
+    tb = rng.integers(-2 ** 31, 2 ** 31 - 1, (A, K), dtype=np.int32)
+    uv, mask, tb = (torch.from_numpy(x).to(dev) for x in (uv, mask, tb))
+    u, v, lift, valid, d_eps = td.pairs_channels(uv, mask, tiebreak=tb,
+                                                 tie_scale=0.02)
+    d_eps = d_eps.clone()
+    d_eps[33] = -1e-4
+    ch = (u, v, lift, valid, d_eps)
+    Wk = pk.pairs_argmin(*ch)
+    torch.cuda.synchronize()
+    assert torch.equal(Wk, pk.pairs_argmin_plain(*ch))
+    assert (Wk[:32] >= 0).any(-1).any(-1).all()
+
+
+def _planted_ties(seed, A, K):
+    """Rotated, shifted and scaled 7×7 grids (their first K points), all
+    valid, with a zero tiebreak so the lift is u² + v² unperturbed: the
+    corners of each grid square are cocircular, so many rows (i, j) hold
+    several k whose rounded ratios RN(Np/d) are equal."""
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(np.arange(7), np.arange(7)), -1).reshape(-1, 2)
+    g = g[:K] - 3.0
+    uv = np.zeros((A, K, 2), np.float32)
+    for a in range(A):
+        th = rng.uniform(0.0, 2.0 * np.pi)
+        rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        uv[a] = (g * rng.uniform(0.03, 0.1)) @ rot + rng.uniform(-0.05, 0.05, 2)
+    return (torch.from_numpy(uv), torch.ones((A, K), dtype=torch.bool),
+            torch.zeros((A, K), dtype=torch.int32))
+
+
+def test_certified_sweep_settles_planted_ties(dev, tmp_path):
+    """Both branches of the kernel's certified sweep that decide exactness
+    run and give the plain version's W: the exact resolution of the k it
+    cannot prove out, and the tie rule (equal rounded ratios go to the
+    smaller k).  A build of the kernel with branch counters, on planted
+    ties."""
+    lib_path = str(tmp_path / "libpairs_argmin_counted.so")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
+                    "-DPAIRS_ARGMIN_BRANCH_COUNTS", "-o", lib_path,
+                    build.source_path(pk.NAME)], check=True)
+    lib = pk._bind(ctypes.CDLL(lib_path))
+    read = lib.pairs_argmin_branch_counts
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    counts = (ctypes.c_ulonglong * 2)()
+    assert read(counts) == 0                     # and zeroed
+    uv, mask, tb = (x.to(dev) for x in _planted_ties(5, 64, 48))
+    ch = td.pairs_channels(uv, mask, tiebreak=tb, tie_scale=0.02)
+    W = torch.empty((64, 48, 48), dtype=torch.int32, device=dev)
+    pk._launch(lib, *ch, W)
+    torch.cuda.synchronize()
+    assert read(counts) == 0
+    resolved, ties = counts
+    print(f"planted ties: {resolved} k resolved exactly, {ties} ties taken "
+          f"by the smaller k")
+    assert torch.equal(W, pk.pairs_argmin_plain(*ch))
+    assert ties > 0 and resolved > ties
 
 
 def test_kernel_wrapper_rejects_bad_inputs(dev):
@@ -106,7 +201,7 @@ def _incircle_args(seed, A, K, dev):
 
 
 @pytest.mark.parametrize("A,K", [(512, 48), (509, 48), (64, 20), (8, 128),
-                                 (3, 3)])
+                                 (3, 3), (64, 47)])
 def test_incircle_kernel_matches_plain_version(dev, A, K):
     args = _incircle_args(A + K, A, K, dev)
     before = ik.launches
@@ -132,6 +227,10 @@ def test_incircle_kernel_wrapper_rejects_bad_inputs(dev):
         ik.incircle_min_scores(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError):
         ik.incircle_min_scores(*args[:5], args[5].cpu())
+    half = args[3].clone()
+    half[5, 0] = 0.5
+    with pytest.raises(ValueError, match="1.0 and 0.0"):
+        ik.incircle_min_scores(*args[:3], half, *args[4:])
 
 
 def test_delaunay_mask_on_the_card_equals_the_cpu(dev):

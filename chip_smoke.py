@@ -34,7 +34,23 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 pairs_argmin in the path's chunks (bit parity, device time,
                 fill), the O(K⁴) incircle oracle delaunay_mask (the
                 incircle kernel) and the production delaunay_pairs; every
-                triangle on which the last two disagree must be a tie.
+                triangle on which the last two disagree must be a tie;
+  8. ba       — ImMeshRuntime at the Avia operating point with window BA on
+                at its defaults (8 keyframes of 512 points, 256 landmarks,
+                4 GN iterations, pose feedback) for 3 warm-up plus
+                BA_FRAMES timed frames: ≥ 3 refinements, finite costs,
+                poses within BA_POSE_TOL_M of ground truth, pairs_argmin
+                on the path; times frames with and without a refinement
+                and each refine; the first window solved again on the CPU
+                must agree with the card's solve;
+  8b. ba_ab   — the localization replay of bench.py's `loc_kick0.2_w5`
+                (a clean map, then a handicapped filter with recurring
+                0.2 m kicks) with BA off and on: BA must lower the ATE;
+  9. render   — from phase 8's runtime: reinforce() against the same
+                rasterization on the CPU (time, peak memory), the snapshot
+                views, the plane-map PLY round trip, the live viewer's
+                endpoints over a few more frames, and the scipy oracle
+                mesh's boundary edges beside the store's.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -88,6 +104,29 @@ AVIA_FRAMES = 30  # timed, after 3 warm-up: the 33 frames the bounds come from
 IMU_WARM = 4
 IMU_WARM_STEP_TOL_M = 3e-3
 IMU_WARM_GT_TOL_M = 0.01
+# BA-on Avia runtime (phase 8): the JAX reference ImMeshRuntime on the CPU,
+# on these frames with window BA on at its defaults (same simulator, seed,
+# static init and alignment; tests/torch_ba_reference.py) refines on frames
+# 31, 52 and 73 and peaks at 0.0477 m pose error on frame 79, the last of
+# the 80 (its error grows from frame ~55 and each refinement pulls it
+# back).  The bound leaves the port ~50 % above the reference's own error;
+# 3 warm-up plus BA_FRAMES timed frames reach the third refinement with 6
+# frames to spare.
+BA_REF_POSE_M = 0.0477
+BA_POSE_TOL_M = 0.072
+BA_FRAMES = 77
+# the card's solve of the first window against the port's solve of the
+# same WindowProblem on the CPU (cuSOLVER against LAPACK Cholesky)
+BA_SOLVE_TOL = 1e-3
+VIEWER_FRAMES = 3  # phase 9: frames run with the live viewer on
+# phase 8b, bench.py's BA_SCENARIOS["loc_kick0.2_w5"] on the JAX reference
+# (BENCH_DETAIL.json, ba_ab_table): ATE with BA off and on, metres
+BA_AB_REF_M = (0.1338, 0.1258)
+# phase 9: pixels hit on one side only when the card's depth image is held
+# against the CPU's rasterization of the same mesh (a pixel centre exactly
+# on an edge may fall either side), and the relative depth tolerance
+RASTER_PIXEL_SHARE = 1e-3
+RASTER_RTOL = 1e-5
 # audit: a triangle on which the incircle oracle and the pairs argmin
 # disagree must have an f64 incircle margin (on the lifted points both
 # see) below this fraction of scale⁴ — 10× the keep threshold ε = 1e-6·s⁴
@@ -920,6 +959,340 @@ def phase_audit(dev, rt) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the runtime with window BA at the Avia operating point
+# ---------------------------------------------------------------------------
+def ba_config():
+    """PRESETS["avia"] with BaConfig(enabled=True) at its defaults."""
+    from immesh_tpu_torch.config import BaConfig
+    return avia_config().replace(ba=BaConfig(enabled=True))
+
+
+def phase_ba(dev, n_frames: int, warmup: int):
+    """ImMeshRuntime with BA on over warm-up plus n_frames; returns the
+    runtime, the simulator, the frame count and the VIEWER_FRAMES bundles
+    after them, and the pairs_argmin launches."""
+    from immesh_tpu_torch.dist import window_ba
+    from immesh_tpu_torch.eval.ate import evaluate_ate, from_rows
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.lio import window
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
+
+    cfg = ba_config()
+    bc = cfg.ba
+    sim = make_avia_sim(cfg)
+    static = sim.static_imu(100)
+    n_all = warmup + n_frames
+    gt = [sim.frame(k) for k in range(n_all + VIEWER_FRAMES)]
+    frames = [bundle(f, cfg, dev) for f in gt]
+    rt = ImMeshRuntime(cfg, device=dev)
+    rt.static_init(*static)
+    R0, p0 = sim.traj.pose(0.0)
+    R_align = R0 @ rt.lio.state.rot.cpu().numpy().astype(np.float64).T
+
+    # the first window's problem and the card's solution, and the time of
+    # every refine (CUDA events around WindowBA.refine)
+    first, refine_ms = [], []
+    solve_on_card = window.solve_window
+
+    def capture(prob, **kw):
+        sol = solve_on_card(prob, **kw)
+        if not first:
+            first.append((prob, sol, kw))
+        return sol
+
+    refine = rt.ba.refine
+
+    def timed_refine(vm):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = refine(vm)
+        e1.record()
+        torch.cuda.synchronize()
+        refine_ms.append(e0.elapsed_time(e1))
+        return out
+
+    window.solve_window = capture
+    rt.ba.refine = timed_refine
+    pk.reset_launches()
+    ms_plain, ms_refined, errs, costs, rows = [], [], [], [], []
+    for k in range(n_all):
+        t1 = time.perf_counter()
+        st = rt.process_frame(frames[k], t=k * sim.scan_T)
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - t1)
+        err = float(np.linalg.norm(R_align @ st["pos"].astype(np.float64)
+                                   + p0 - gt[k].gt_pos))
+        if not err <= BA_POSE_TOL_M:
+            raise AssertionError(
+                f"BA frame {k}: pose {err:.4f} m from ground truth (limit "
+                f"{BA_POSE_TOL_M} m)")
+        errs.append(err)
+        rows.append((k * sim.scan_T, *st["pos"], 0, 0, 0, 1))
+        if st["ba_cost"] is not None:
+            if not np.isfinite(st["ba_cost"]):
+                raise AssertionError(f"BA frame {k}: window cost "
+                                     f"{st['ba_cost']}")
+            costs.append((k, st["ba_cost"]))
+        if k >= warmup:
+            (ms_plain if st["ba_cost"] is None else ms_refined).append(dt)
+        log(f"[ba] frame {k:2d}: {dt:7.1f} ms, pose err {err:.4f} m, "
+            f"{len(rt.ba.kf_rot)} keyframes in the window"
+            + (f", refined: cost {st['ba_cost']:.4f}"
+               if st["ba_cost"] is not None else ""))
+    window.solve_window = solve_on_card
+    rt.ba.refine = refine
+    launches = pk.launches
+    if rt.ba.n_refinements < 3:
+        raise AssertionError(f"{rt.ba.n_refinements} window refinements "
+                             "(at least 3 expected)")
+    if launches == 0:
+        raise AssertionError("pairs_argmin was never launched with BA on")
+
+    # the first window solved again by the port on the CPU
+    prob, sol, kw = first[0]
+    ref = window_ba.solve_window(prob.to("cpu"), **kw)
+    diffs = {key: float((sol[key].cpu() - ref[key]).abs().max())
+             for key in ("rot", "pos", "normal", "d")}
+    if not max(diffs.values()) <= BA_SOLVE_TOL:
+        raise AssertionError(f"first window: card and CPU solves differ "
+                             f"{diffs} (limit {BA_SOLVE_TOL})")
+    n_used = int((prob.weight > 0).sum())
+    log(f"[ba] first window (K={prob.rot.shape[0]}, M={prob.normal.shape[0]}"
+        f", {n_used} weighted points, {bc.iterations} iterations): card vs "
+        f"CPU solve max |Δ| " + ", ".join(f"{k} {v:.2e}"
+                                          for k, v in diffs.items())
+        + f" (limit {BA_SOLVE_TOL}); cost card {float(sol['cost']):.6f}, "
+        f"CPU {float(ref['cost']):.6f}")
+
+    gt_rows = [(k * sim.scan_T, *f.gt_pos, 0, 0, 0, 1)
+               for k, f in enumerate(gt[:n_all])]
+    ate = evaluate_ate(from_rows(rows), from_rows(gt_rows))
+    log(f"[ba] {n_frames} timed frames: {statistics.median(ms_plain):.1f} "
+        f"ms/frame median without a refinement ({len(ms_plain)} frames), "
+        f"{statistics.median(ms_refined):.1f} ms with one "
+        f"({len(ms_refined)}: {', '.join(f'{x:.1f}' for x in ms_refined)}); "
+        f"refine {statistics.median(refine_ms):.1f} ms median "
+        f"({', '.join(f'{x:.1f}' for x in refine_ms)}, CUDA events); "
+        f"{rt.ba.n_refinements} refinements on frames "
+        f"{[k for k, _ in costs]}; pose err max {max(errs):.4f} m (frame "
+        f"{int(np.argmax(errs))}; the JAX reference {BA_REF_POSE_M} m), "
+        f"last {errs[-1]:.4f} m; ATE "
+        f"{ate['ate_rmse']:.4f} m RMSE; pairs_argmin {launches} launches; "
+        f"live triangles {int(rt.mesh.store.n_triangles())}")
+    return rt, sim, n_all, frames[n_all:], launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: BA against drift, the loc_kick0.2_w5 replay
+# ---------------------------------------------------------------------------
+def phase_ba_ab(dev):
+    """bench.py::run_ba_scenario(kick_mag=0.2, window=5) on the port: a
+    clean localization map from 30 frames of 2,048 rays (seed 3), then 40
+    frames of 1,024 rays (seed 11) with a handicapped filter, no map
+    updates and a 0.2 m position kick every 10 frames; ATE with BA off and
+    on."""
+    from immesh_tpu_torch import interop
+    from immesh_tpu_torch.config import PRESETS, BaConfig, LioConfig
+    from immesh_tpu_torch.frontend.sim import LidarImuSimulator
+    from immesh_tpu_torch.lio.pipeline import LioPipeline
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
+
+    sim = LidarImuSimulator(n_rays=2048, seed=3)
+    R0, p0 = sim.traj.pose(0.0)
+    cfg_map = PRESETS["sim"]()
+    pipe = LioPipeline(cfg_map, device=dev)
+    pipe.static_init(*sim.static_imu(100))
+    for k in range(30):
+        pipe.step(bundle(sim.frame(k), cfg_map, dev))
+    vm_clean = interop.to_numpy({"vm": pipe.vm})
+
+    def run(ba_on):
+        sim2 = LidarImuSimulator(n_rays=1024, seed=11)
+        cfg = PRESETS["sim"]().replace(
+            lio=LioConfig(max_iterations=1, downsample_voxel=2.0,
+                          map_update_points=64, update_map=False),
+            ba=BaConfig(enabled=ba_on, window_size=5, kf_trans_thresh=0.25,
+                        pts_per_keyframe=512, iterations=8, huber_delta=0.3,
+                        odo_w_rot=1e2, odo_w_t=1e2))
+        rt = ImMeshRuntime(cfg, mesh_enabled=False, device=dev)
+        rt.static_init(*sim2.static_imu(100))
+        rt.lio.vm = interop.from_reference(vm_clean, cfg, device=dev)["vm"]
+        R_align = R0 @ rt.lio.state.rot.cpu().numpy().astype(np.float64).T
+        kick = np.random.default_rng(0)
+        errs = []
+        for k in range(40):
+            f = sim2.frame(k)
+            if k % 10 == 5:  # recurring disturbance
+                st = rt.lio.state
+                d = torch.from_numpy(kick.normal(0, 0.2, 3).astype(np.float32))
+                rt.lio.state = st.replace(pos=st.pos + d.to(dev))
+            rt.process_frame(bundle(f, cfg, dev), t=k * sim2.scan_T)
+            est = (R_align @ rt.lio.state.pos.cpu().numpy().astype(np.float64)
+                   + p0)
+            errs.append(np.linalg.norm(est - f.gt_pos))
+        rt.close()
+        return (float(np.sqrt(np.mean(np.square(errs)))),
+                rt.ba.n_refinements if rt.ba else 0)
+
+    ate_off, _ = run(False)
+    ate_on, n_ref = run(True)
+    if not ate_on < ate_off:
+        raise AssertionError(f"loc_kick0.2_w5: ATE with BA {ate_on:.4f} m, "
+                             f"without {ate_off:.4f} m")
+    log(f"[ba_ab] loc_kick0.2_w5: ATE {ate_off:.4f} m with BA off → "
+        f"{ate_on:.4f} m on ({n_ref} refinements); the JAX reference "
+        f"{BA_AB_REF_M[0]} → {BA_AB_REF_M[1]} m (BENCH_DETAIL.json)")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: reinforcement, views, plane map, live viewer, oracle mesh
+# ---------------------------------------------------------------------------
+def http_get(port: int, path: str) -> bytes:
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        body = r.read()
+    finally:
+        conn.close()
+    if r.status != 200:
+        raise AssertionError(f"GET {path}: HTTP {r.status}")
+    return body
+
+
+def phase_render(dev, rt, sim, n_before: int, frames):
+    """Phase 9 on phase 8's runtime; `frames` run with the live viewer on,
+    after the runtime's first n_before frames."""
+    import struct
+    import tempfile
+
+    from immesh_tpu_torch import interop
+    from immesh_tpu_torch.eval.mesh_quality import (
+        hole_stats, oracle_boundary_stats, store_faces)
+    from immesh_tpu_torch.render.live import _MAGIC
+    from immesh_tpu_torch.render.raster import PinholeCam, reinforce_scan
+    from immesh_tpu_torch.render.viewer import render_mesh_views
+    from immesh_tpu_torch.runtime.export import load_ply, save_plane_map_ply
+
+    # --- reinforcement on the card, against the CPU's rasterization
+    n_faces = int(rt.mesh.store.n_triangles())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    pts, depth = rt.reinforce()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() - base
+    hit = np.isfinite(depth)
+    if len(pts) == 0 or not np.isfinite(pts).all():
+        raise AssertionError(f"reinforce: {len(pts)} points")
+    pos = rt.lio.state.pos.cpu().numpy()
+    fwd = rt.lio.state.rot[:, 0].cpu().numpy()
+    cam = PinholeCam.looking(pos, pos + fwd, device="cpu")   # reinforce's
+    o = interop.from_reference(interop.to_numpy(
+        {"gm": rt.mesh.gm, "store": rt.mesh.store}), rt.cfg, device="cpu")
+    pts_c, depth_c = reinforce_scan(o["store"], o["gm"], cam, stride=2,
+                                    max_depth=80.0)
+    hit_c = np.isfinite(depth_c)
+    n_flip = int((hit != hit_c).sum())
+    both = hit & hit_c
+    rel = float(np.max(np.abs(depth[both] - depth_c[both]) / depth_c[both]))
+    if n_flip > RASTER_PIXEL_SHARE * depth.size or not rel <= RASTER_RTOL:
+        raise AssertionError(
+            f"reinforce: card and CPU depth differ: {n_flip} pixels hit on "
+            f"one side only, max relative depth difference {rel:.2e}")
+    log(f"[render] reinforce at {depth.shape[1]}x{depth.shape[0]} over "
+        f"{n_faces} live triangles: {ms:.1f} ms (CUDA events), peak "
+        f"{peak / 2 ** 20:.1f} MiB above the {base / 2 ** 20:.1f} MiB held; "
+        f"{int(hit.sum())} pixels hit, {len(pts)} points (CPU {len(pts_c)});"
+        f" card vs CPU: {n_flip} pixels hit on one side only, max relative "
+        f"depth difference {rel:.2e}")
+
+    # --- snapshot views of the extracted mesh from the same camera
+    verts, faces = rt.mesh.extract()
+    vdepth, shade = render_mesh_views(verts, faces, cam, device=dev)
+    vhit = np.isfinite(vdepth)
+    vd = vdepth[vhit]
+    if (not vhit.any() or (vhit != hit).sum() > RASTER_PIXEL_SHARE * hit.size
+            or not ((vd > cam.znear) & (vd < cam.zfar)).all()
+            or not ((shade >= 0) & (shade <= 1)).all()):
+        raise AssertionError("render_mesh_views: depth does not cover the "
+                             "mesh reinforce sees, or out of range")
+    log(f"[render] render_mesh_views: {int(vhit.sum())} pixels of finite "
+        f"depth ({int((vhit != hit).sum())} differ from reinforce's), "
+        f"shade in [0, 1]")
+
+    # --- plane-map PLY
+    out_dir = tempfile.mkdtemp(prefix="immesh_smoke_render_")
+    ply = os.path.join(out_dir, "planes.ply")
+    n_planes = save_plane_map_ply(rt.lio.vm, ply)
+    v, f, c = load_ply(ply)
+    n_valid = int(rt.lio.vm.n_planes())
+    if not (n_planes == n_valid > 0 and len(v) == 4 * n_valid
+            and len(f) == 2 * n_valid and len(c) == 4 * n_valid
+            and np.isfinite(v).all()):
+        raise AssertionError(f"plane map PLY: {n_planes} patches, {len(v)} "
+                             f"vertices, {len(f)} faces for {n_valid} planes")
+    log(f"[render] plane-map PLY: {n_planes} patches for {n_valid} valid "
+        f"planes round-trip through load_ply")
+
+    # --- the live viewer over a few more frames
+    url = rt.start_live_viewer(port=0, sync_every=1)
+    try:
+        port = int(url.rsplit(":", 1)[1].rstrip("/"))
+        for k, b in enumerate(frames):
+            t1 = time.perf_counter()
+            rt.process_frame(b, t=(n_before + k) * sim.scan_T)
+            torch.cuda.synchronize()
+            log(f"[render] viewer frame {k}: "
+                f"{1e3 * (time.perf_counter() - t1):.1f} ms with the sync")
+        st = json.loads(http_get(port, "/state?since=0"))
+        if not (st["n_triangles"] > 0 and st["changed"]
+                and len(st["traj"]) == len(frames)):
+            raise AssertionError(f"/state: {st['n_triangles']} triangles, "
+                                 f"{len(st['changed'])} regions changed")
+        rid = st["changed"][0]
+        raw = http_get(port, "/region/" + ",".join(map(str, rid)))
+        magic, rx, ry, rz, n = struct.unpack_from("<Iiiii", raw)
+        if not (magic == _MAGIC and [rx, ry, rz] == rid and n > 0
+                and len(raw) == 20 + 36 * n):
+            raise AssertionError(f"/region/{rid}: bad buffer")
+        tri = np.frombuffer(raw, "<f4", offset=20).reshape(n, 3, 3)
+        raw = http_get(port, "/planes")
+        (m,) = struct.unpack_from("<i", raw)
+        if not (m > 0 and np.isfinite(tri).all()):
+            raise AssertionError(f"/planes: {m} planes")
+        html = http_get(port, "/")
+        if b"webgl2" not in html:
+            raise AssertionError("/ does not serve the viewer")
+    finally:
+        rt.stop_live_viewer()
+    log(f"[render] live viewer at {url}: /state {st['n_triangles']} "
+        f"triangles in {st['n_regions']} regions, /region/{rid} {n} "
+        f"triangles, /planes {m} patches; server stopped")
+
+    # --- the scipy oracle mesh over the map beside the store
+    t1 = time.perf_counter()
+    oracle = oracle_boundary_stats(rt.mesh.gm)
+    store = hole_stats(store_faces(rt.mesh.store))
+    if oracle["n_edges"] == 0:
+        raise AssertionError("the oracle mesh is empty")
+    log(f"[render] boundary-edge fraction: store "
+        f"{store['boundary_fraction']:.4f} ({store['boundary_edges']} of "
+        f"{store['n_edges']} edges, {store['nonmanifold_edges']} "
+        f"non-manifold), scipy oracle {oracle['boundary_fraction']:.4f} "
+        f"({oracle['boundary_edges']} of {oracle['n_edges']}) over ≤ 4,096 "
+        f"voxels ({time.perf_counter() - t1:.1f} s)")
+    return {"reinforce_ms": ms, "reinforce_peak_bytes": peak}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40,
@@ -949,6 +1322,11 @@ def main() -> int:
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     pairs["launches_runtime"] = pk.launches  # counted from 0 by phase 6
     incircle["launches"] = phase_audit(dev, rt)
+    del rt
+    rt, sim, n_before, frames, pairs["launches_ba"] = phase_ba(
+        dev, BA_FRAMES, 3)
+    phase_ba_ab(dev)
+    phase_render(dev, rt, sim, n_before, frames)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -50,11 +50,15 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
 
     On the CPU the rows of a segment are summed in input order from zero,
     the order of a sequential scatter-add; on the card the segmented
-    reduction is deterministic as well."""
+    reduction is deterministic as well.  The segment offsets come from a
+    search of the sorted ids, so nothing waits on the device (bincount and
+    segment_reduce's own checks would each read a value back)."""
     seg = seg.long()
     order = torch.argsort(seg, stable=True)
-    lengths = torch.bincount(seg, minlength=num_segments)
-    return torch.segment_reduce(values[order], "sum", lengths=lengths, axis=0)
+    bounds = torch.arange(num_segments + 1, device=seg.device)
+    offsets = torch.searchsorted(seg[order], bounds)
+    return torch.segment_reduce(values[order], "sum", offsets=offsets,
+                                axis=0, unsafe=True)
 
 
 def compact_indices(keep: torch.Tensor, k: int) -> torch.Tensor:

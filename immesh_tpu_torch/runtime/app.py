@@ -12,16 +12,20 @@ them.
   * the full deskewed world scan handed to meshing;
   * per-frame cost-time rows in the reference's log schema, written one
     frame late so no read of a device scalar waits on the running frame;
+  * sliding-window plane BA (`cfg.ba.enabled`): each frame's posterior
+    pose and world scan go to `WindowBA.observe`, and a refined window's
+    correction is left-applied to the live filter;
+  * the live viewer (`start_live_viewer`): the dirty mesh regions and the
+    plane-map overlay are synced to the host every `sync_every` frames, and
+    its pause control holds `run`;
+  * point-cloud reinforcement (`reinforce`) at the viewer's settings;
   * mesh export and whole-state checkpoints.
-
-Not ported yet (each raises NotImplementedError, ROADMAP.md queue 1): the
-live viewer and `reinforce` (render/, item 12) and window bundle adjustment
-(`cfg.ba.enabled`, lio/window.py, item 11).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from collections import deque
 from typing import Iterable, Optional
 
@@ -33,7 +37,11 @@ from immesh_tpu_torch.core import so3
 from immesh_tpu_torch.device import resolve_device
 from immesh_tpu_torch.frontend.types import ScanBundle
 from immesh_tpu_torch.lio.pipeline import LioPipeline
+from immesh_tpu_torch.lio.window import WindowBA
 from immesh_tpu_torch.mesh.pipeline import MeshPipeline
+from immesh_tpu_torch.render.live import (
+    LiveMeshServer, RegionCache, extract_planes)
+from immesh_tpu_torch.render.raster import PinholeCam, reinforce_scan
 from immesh_tpu_torch.runtime.export import (
     save_checkpoint, save_ply, smooth_vertices)
 from immesh_tpu_torch.utils.timers import (
@@ -45,15 +53,12 @@ class ImMeshRuntime:
 
     def __init__(self, cfg: ImMeshConfig, log_dir: Optional[str] = None,
                  mesh_enabled: bool = True, device="cuda"):
-        if cfg.ba.enabled:
-            raise NotImplementedError(
-                "window bundle adjustment (cfg.ba.enabled) is not ported yet "
-                "(ROADMAP.md queue 1 item 11, lio/window.py)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lio = LioPipeline(cfg, device=self.device)
         self.mesh = (MeshPipeline(cfg, device=self.device)
                      if mesh_enabled else None)
+        self.ba = WindowBA(cfg) if cfg.ba.enabled else None
         self.timer = Timer()
         self.frame_idx = 0
         if log_dir:
@@ -66,16 +71,30 @@ class ImMeshRuntime:
             self.traj_log = TrajectoryLogger(None)
             self.cost_log = CostTimeLogger(None)
         self._pending_cost = deque()
+        self._live = None
+        self._live_cache = None
+        self._live_sync_every = 5
 
-    def start_live_viewer(self, *args, **kwargs) -> str:
-        raise NotImplementedError(
-            "the live mesh viewer is not ported yet (ROADMAP.md queue 1 "
-            "item 12, render/live.py)")
+    # ------------------------------------------------------------------
+    def start_live_viewer(self, host: str = "127.0.0.1", port: int = 0,
+                          sync_every: int = 5) -> str:
+        """Serve the live WebGL mesh viewer (reference GUI window analogue,
+        ImMesh_node.cpp:298-525); returns its URL.  Dirty regions are synced
+        to the host cache every `sync_every` frames (the reference uses a
+        100 ms sync thread, mesh_rec_display.cpp:262-271)."""
+        if self.mesh is None:
+            raise RuntimeError("the live viewer needs meshing enabled")
+        self._live_cache = RegionCache(self.cfg.mesh.region_size,
+                                       self.cfg.mesh.voxel_resolution,
+                                       self.cfg.mesh.display_smooth_lam)
+        self._live = LiveMeshServer(self._live_cache, host, port).start()
+        self._live_sync_every = max(1, sync_every)
+        return self._live.url
 
-    def reinforce(self, cam=None):
-        raise NotImplementedError(
-            "point-cloud reinforcement is not ported yet (ROADMAP.md queue 1 "
-            "item 12, render/raster.py)")
+    def stop_live_viewer(self) -> None:
+        if self._live is not None:
+            self._live.stop()
+            self._live = None
 
     # ------------------------------------------------------------------
     def static_init(self, acc: np.ndarray, gyr: np.ndarray) -> None:
@@ -105,8 +124,35 @@ class ImMeshRuntime:
             mesh_ms = self.timer.toc("mesh")
 
         pos = self.lio.state.pos.cpu().numpy()
+        ba_cost = None
+        if self.ba is not None:
+            corr = self.ba.observe(self.lio.state.rot, pos, world_scan,
+                                   bundle.mask, self.lio.vm)
+            if corr is not None:
+                ba_cost = corr["cost"]
+                if self.cfg.ba.apply_correction:
+                    # left-apply the window's world-frame correction to the
+                    # live filter (velocity rotates with the frame; gravity
+                    # and biases are frame-invariant here)
+                    st = self.lio.state
+                    dR, dp = (torch.from_numpy(np.asarray(
+                        corr[key], np.float32)).to(self.device)
+                        for key in ("d_rot", "d_pos"))
+                    self.lio.state = st.replace(
+                        rot=dR @ st.rot, pos=dR @ st.pos + dp,
+                        vel=dR @ st.vel)
+                    pos = self.lio.state.pos.cpu().numpy()
         quat = so3.rot_to_quat(self.lio.state.rot).cpu().numpy()  # wxyz
         self.traj_log.record(t, pos, (*quat[1:4], quat[0]))
+        if self._live is not None:
+            self._live.record_pose(t, pos, (*quat[1:4], quat[0]))
+            if self.frame_idx % self._live_sync_every == 0:
+                self.mesh.store = self._live_cache.sync(
+                    self.mesh.gm, self.mesh.store)
+                # plane-map overlay (reference pubPlaneMap,
+                # voxel_mapping.cpp:947-1159): the LIO map's fitted planes
+                # beside the mesh regions
+                self._live.record_planes(extract_planes(self.lio.vm))
         self._pending_cost.append(
             (self.frame_idx, mesh_ms, n_active_dev, lio_ms))
         # flush rows at least one frame old: their work has retired
@@ -118,16 +164,45 @@ class ImMeshRuntime:
             # device scalars — callers that want numbers int() them
             "n_active_voxels": n_active_dev,
             "n_effective": diag["n_effective"],
-            "ba_cost": None,
+            "ba_cost": ba_cost,
         }
 
     def _flush_cost(self) -> None:
         fi, mms, nact, lms = self._pending_cost.popleft()
         self.cost_log.record(fi, mms, 0 if nact is None else int(nact), lms)
 
+    def reinforce(self, cam=None):
+        """LiDAR point-cloud reinforcement at the viewer's runtime-mutable
+        density/depth settings (the reference exposes these live in its GUI,
+        ImMesh_node.cpp:305-329): rasterize the current mesh from `cam` (or
+        a forward-looking camera at the current sensor pose) and synthesize
+        densified points from the depth buffer.  Returns (points (N, 3),
+        depth image) as numpy arrays."""
+        step, max_depth = 2, 80.0
+        if self._live is not None:
+            c = self._live.controls
+            step = max(1, int(c.get("reinf_step", step)))
+            max_depth = float(c.get("reinf_max_depth", max_depth))
+        if cam is None:
+            pos = self.lio.state.pos.cpu().numpy()
+            fwd = self.lio.state.rot[:, 0].cpu().numpy()  # body +x in world
+            cam = PinholeCam.looking(pos, pos + fwd, device=self.device)
+        return reinforce_scan(self.mesh.store, self.mesh.gm, cam,
+                              stride=step, max_depth=max_depth)
+
+    @property
+    def paused(self) -> bool:
+        """Runtime-mutable pause from the live viewer (the reference's GUI
+        pause flag halts `service_LiDAR_update`, ImMesh_node.cpp:360-432)."""
+        return self._live is not None and self._live.paused
+
     def run(self, bundles: Iterable[ScanBundle]) -> list:
-        return [self.process_frame(b, t=k * 0.1)
-                for k, b in enumerate(bundles)]
+        out = []
+        for k, b in enumerate(bundles):
+            while self.paused:
+                time.sleep(0.05)
+            out.append(self.process_frame(b, t=k * 0.1))
+        return out
 
     # ------------------------------------------------------------------
     def save_mesh(self, path: str, smooth_iters: int = 0) -> tuple:

@@ -5,22 +5,23 @@ C20/C23):
   * binary-little-endian PLY mesh export with optional Laplacian vertex
     smoothing (`save_to_ply_file` + `smooth_all_pts`, reference
     src/meshing/mesh_rec_geometry.cpp:60-131);
+  * the plane-map PLY: the LIO map's fitted planes as colored patches
+    (`save_plane_map_ply`, the reference's `pubPlaneMap` MarkerArray);
   * PCD point export and import;
   * whole-state checkpoints: one npz of the state's tensors flattened in
     the JAX pytree order (`n_leaves`, `leaf_{i}`), so a checkpoint written
     by either package loads into the other.
-
-The plane-patch PLY export (`extract_plane_patches`, `save_plane_map_ply`)
-is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from immesh_tpu_torch.map.voxel_map import _sym_unpack
 
 
 # ----------------------------------------------------------------------
@@ -57,6 +58,90 @@ def save_ply(path: str, verts: np.ndarray, faces: np.ndarray,
         rec["n"] = 3
         rec["v"] = faces
         f.write(rec.tobytes())
+
+
+def extract_plane_patches(vm, scale: float = 3.0,
+                          max_planes: Optional[int] = None
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """LIO plane-voxel map → displayable quads (verts, faces, colors).
+
+    The analogue of the reference's plane MarkerArray publisher `pubPlaneMap`
+    (reference src/voxel_mapping.cpp:947-1159): every fitted plane becomes a
+    flat patch centered on the plane centroid, spanned by the two in-plane
+    principal axes with half-extents `scale`·√λ (the reference draws
+    eigen-scaled CUBE markers), and jet-colored by the plane's normal
+    variance trace exactly like the reference colors by `plane_var`
+    (voxel_mapping.cpp:1004-1016 mapJet ramp).
+
+    Host-side (NumPy): visualization runs off the frame hot path.
+    Returns (verts (4P, 3) f32, faces (2P, 3) i32, colors (4P, 3) u8).
+    """
+    valid = vm.plane_valid.cpu().numpy()
+    slots = np.nonzero(valid)[0]
+    if max_planes is not None and slots.size > max_planes:
+        slots = slots[:max_planes]
+    P = slots.size
+    if P == 0:
+        return (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32),
+                np.zeros((0, 3), np.uint8))
+
+    sl = torch.from_numpy(slots).to(vm.plane_valid.device)
+    center = vm.center[sl].cpu().numpy()
+    lam = vm.lam[sl].cpu().numpy()             # ascending eigenvalues
+    sum_p = vm.sum_p[sl].cpu().numpy()
+    sum_ppT = _sym_unpack(vm.sum_ppT[sl]).cpu().numpy()
+    count = np.maximum(vm.count[sl].cpu().numpy(), 1.0)
+
+    # in-plane principal axes from the scatter covariance (the stored SoA
+    # keeps only eigenvalues; re-derive eigenvectors host-side).  Moments
+    # are ANCHORED at the voxel center (map/voxel_map.scan_aggregates), so
+    # the local mean — not the world-frame centroid — completes the square;
+    # covariance is translation-invariant so nothing else changes.
+    mean_l = sum_p / count[:, None]
+    cov = sum_ppT / count[:, None, None] - np.einsum(
+        "ni,nj->nij", mean_l, mean_l)
+    _, vecs = np.linalg.eigh(cov + 1e-12 * np.eye(3))
+    e1, e2 = vecs[:, :, 2], vecs[:, :, 1]       # largest, middle
+    a1 = scale * np.sqrt(np.maximum(lam[:, 2], 1e-12))[:, None]
+    a2 = scale * np.sqrt(np.maximum(lam[:, 1], 1e-12))[:, None]
+
+    corners = np.stack([
+        center - e1 * a1 - e2 * a2,
+        center + e1 * a1 - e2 * a2,
+        center + e1 * a1 + e2 * a2,
+        center - e1 * a1 + e2 * a2,
+    ], axis=1).reshape(-1, 3).astype(np.float32)          # (4P, 3)
+    base = 4 * np.arange(P, dtype=np.int32)[:, None]
+    faces = np.concatenate([
+        base + np.array([[0, 1, 2]], np.int32),
+        base + np.array([[0, 2, 3]], np.int32),
+    ], axis=0)
+
+    # jet ramp over normal-covariance trace (reference plane_var coloring)
+    tr = vm.cov_nn[sl].cpu().numpy()[:, [0, 3, 5]].sum(axis=1)
+    t = np.sqrt(np.maximum(tr, 0.0))
+    t = np.clip(t / (np.percentile(t, 95) + 1e-12), 0.0, 1.0)
+    colors4 = np.repeat(_jet(t), 4, axis=0)
+    return corners, faces, colors4
+
+
+def _jet(t: np.ndarray) -> np.ndarray:
+    """Jet-like color ramp t∈[0,1] → (N, 3) uint8 (reference mapJet,
+    tinycolormap usage in pubPlaneMap)."""
+    r = np.clip(1.5 - np.abs(4 * t - 3), 0, 1)
+    g = np.clip(1.5 - np.abs(4 * t - 2), 0, 1)
+    b = np.clip(1.5 - np.abs(4 * t - 1), 0, 1)
+    return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
+
+
+def save_plane_map_ply(vm, path: str, scale: float = 3.0,
+                       max_planes: Optional[int] = None) -> int:
+    """Write the plane-map visualization as a colored PLY; returns the number
+    of planes exported (reference publishes the same content as a ROS
+    MarkerArray on `/voxels`, src/voxel_mapping.cpp:947-1159)."""
+    verts, faces, colors = extract_plane_patches(vm, scale, max_planes)
+    save_ply(path, verts, faces, colors)
+    return len(verts) // 4
 
 
 def load_ply(path: str):

@@ -251,7 +251,10 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, immesh_tpu_torch, immesh_tpu_torch.runtime.joint, "
             "immesh_tpu_torch.interop, immesh_tpu_torch.runtime.app, "
             "immesh_tpu_torch.runtime.demo, immesh_tpu_torch.eval, "
-            "immesh_tpu_torch.eval.mesh_quality; "
+            "immesh_tpu_torch.eval.mesh_quality, "
+            "immesh_tpu_torch.lio.window, immesh_tpu_torch.dist.window_ba, "
+            "immesh_tpu_torch.render.raster, immesh_tpu_torch.render.live, "
+            "immesh_tpu_torch.render.viewer, immesh_tpu_torch.utils.console; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'immesh_tpu')]; "
             "assert not bad, bad")

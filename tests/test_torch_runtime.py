@@ -165,14 +165,21 @@ def test_offline_pointcloud_to_mesh():
 
 
 def test_unported_paths_raise():
+    """The one option left unported (MeshConfig.ablate, the reference's
+    profiling truncations) raises when a frame reaches it; a runtime with
+    window BA on constructs (tests/test_torch_window_ba.py and
+    tests/test_torch_render.py drive BA, the viewer and reinforcement)."""
     cfg = TConfig.from_dict(_config().to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TRuntime(cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=True)),
-                 device="cpu")
-    rt = TRuntime(cfg, mesh_enabled=False, device="cpu")
-    for call in (rt.start_live_viewer, rt.reinforce):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    rt = TRuntime(cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=True)),
+                  mesh_enabled=False, device="cpu")
+    assert rt.ba is not None and not rt.paused
+    rt = TRuntime(cfg.replace(mesh=dataclasses.replace(
+        cfg.mesh, ablate="skip_tri")), device="cpu")
+    sim = LidarImuSimulator(n_rays=N_RAYS, seed=6)
+    rt.static_init(*sim.static_imu(50))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        rt.process_frame(TBundle.from_numpy(*_args(sim, 0, _config()),
+                                            device="cpu"))
 
 
 def test_demo_main_runs_on_the_cpu(tmp_path, capsys):

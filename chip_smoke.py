@@ -50,7 +50,29 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 rasterization on the CPU (time, peak memory), the snapshot
                 views, the plane-map PLY round trip, the live viewer's
                 endpoints over a few more frames, and the scipy oracle
-                mesh's boundary edges beside the store's.
+                mesh's boundary edges beside the store's;
+ 10. frontend — the port's scanpack library built with the host C++
+                compiler; its decode of a 131,072-point buffer with NaN,
+                inf, blind, edge and out-of-range rows byte-identical to
+                its NumPy oracle in every LAYOUTS entry (host ms of each);
+                the IMU ring's push/drain round trip;
+ 11. replay   — the sensor-input paths into ImMeshRuntime: KITTI .bin
+                scans (131,072 rays, clockwise outdoor simulator) through
+                kitti_sequence → PacketSynchronizer (IMU off) →
+                ImMeshRuntime.run, and the Avia preset from the wire
+                (livox_custommsg bytes → decode_raw_buffer, the IMU
+                streamed one sample at a time) → next_bundle() →
+                process_frame; every pose within its bound, ATE, host ms of
+                decode + preprocess + sync beside the frame's ms,
+                pairs_argmin launched on both, the first bundles again on
+                the CPU;
+ 12. texture  — on the Avia wire run: 1280×1024 camera frames ray-cast
+                from the ground-truth poses and painted by a procedural
+                field, rendered every TEX_EVERY-th frame from the estimated
+                pose into a TexturePipeline (render ms, colours against the
+                paint, one render against the CPU), lk_track of 1,140 grid
+                features against the known image motion and the CPU, and
+                the coloured mesh through save_ply / load_ply.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -66,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -127,6 +150,45 @@ BA_AB_REF_M = (0.1338, 0.1258)
 # on an edge may fall either side), and the relative depth tolerance
 RASTER_PIXEL_SHARE = 1e-3
 RASTER_RTOL = 1e-5
+# phase 11: KITTI replay frames timed after 3 warm-up, and the bundles of
+# each sensor-input path run again on the CPU
+REPLAY_FRAMES = 20
+PARITY_FRAMES = 4
+# phase 12: the camera of the R3LIVE handheld rig whose datasets the
+# reference's texture application targets (1280×1024, f ≈ 863 px), mounted
+# on the body looking forward (camera x right, y down, z along body +x)
+CAM_W, CAM_H, CAM_F = 1280, 1024, 863.0
+CAM_R_BC = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+CAM_T_BC = np.array([0.10, 0.0, 0.05])
+TEX_EVERY = 3   # render every 3rd Avia frame (host ray-casting per image)
+# median |colour − paint| over the coloured points: 1.5× the 1.39 the port
+# gives on the CPU at a cut size (320×256 and 640×512 images, the Avia
+# preset at 4,096 rays without compaction, 33 frames;
+# tests/torch_texture_bounds.py)
+TEX_COLOR_TOL = 2.1
+# card against CPU: render_points fields at this relative tolerance where
+# both took the same gate decision, and at most RENDER_FLIPS decisions
+# apart (arccos and the bilinear weights may round differently); LK flows
+# within LK_CPU_TOL_PX, at most LK_STATUS_FLIPS statuses apart.  Ten
+# Gauss-Newton updates on 441-pixel sums taken in another order on each
+# of 3 levels: the worst flow difference over the ~880 tracked features
+# was 1.46e-3 px on an H100 (NVIDIA H100 80GB HBM3, 700.00 W); the bound
+# is 3.4× that
+RENDER_RTOL = 1e-5
+RENDER_FLIPS = 2
+LK_CPU_TOL_PX = 5e-3
+LK_STATUS_FLIPS = 2
+# LK from frame LK_FRAME to the next (launch ramp, ~18 px median motion)
+# on a grid of 38 × 30 = 1,140 features; of the chosen ones (lk_truth),
+# ≥ LK_MIN_TRACKED tracked, error median ≤ 1.5× and share within 1 px
+# ≥ the 0.100 px and 0.962 the port gives on the CPU at full size
+# (tests/torch_texture_bounds.py), less a margin
+LK_FRAME = 9
+LK_STEP, LK_MARGIN = 32, 40
+LK_RANGE_PX = 40.0   # half window 10 × 2^(3 levels − 1)
+LK_MIN_TRACKED = 0.9
+LK_MEDIAN_TOL_PX = 0.15
+LK_WITHIN_1PX = 0.9
 # audit: a triangle on which the incircle oracle and the pairs argmin
 # disagree must have an f64 incircle margin (on the lifted points both
 # see) below this fraction of scale⁴ — 10× the keep threshold ε = 1e-6·s⁴
@@ -184,12 +246,13 @@ def small_config():
     )
 
 
-def make_sim(n_rays: int, rings: int):
+def make_sim(n_rays: int, rings: int, clockwise: bool = False):
     from immesh_tpu_torch.frontend.sim import (
         ForwardTrajectory, LidarImuSimulator, outdoor_scene)
     return LidarImuSimulator(
         scene=outdoor_scene(length=400.0), traj=ForwardTrajectory(speed=9.0),
-        n_rays=n_rays, rings=rings, max_range=120.0, seed=0)
+        n_rays=n_rays, rings=rings, max_range=120.0, seed=0,
+        clockwise=clockwise)
 
 
 def bundle(f, cfg, device):
@@ -1293,6 +1356,709 @@ def phase_render(dev, rt, sim, n_before: int, frames):
     return {"reinforce_ms": ms, "reinforce_peak_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the host frontend's native decoder
+# ---------------------------------------------------------------------------
+def pack_points(layout: str, xyz, t_raw=None, ring=None) -> bytes:
+    """Serialise points into `layout`'s strided wire format: the fields
+    LAYOUTS names, every other byte 0 (a livox_custommsg point's
+    reflectivity and tag are 0: a normal return)."""
+    from immesh_tpu_torch.frontend.native import _NP_DTYPES, LAYOUTS
+    step, offs, t_off, t_dt, _, ring_off, ring_dt = LAYOUTS[layout]
+    n = len(xyz)
+    buf = np.zeros((n, step), np.uint8)
+
+    def put(off, vals, dt):
+        v = np.ascontiguousarray(vals, dt)
+        buf[:, off:off + v.itemsize] = v.view(np.uint8).reshape(n, v.itemsize)
+
+    for off, col in zip(offs, np.asarray(xyz, np.float32).T):
+        put(off, col, "<f4")
+    if t_raw is not None:
+        put(t_off, t_raw, _NP_DTYPES[t_dt])
+    if ring is not None and ring_off >= 0:
+        put(ring_off, ring, _NP_DTYPES[ring_dt])
+    return buf.tobytes()
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host wall time of `reps` calls of fn, in ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_frontend():
+    """The port's scanpack library, built with the machine's C++ compiler,
+    against its NumPy oracle on a KITTI-sized buffer in every layout; the
+    IMU ring round trip."""
+    from immesh_tpu_torch.frontend import native
+    from immesh_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    lib = build.build([native.NAME], force=True)[native.NAME]
+    build_s = time.perf_counter() - t0
+    pcfg = kitti_config().preprocess
+    n = 131072
+    rng = np.random.default_rng(10)
+    xyz = rng.uniform(-120, 120, (n, 3)).astype(np.float32)
+    xyz[0::997] = [np.nan, 1.0, 1.0]
+    xyz[1::1009] = [0.02, 0.0, 0.0]          # inside the blind radius
+    xyz[2::1013] = [pcfg.blind, 0.0, 0.0]    # on its edge
+    xyz[3::1019] = [200.0, 0.0, 0.0]         # beyond max_range
+    xyz[4::1021] = [pcfg.max_range, 0.0, 0.0]
+    xyz[5::1031] = [0.0, np.inf, 0.0]
+    times = {}
+    for layout in sorted(native.LAYOUTS):
+        step, offs, t_off, t_dt, t_sc, ring_off, ring_dt = \
+            native.LAYOUTS[layout]
+        t_raw = (rng.uniform(0, 0.1, n) / t_sc + 3.0).astype(
+            native._NP_DTYPES[t_dt])
+        buf = pack_points(layout, xyz, t_raw, rng.integers(0, 64, n))
+        raw = np.frombuffer(buf, np.uint8)
+        kw = dict(point_step=step, off_xyz=offs, t_off=t_off, t_dtype=t_dt,
+                  t_scale=t_sc, ring_off=ring_off, ring_dtype=ring_dt,
+                  blind=pcfg.blind, max_range=pcfg.max_range,
+                  filter_num=pcfg.point_filter_num, want_ring=True)
+        args = (raw, n, step, offs, t_off, t_dt, t_sc, ring_off, ring_dt,
+                pcfg.blind, pcfg.max_range, pcfg.point_filter_num, True)
+        got = native.decode_filter(buf, n, **kw)
+        want = native._decode_filter_numpy(*args)
+        for name, a, b in zip(("xyz", "t", "ring"), got, want):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"scanpack {layout}: {name} differs "
+                                     f"from the NumPy oracle")
+        if not 0 < len(got[0]) < n:
+            raise AssertionError(f"scanpack {layout}: {len(got[0])} points "
+                                 "kept")
+        times[layout] = (host_ms(lambda: native.decode_filter(buf, n, **kw),
+                                 5),
+                         host_ms(lambda: native._decode_filter_numpy(*args),
+                                 3))
+    ring = native.ImuRing(cap=4096)
+    stamps = np.arange(3000) * 0.005
+    acc = rng.normal(size=(3000, 3)).astype(np.float32)
+    gyr = rng.normal(size=(3000, 3)).astype(np.float32)
+    if not all(ring.push(s, a, g) for s, a, g in zip(stamps, acc, gyr)):
+        raise AssertionError("ImuRing refused a push below its capacity")
+    out = [ring.drain_until(t) for t in (4.9975, 9.9975, 20.0)]
+    s, a, g = (np.concatenate(x) for x in zip(*out))
+    if not (len(ring) == 0 and [len(o[0]) for o in out] == [1000, 1000, 1000]
+            and np.array_equal(s, stamps) and np.array_equal(a, acc)
+            and np.array_equal(g, gyr)):
+        raise AssertionError("ImuRing push/drain does not round-trip")
+    log(f"[frontend] {lib} built with the host compiler in {build_s:.1f} s; "
+        f"decode of {n} points (planted NaN, inf, blind, edge and "
+        f"out-of-range rows) byte-identical to the NumPy oracle in every "
+        f"layout; host ms native / NumPy: " + ", ".join(
+            f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in times.items())
+        + "; ImuRing round-trips 3,000 samples")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sensor-input paths into ImMeshRuntime
+# ---------------------------------------------------------------------------
+def bundle_of(pts, t_rel, f, cfg, device):
+    """A ScanBundle of preprocessed points and, where f is a simulator
+    frame, its IMU samples (one zero sample without)."""
+    from immesh_tpu_torch.frontend.types import ScanBundle
+    if f is None:
+        imu = (np.zeros(1, np.float32), np.zeros((1, 3), np.float32),
+               np.zeros((1, 3), np.float32))
+    else:
+        imu = (f.imu_stamps, f.imu_acc, f.imu_gyr)
+    return ScanBundle.from_numpy(
+        pts, t_rel, *imu, 0.1, cfg.preprocess.max_points,
+        cfg.imu.max_imu_per_scan, device=device)
+
+
+def same_bundle(a, b) -> bool:
+    names = ("pts", "t_rel", "mask", "imu_stamps", "imu_acc", "imu_gyr",
+             "imu_mask", "scan_duration")
+    return all(torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu())
+               for k in names)
+
+
+def phase_replay_kitti(dev, n_frames: int, warmup: int):
+    """KITTI .bin scans from the clockwise outdoor simulator read back
+    through kitti_sequence → PacketSynchronizer (IMU off) →
+    ImMeshRuntime.run on the card; the first PARITY_FRAMES bundles again
+    through a CPU synchronizer and runtime."""
+    import tempfile
+
+    from immesh_tpu_torch.config import LidarType
+    from immesh_tpu_torch.eval.ate import evaluate_ate, from_rows, load_tum
+    from immesh_tpu_torch.frontend.preprocess import (
+        Preprocessor, kitti_sequence, read_kitti_bin)
+    from immesh_tpu_torch.frontend.sync import PacketSynchronizer
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
+
+    base = kitti_config()
+    cfg = base.replace(preprocess=dataclasses.replace(
+        base.preprocess, lidar_type=LidarType.KITTI64, calib_laser=False))
+    N = cfg.preprocess.max_points
+    n_all = warmup + n_frames
+    t0 = time.perf_counter()
+    sim = make_sim(N, 64, clockwise=True)
+    out_dir = tempfile.mkdtemp(prefix="immesh_smoke_kitti_")
+    vdir = os.path.join(out_dir, "velodyne")
+    os.makedirs(vdir)
+    gt = []
+    for k in range(n_all):
+        f = sim.frame(k)
+        np.concatenate([f.pts, np.ones((len(f.pts), 1), np.float32)],
+                       axis=1).astype(np.float32).tofile(
+                           os.path.join(vdir, f"{k:06d}.bin"))
+        gt.append(f.gt_pos)
+    log(f"[replay] {n_all} KITTI .bin scans of {N} rays written in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+    sync = PacketSynchronizer(cfg, device=dev)
+    rt = ImMeshRuntime(cfg, log_dir=out_dir, device=dev)
+    host, frame_ms, counts, firsts = [], [], [], []
+
+    def bundles():
+        scans = kitti_sequence(vdir)
+        while True:
+            t1 = time.perf_counter()
+            scan = next(scans, None)
+            if scan is None:
+                return
+            sync.push_scan(scan)
+            b = sync.next_bundle()
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t1))
+            if len(firsts) < PARITY_FRAMES:
+                firsts.append(b)
+            t2 = time.perf_counter()
+            yield b
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t2))
+            if len(counts) < PARITY_FRAMES:
+                counts.append((int(rt.mesh.store.n_triangles()),
+                               int(rt.mesh.gm.n_points())))
+
+    pk.reset_launches()
+    outs = rt.run(bundles())
+    launches = pk.launches
+    rt.close()
+    R0, p0 = sim.traj.pose(0.0)
+    errs = [float(np.linalg.norm(R0 @ o["pos"].astype(np.float64) + p0 - g))
+            for o, g in zip(outs, gt)]
+    if len(outs) != n_all or not max(errs) <= POSE_TOL_M:
+        raise AssertionError(f"KITTI replay: {len(outs)} frames, pose err "
+                             f"max {max(errs):.3f} m (limit {POSE_TOL_M} m)")
+    if launches == 0:
+        raise AssertionError("pairs_argmin was never launched on the KITTI "
+                             "replay")
+    gt_rows = [(k * 0.1, *g, 0, 0, 0, 1) for k, g in enumerate(gt)]
+    ate = evaluate_ate(load_tum(os.path.join(out_dir, "kitti_log.txt")),
+                       from_rows(gt_rows))
+    # the host work of one frame, stage by stage, on the last scan
+    path = os.path.join(vdir, f"{n_all - 1:06d}.bin")
+    pre = Preprocessor(cfg.preprocess)
+    scan = read_kitti_bin(path)
+    pts, t_rel = pre.process(scan)
+    split = {
+        "read_kitti_bin": host_ms(lambda: read_kitti_bin(path), 5),
+        "Preprocessor.process": host_ms(lambda: pre.process(scan), 5),
+        "ScanBundle.from_numpy + upload": host_ms(
+            lambda: (bundle_of(pts, t_rel, None, cfg, dev),
+                     torch.cuda.synchronize()), 5)}
+
+    # the first bundles through a CPU synchronizer and runtime, chained
+    t1 = time.perf_counter()
+    sync_c = PacketSynchronizer(cfg, device="cpu")
+    rt_c = ImMeshRuntime(cfg, device="cpu")
+    for k, scan in zip(range(PARITY_FRAMES), kitti_sequence(vdir)):
+        sync_c.push_scan(scan)
+        b = sync_c.next_bundle()
+        if not same_bundle(b, firsts[k]):
+            raise AssertionError(f"KITTI replay bundle {k}: the CPU "
+                                 "synchronizer's differs from the card's")
+        pos = rt_c.process_frame(b, t=k * 0.1)["pos"]
+        dp = float(np.abs(pos - outs[k]["pos"]).max())
+        nt, npt = (int(rt_c.mesh.store.n_triangles()),
+                   int(rt_c.mesh.gm.n_points()))
+        na, pa = counts[k]
+        if (dp > 1e-3 or abs(na - nt) > TRI_COUNT_RTOL * max(nt, 1)
+                or abs(pa - npt) > 0.01 * max(npt, 1)):
+            raise AssertionError(
+                f"KITTI replay frame {k}: card and CPU disagree: |Δpos| "
+                f"{dp:.2e} m, triangles {na} vs {nt}, points {pa} vs {npt}")
+    cpu_s = time.perf_counter() - t1
+    med = statistics.median(frame_ms[warmup:])
+    log(f"[replay] KITTI .bin → kitti_sequence → PacketSynchronizer → "
+        f"ImMeshRuntime.run, {n_frames} timed frames: host read + "
+        f"preprocess + sync + upload {statistics.median(host[warmup:]):.1f} "
+        f"ms/frame median ({min(host[warmup:]):.1f}-"
+        f"{max(host[warmup:]):.1f}), the runtime's frame {med:.1f} ms "
+        f"median, p90 {np.percentile(frame_ms[warmup:], 90):.1f} ms; "
+        f"pairs_argmin {launches} launches; pose err max {max(errs):.3f} m, "
+        f"last {errs[-1]:.3f} m; ATE {ate['ate_rmse']:.4f} m RMSE over "
+        f"{ate['n_pairs']} frames; live triangles "
+        f"{int(rt.mesh.store.n_triangles())}, map points "
+        f"{int(rt.mesh.gm.n_points())}")
+    log("[replay] KITTI host ms per frame by stage (median of 5): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    log(f"[replay] KITTI: the first {PARITY_FRAMES} bundles again through a "
+        f"CPU synchronizer (byte-identical bundles) and runtime agree with "
+        f"the card (last |Δpos| {dp:.2e} m, triangles {na} vs {nt}, points "
+        f"{pa} vs {npt}; {cpu_s:.1f} s on the CPU)")
+    return {"launches": launches, "host_ms": statistics.median(
+        host[warmup:]), "frame_ms": med}
+
+
+def phase_replay_avia(dev, n_frames: int, warmup: int, on_frame=None):
+    """The Avia preset fed from the wire: each simulator frame serialised
+    to livox_custommsg bytes and decoded by decode_raw_buffer, the IMU
+    streamed one sample at a time into PacketSynchronizer.push_imu;
+    next_bundle() → ImMeshRuntime.process_frame on the card.  `on_frame(k,
+    rt)` runs after frame k's timing (phase 12).  The first IMU_WARM
+    frames are stepped again on the CPU from the card's state, as phase 5
+    does.  Returns the runtime, the simulator and the filter alignment."""
+    from immesh_tpu_torch import interop
+    from immesh_tpu_torch.frontend.preprocess import decode_raw_buffer
+    from immesh_tpu_torch.frontend.sync import PacketSynchronizer
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
+
+    cfg = avia_config()
+    N = cfg.preprocess.max_points
+    n_all = warmup + n_frames
+    t0 = time.perf_counter()
+    sim = make_avia_sim(cfg)
+    static = sim.static_imu(100)
+    gt = [sim.frame(k) for k in range(n_all)]
+    # u32 ns offset time, the CustomMsg field; the time round trip through
+    # decode_raw_buffer and the preprocessor moves t_rel by ≤ 1 ns plus f32
+    # rounding, so poses are held to ground truth, not to phase 6's
+    wire = [pack_points("livox_custommsg", f.pts,
+                        np.round(f.t_rel.astype(np.float64) * 1e9))
+            for f in gt]
+    log(f"[replay] {n_all} Avia frames serialised to livox_custommsg "
+        f"({len(wire[0]) // len(gt[0].pts)} B/point) in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+    # Scan stamps accumulate one f32-exact period, so the last IMU sample
+    # of frame k (stamp_k + f32(0.1)) and the start of frame k + 1 are the
+    # same double: each boundary sample is pushed once (with frame k) and
+    # lies in both frames' [stamp, stamp + duration] windows.
+    period = float(np.float32(sim.scan_T))
+    sync = PacketSynchronizer(cfg, device=dev)
+    rt = ImMeshRuntime(cfg, device=dev)
+    rt.static_init(*static)
+    R0, p0 = sim.traj.pose(0.0)
+    R_align = R0 @ rt.lio.state.rot.cpu().numpy().astype(np.float64).T
+    host, frame_ms, errs, snaps, card_pos = [], [], [], [], []
+    stamp = 0.0
+    pk.reset_launches()
+    for k, f in enumerate(gt):
+        if k < IMU_WARM:
+            snaps.append(interop.to_numpy(
+                {"state": rt.lio.state, "vm": rt.lio.vm, "gm": rt.mesh.gm,
+                 "store": rt.mesh.store}))
+        t1 = time.perf_counter()
+        for j in range(1 if k else 0, len(f.imu_stamps)):
+            sync.push_imu(stamp + float(f.imu_stamps[j]), f.imu_acc[j],
+                          f.imu_gyr[j])
+        sync.push_scan(decode_raw_buffer(
+            wire[k], len(f.pts), "livox_custommsg", cfg.preprocess,
+            stamp=stamp, duration=period))
+        b = sync.next_bundle()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t1))
+        if b is None:
+            raise AssertionError(f"Avia wire frame {k}: no bundle once the "
+                                 "IMU covers the scan")
+        m = int(b.imu_mask.sum())
+        acc = f.imu_acc.copy()
+        if k:
+            acc[0] = gt[k - 1].imu_acc[-1]   # the boundary sample pushed once
+        if not (m == len(f.imu_stamps)
+                and np.array_equal(b.imu_stamps[:m].cpu().numpy(),
+                                   f.imu_stamps)
+                and np.array_equal(b.imu_acc[:m].cpu().numpy(), acc)):
+            raise AssertionError(f"Avia wire frame {k}: the bundle's IMU "
+                                 "samples are not the stream's")
+        t2 = time.perf_counter()
+        st = rt.process_frame(b, t=k * sim.scan_T, imu_gap=sync.consume_gap())
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t2))
+        err = float(np.linalg.norm(R_align @ st["pos"].astype(np.float64)
+                                   + p0 - f.gt_pos))
+        if not err <= AVIA_POSE_TOL_M:
+            raise AssertionError(
+                f"Avia wire frame {k}: pose {err:.4f} m from ground truth "
+                f"(limit {AVIA_POSE_TOL_M} m)")
+        errs.append(err)
+        if k < IMU_WARM:
+            card_pos.append((b, st["pos"]))
+        stamp += period
+        if on_frame is not None:
+            on_frame(k, rt)
+    launches = pk.launches
+    if launches == 0:
+        raise AssertionError("pairs_argmin was never launched on the Avia "
+                             "wire path")
+
+    # the host work of one frame, stage by stage, on the last frame; the
+    # decode also through the NumPy oracle
+    from immesh_tpu_torch.frontend import native
+    from immesh_tpu_torch.frontend.preprocess import Preprocessor
+    f = gt[-1]
+    step, offs, t_off, t_dt, t_sc, ring_off, ring_dt = \
+        native.LAYOUTS["livox_custommsg"]
+    pc = cfg.preprocess
+    raw = np.frombuffer(wire[-1], np.uint8)
+    scan = decode_raw_buffer(wire[-1], len(f.pts), "livox_custommsg", pc,
+                             stamp=stamp, duration=period)
+    pre = Preprocessor(pc)
+    pts, t_rel = pre.process(scan)
+
+    def imu_stream():
+        s_ = PacketSynchronizer(cfg, device=dev)
+        for j in range(len(f.imu_stamps)):
+            s_.push_imu(float(f.imu_stamps[j]), f.imu_acc[j], f.imu_gyr[j])
+
+    split = {
+        "decode_raw_buffer": host_ms(lambda: decode_raw_buffer(
+            wire[-1], len(f.pts), "livox_custommsg", pc), 5),
+        "its NumPy oracle": host_ms(lambda: native._decode_filter_numpy(
+            raw, len(f.pts), step, offs, t_off, t_dt, t_sc, ring_off,
+            ring_dt, pc.blind, pc.max_range, pc.point_filter_num, True), 5),
+        f"{len(f.imu_stamps)} push_imu": host_ms(imu_stream, 5),
+        "Preprocessor.process": host_ms(lambda: pre.process(scan), 5),
+        "ScanBundle.from_numpy + upload": host_ms(
+            lambda: (bundle_of(pts, t_rel, f, cfg, dev),
+                     torch.cuda.synchronize()), 5)}
+
+    # the first frames again on the CPU, each from the card's state
+    t1 = time.perf_counter()
+    rt_c = ImMeshRuntime(cfg, device="cpu")
+    rt_c.static_init(*static)
+    steps = []
+    for k, (snap, (b, pos)) in enumerate(zip(snaps, card_pos)):
+        o = interop.from_reference(snap, cfg, device="cpu")
+        rt_c.lio.state, rt_c.lio.vm = o["state"], o["vm"]
+        rt_c.mesh.gm, rt_c.mesh.store = o["gm"], o["store"]
+        b_c = dataclasses.replace(b, **{
+            f.name: getattr(b, f.name).cpu()
+            for f in dataclasses.fields(b)})
+        pc = rt_c.process_frame(b_c, t=k * sim.scan_T)["pos"]
+        dp = float(np.abs(pc - pos).max())
+        e = float(np.linalg.norm(R_align @ pc.astype(np.float64) + p0
+                                 - gt[k].gt_pos))
+        if dp > IMU_WARM_STEP_TOL_M or e > IMU_WARM_GT_TOL_M:
+            raise AssertionError(
+                f"Avia wire frame {k}, one step from the card's state: "
+                f"|Δpos| {dp:.2e} m (limit {IMU_WARM_STEP_TOL_M} m), CPU "
+                f"pose err {e:.4f} m (limit {IMU_WARM_GT_TOL_M} m)")
+        steps.append((dp, e))
+    cpu_s = time.perf_counter() - t1
+    med = statistics.median(frame_ms[warmup:])
+    log(f"[replay] Avia livox_custommsg bytes → decode_raw_buffer → "
+        f"PacketSynchronizer (IMU streamed per sample) → "
+        f"ImMeshRuntime.process_frame, {n_frames} timed frames: host decode "
+        f"+ preprocess + sync + upload {statistics.median(host[warmup:]):.1f}"
+        f" ms/frame median ({min(host[warmup:]):.1f}-"
+        f"{max(host[warmup:]):.1f}), the runtime's frame {med:.1f} ms "
+        f"median, p90 {np.percentile(frame_ms[warmup:], 90):.1f} ms; "
+        f"pairs_argmin {launches} launches; pose err max {max(errs):.4f} m, "
+        f"last {errs[-1]:.4f} m; live triangles "
+        f"{int(rt.mesh.store.n_triangles())}")
+    log("[replay] Avia host ms per frame by stage (median of 5): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    log(f"[replay] Avia: frames 0-{IMU_WARM - 1} again on the CPU, each one "
+        f"step from the card's state: |Δpos|, CPU pose err " + ", ".join(
+            f"{d:.2e} m, {e:.4f} m" for d, e in steps)
+        + f" (limits {IMU_WARM_STEP_TOL_M}, {IMU_WARM_GT_TOL_M} m; "
+        f"{cpu_s:.1f} s on the CPU)")
+    return rt, sim, R_align, p0, {"launches": launches,
+                                   "host_ms": statistics.median(
+                                       host[warmup:]), "frame_ms": med}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: camera frames through texture/ into a coloured mesh
+# ---------------------------------------------------------------------------
+def color_field(p):
+    """The scene's paint: a smooth procedural RGB of world position (N, 3),
+    within [38, 218] so neither exposure gate fires on a hit, with a
+    ~2 m product-of-sines pattern that gives LK a texture whose period
+    stays well above a frame's image motion at every pyramid level."""
+    p = np.asarray(p, np.float64)
+    low = np.stack([np.sin(p @ [1.3, 0.7, 0.4]),
+                    np.sin(p @ [0.5, 0.9, -1.1] + 1.0),
+                    np.sin(p @ [0.6, -0.8, 1.7] + 2.0)], -1)
+    tex = np.sin(p @ [3.1, 1.1, 1.8]) * np.sin(p @ [-1.2, 2.9, 2.2] + 1.0)
+    return 128.0 + 50.0 * low + 40.0 * tex[:, None]
+
+
+def camera_pose(R_wb, p_wb):
+    """World→camera (R_w2c, t_w2c) of the body-mounted camera."""
+    R_wc = np.asarray(R_wb, np.float64) @ CAM_R_BC
+    c = np.asarray(p_wb, np.float64) + np.asarray(R_wb) @ CAM_T_BC
+    R_w2c = R_wc.T
+    return R_w2c, -R_w2c @ c
+
+
+def make_image(sim, cam, R_w2c, t_w2c):
+    """Ray-cast the scene from the camera through every pixel centre:
+    (H, W, 3) f32 colours (misses black) and (H·W, 3) hit points (NaN on a
+    miss), in the simulator's world."""
+    H, W = cam.height, cam.width
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    d = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy,
+                  np.ones(u.shape)], -1).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    c = -R_w2c.T @ t_w2c
+    dw = d @ R_w2c                       # rows: R_w2c.T @ d
+    rng = sim._raycast(np.broadcast_to(c, dw.shape), dw)
+    hit = c + rng[:, None].astype(np.float64) * dw
+    hit[~np.isfinite(rng)] = np.nan
+    col = np.where(np.isfinite(rng)[:, None], color_field(
+        np.nan_to_num(hit)), 0.0)
+    return col.reshape(H, W, 3).astype(np.float32), hit
+
+
+def lk_truth(sim, cam, hit_a, pose_b, pts):
+    """The known image motion of features `pts` (N, 2) of image a: each
+    feature's scene point projected into camera b.  Returns (uv_b, chosen):
+    the chosen features hit a wall or a box (not the floor, whose
+    projective shear under the forward camera a translational window does
+    not model), stay visible (not occluded) in camera b, see no depth jump
+    within their window in image a, and move at most LK_RANGE_PX (the
+    tracker's reach: half window × 2^(levels − 1))."""
+    H, W = cam.height, cam.width
+    R_b, t_b = pose_b
+    iu, iv = pts[:, 0].astype(int), pts[:, 1].astype(int)
+    X = hit_a[iv * W + iu]
+    ok = np.isfinite(X).all(1)
+    Xs = np.nan_to_num(X)
+    pc = Xs @ R_b.T + t_b
+    uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                   cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+    c_b = -R_b.T @ t_b
+    ray = Xs - c_b
+    dist = np.linalg.norm(ray, axis=1)
+    r = sim._raycast(np.broadcast_to(c_b, ray.shape),
+                     ray / np.maximum(dist, 1e-9)[:, None])
+    ok &= (pc[:, 2] > 0.1) & (np.abs(r - dist) < 1e-3 * dist)
+    ok &= np.abs(Xs[:, 2]) > 0.01
+    ok &= np.linalg.norm(uv - pts, axis=1) <= LK_RANGE_PX
+    ok &= ((uv[:, 0] > 20) & (uv[:, 0] < W - 21) & (uv[:, 1] > 20)
+           & (uv[:, 1] < H - 21))
+    for du, dv in ((-12, 0), (12, 0), (0, -12), (0, 12)):
+        n = hit_a[np.clip(iv + dv, 0, H - 1) * W + np.clip(iu + du, 0, W - 1)]
+        ok &= np.isfinite(n).all(1) & (
+            np.linalg.norm(np.nan_to_num(n) - Xs, axis=1) < 0.05 * dist)
+    return uv, ok
+
+
+class TexturePhase:
+    """Phase 12 around phase 11's Avia run: camera frames ray-cast up front
+    (set-up), `on_frame` renders each TEX_EVERY-th frame (and the last two)
+    into a TexturePipeline from the estimated pose, `finish` checks the
+    colours, LK, the card against the CPU, and the coloured PLY."""
+
+    def __init__(self, dev, n_all: int):
+        from immesh_tpu_torch.texture.camera import PinholeCamera
+        from immesh_tpu_torch.texture.pipeline import TexturePipeline
+
+        if LK_FRAME + 1 >= n_all:
+            raise ValueError(f"LK's frames {LK_FRAME}, {LK_FRAME + 1} lie "
+                             f"beyond the run's {n_all}")
+        self.dev = dev
+        cfg = avia_config()
+        self.cam = PinholeCamera.create(CAM_F, CAM_F, (CAM_W - 1) / 2,
+                                        (CAM_H - 1) / 2, CAM_W, CAM_H)
+        self.sim = make_avia_sim(cfg)   # the scene and trajectory only
+        # from frame TEX_EVERY on (the first frames re-mesh voxels the
+        # forward camera does not see), and LK's pair
+        self.lk_pair = (LK_FRAME, LK_FRAME + 1)
+        self.frames = sorted(set(range(TEX_EVERY, n_all, TEX_EVERY))
+                             | set(self.lk_pair))
+        t0 = time.perf_counter()
+        self.images, self.hits, self.gt_pose = {}, {}, {}
+        for k in self.frames:
+            pose = camera_pose(*self.sim.traj.pose((k + 1) * self.sim.scan_T))
+            self.images[k], hit = make_image(self.sim, self.cam, *pose)
+            if k in self.lk_pair:
+                self.hits[k] = hit
+            self.gt_pose[k] = pose
+        log(f"[texture] {len(self.frames)} {CAM_W}x{CAM_H} frames "
+            f"(f = {CAM_F} px, camera forward on the body) ray-cast from "
+            f"the ground-truth poses in {time.perf_counter() - t0:.1f} s "
+            f"(set-up); rendering frames {self.frames}")
+        self.tex = TexturePipeline(cfg, self.cam, device=dev)
+        self.render_ms, self.n_rendered = [], []
+        self.check = None
+
+    def on_frame(self, k: int, rt) -> None:
+        if k not in self.images:
+            return
+        from immesh_tpu_torch import interop
+        rot = rt.lio.state.rot.cpu().numpy().astype(np.float64)
+        pos = rt.lio.state.pos.cpu().numpy().astype(np.float64)
+        R_w2c, t_w2c = camera_pose(rot, pos)
+        img = torch.from_numpy(self.images[k]).to(self.dev)
+        t = (k + 1) * self.sim.scan_T
+        last = k == self.frames[-1]
+        if last:   # the store and candidates before the card's render
+            before = interop.to_numpy({"colors": self.tex.colors})
+            slots, smask = (x.to("cpu", copy=True)
+                            for x in rt.mesh.last_active)
+            gm = SimpleNamespace(
+                pts=rt.mesh.gm.pts.to("cpu", copy=True),
+                vox_pt_idx=rt.mesh.gm.vox_pt_idx.to("cpu", copy=True))
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        n = self.tex.render(rt.mesh, img, R_w2c, t_w2c, t)
+        e1.record()
+        torch.cuda.synchronize()
+        if n <= 0:
+            raise AssertionError(f"texture frame {k}: no point rendered")
+        self.render_ms.append(e0.elapsed_time(e1))
+        self.n_rendered.append(n)
+        if last:
+            self.check = (before, slots, smask, gm, self.images[k], R_w2c,
+                          t_w2c, t, n)
+
+    def finish(self, rt, R_align, p0) -> dict:
+        import tempfile
+
+        from immesh_tpu_torch import interop
+        from immesh_tpu_torch.runtime.export import load_ply, save_ply
+        from immesh_tpu_torch.texture.camera import to_gray
+        from immesh_tpu_torch.texture.optical_flow import (
+            build_pyramid, lk_track)
+        from immesh_tpu_torch.texture.render import render_active_voxels
+
+        # one render_points call again on the CPU from the same store and
+        # inputs
+        before, slots, smask, gm, img, R_w2c, t_w2c, t, n = self.check
+        store_c = interop.from_reference(before, None, device="cpu")["colors"]
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)  # noqa: E731
+        store_c, n_c = render_active_voxels(
+            store_c, gm, slots, smask, torch.from_numpy(img), self.cam,
+            f32(R_w2c), f32(t_w2c), t)
+        card = interop.to_numpy(self.tex.colors)
+        cpu = interop.to_numpy(store_c)
+        flips = int((card["n_obs"] != cpu["n_obs"]).sum())
+        same = card["n_obs"] == cpu["n_obs"]
+        worst = max(float(np.max(np.abs(card[f][same] - cpu[f][same])
+                                 / (RENDER_RTOL * np.abs(cpu[f][same])
+                                    + 1e-6)))
+                    for f in ("rgb", "cov", "obs_dis", "last_obs_t",
+                              "first_exp"))
+        if flips > RENDER_FLIPS or not worst <= 1.0:
+            raise AssertionError(
+                f"render_points: card and CPU differ: {flips} gate "
+                f"decisions, fields at {worst:.2f}× the tolerance")
+
+        # the colours against the paint; the store is indexed by point id,
+        # which a mesh compaction would remap under it (as in the reference)
+        if rt.mesh.n_compactions:
+            raise AssertionError("a mesh compaction fired during the "
+                                 "texture run")
+        seen = card["n_obs"] > 0
+        pts = rt.mesh.gm.pts.cpu().numpy().astype(np.float64)[seen]
+        cols = self.tex.colors.colors_u8().cpu().numpy()[seen]
+        err = np.abs(cols - color_field(pts @ R_align.T + p0)).mean(1)
+        med_err = float(np.median(err))
+        if not (seen.sum() > 0 and med_err <= TEX_COLOR_TOL):
+            raise AssertionError(
+                f"texture: {int(seen.sum())} coloured points, median "
+                f"|colour − paint| {med_err:.2f} (limit {TEX_COLOR_TOL})")
+
+        # LK between the last two frames' grey pyramids, card and CPU
+        a, b = self.lk_pair
+        grey = {k: to_gray(torch.from_numpy(self.images[k]).to(self.dev))
+                for k in self.lk_pair}
+        pyr = {k: build_pyramid(grey[k], 3) for k in self.lk_pair}
+        u, v = np.meshgrid(np.arange(LK_MARGIN, CAM_W - LK_MARGIN, LK_STEP),
+                           np.arange(LK_MARGIN, CAM_H - LK_MARGIN, LK_STEP))
+        feats = np.stack([u, v], -1).reshape(-1, 2).astype(np.float32)
+        fe = torch.from_numpy(feats).to(self.dev)
+        lk_track(pyr[a], pyr[b], fe, win=21, iters=10)      # warm
+        lk_ms = event_ms(lambda: lk_track(pyr[a], pyr[b], fe, win=21,
+                                          iters=10), 5)
+        out, ok = (x.cpu().numpy() for x in lk_track(pyr[a], pyr[b], fe,
+                                                     win=21, iters=10))
+        pyr_c = {k: [x.cpu() for x in pyr[k]] for k in self.lk_pair}
+        out_c, ok_c = (x.numpy() for x in lk_track(
+            pyr_c[a], pyr_c[b], torch.from_numpy(feats), win=21, iters=10))
+        both = ok & ok_c
+        status_flips = int((ok != ok_c).sum())
+        d_all = np.abs(out[both] - out_c[both]).max(1)
+        d_cpu = float(d_all.max())
+        if status_flips > LK_STATUS_FLIPS or not d_cpu <= LK_CPU_TOL_PX:
+            raise AssertionError(f"lk_track: card and CPU differ: "
+                                 f"{status_flips} statuses, flows by "
+                                 f"{d_cpu:.2e} px")
+        truth, usable = lk_truth(self.sim, self.cam, self.hits[a],
+                                 self.gt_pose[b], feats)
+        tracked = usable & ok
+        lk_err = np.linalg.norm(out[tracked] - truth[tracked], axis=1)
+        motion = np.linalg.norm(truth[usable] - feats[usable], axis=1)
+        within = float(np.mean(lk_err <= 1.0)) if len(lk_err) else 0.0
+        if not (len(feats) >= 1000 and usable.sum() > 0
+                and tracked.sum() >= LK_MIN_TRACKED * usable.sum()
+                and np.median(lk_err) <= LK_MEDIAN_TOL_PX
+                and within >= LK_WITHIN_1PX):
+            raise AssertionError(
+                f"lk_track: {int(tracked.sum())} of {int(usable.sum())} "
+                f"chosen features tracked, error median "
+                f"{np.median(lk_err):.3f} px, {within:.3f} within 1 px "
+                f"(limits {LK_MEDIAN_TOL_PX} px, {LK_WITHIN_1PX})")
+
+        # the coloured mesh through PLY
+        verts, faces, colors = self.tex.extract_colored(rt.mesh)
+        ply = os.path.join(tempfile.mkdtemp(prefix="immesh_smoke_tex_"),
+                           "colored.ply")
+        save_ply(ply, verts, faces, colors)
+        v2, f2, c2 = load_ply(ply)
+        if not (len(faces) > 0 and np.array_equal(v2, verts)
+                and np.array_equal(f2, faces)
+                and np.array_equal(c2, colors)):
+            raise AssertionError("the coloured mesh does not round-trip "
+                                 "through save_ply / load_ply")
+        log(f"[texture] render at {CAM_W}x{CAM_H}: "
+            f"{statistics.median(self.render_ms):.2f} ms median per frame "
+            f"(CUDA events; {', '.join(f'{x:.2f}' for x in self.render_ms)})"
+            f", {min(self.n_rendered)}-{max(self.n_rendered)} points "
+            f"rendered per frame; {int(seen.sum())} points coloured, median "
+            f"|colour − paint| {med_err:.2f} (p90 "
+            f"{np.percentile(err, 90):.2f}; limit {TEX_COLOR_TOL})")
+        log(f"[texture] card vs CPU render_points on frame {self.frames[-1]}"
+            f" ({n} rendered on the card, {int(n_c)} on the CPU): {flips} "
+            f"gate decisions differ (limit {RENDER_FLIPS}), fields within "
+            f"{worst:.3f}× rtol {RENDER_RTOL}")
+        log(f"[texture] lk_track of {len(feats)} grid features (win 21, 10 "
+            f"iterations, 3 levels) from frame {a} to {b}: {lk_ms:.2f} ms "
+            f"(CUDA events, median of 5); {int(ok.sum())} tracked; of "
+            f"{int(usable.sum())} chosen with a known motion "
+            f"({np.median(motion):.1f} px median), {int(tracked.sum())} "
+            f"tracked, error median {np.median(lk_err):.3f} px, "
+            f"{within:.3f} within 1 px, p95 "
+            f"{np.percentile(lk_err, 95):.3f} px; card vs CPU: "
+            f"{status_flips} statuses differ, flows within {d_cpu:.2e} px "
+            f"(median {np.median(d_all):.1e}, p99 "
+            f"{np.percentile(d_all, 99):.1e}; limit {LK_CPU_TOL_PX})")
+        log(f"[texture] coloured mesh: {len(verts)} vertices, {len(faces)} "
+            f"faces round-trip through save_ply / load_ply")
+        return {"render_ms": statistics.median(self.render_ms),
+                "lk_ms": lk_ms, "color_err": med_err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40,
@@ -1327,6 +2093,15 @@ def main() -> int:
         dev, BA_FRAMES, 3)
     phase_ba_ab(dev)
     phase_render(dev, rt, sim, n_before, frames)
+    del rt
+    phase_frontend()
+    pairs["launches_kitti_replay"] = phase_replay_kitti(
+        dev, REPLAY_FRAMES, 3)["launches"]
+    tex = TexturePhase(dev, AVIA_FRAMES + 3)
+    rt, _, R_align, p0, avia = phase_replay_avia(dev, AVIA_FRAMES, 3,
+                                                 on_frame=tex.on_frame)
+    pairs["launches_avia_wire"] = avia["launches"]
+    tex.finish(rt, R_align, p0)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

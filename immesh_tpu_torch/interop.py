@@ -2,13 +2,14 @@
 
 The reference's persistent state is four pytrees — EsikfState, VoxelMap
 (with its HashTable), GlobalPointMap (with two HashTables) and
-TriangleStore.  Here they travel as nested dicts of numpy arrays under the
-reference's field names, e.g.
+TriangleStore — plus the texture path's ColorStore.  Here they travel as
+nested dicts of numpy arrays under the reference's field names, e.g.
 
     {"state": {"rot": ..., "pos": ..., ...},
      "vm": {"table": {"keys": ..., "fp": ...}, "sum_p": ..., ...},
      "gm": {"pts": ..., "dedup": {...}, "vox": {...}, ...},
-     "store": {"tri_ids": ..., "tri_n": ..., "dirty": ...}}
+     "store": {"tri_ids": ..., "tri_n": ..., "dirty": ...},
+     "colors": {"rgb": ..., "cov": ..., "n_obs": ..., ...}}
 
 so a test can start both implementations from one state and compare a
 single step without accumulated drift.
@@ -34,6 +35,7 @@ from immesh_tpu_torch.map.voxel_map import VoxelMap
 from immesh_tpu_torch.mesh.global_map import GlobalPointMap
 from immesh_tpu_torch.mesh.triangles import TriangleStore
 from immesh_tpu_torch.runtime.export import load_checkpoint
+from immesh_tpu_torch.texture.render import ColorStore
 
 _GM_TABLE_PROBE = 32  # GlobalPointMap.create's max_probe for both tables
 
@@ -79,16 +81,20 @@ def from_reference(tree: dict, cfg: ImMeshConfig, device="cuda") -> dict:
             vox=_table(d["vox"], _GM_TABLE_PROBE, dev), cfg=cfg.mesh)
     if "store" in tree:
         out["store"] = _build(TriangleStore, tree["store"], dev, cfg=cfg.mesh)
+    if "colors" in tree:
+        out["colors"] = _build(ColorStore, tree["colors"], dev)
     return out
 
 
 def to_numpy(obj):
     """The reverse of from_reference: a port object (or a dict of them) as
-    nested dicts of numpy arrays under the reference's field names."""
+    nested dicts of numpy arrays under the reference's field names.  The
+    arrays are copies, also of CPU tensors, so a snapshot does not follow
+    the object's later in-place updates."""
     if isinstance(obj, dict):
         return {k: to_numpy(v) for k, v in obj.items()}
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+        return obj.detach().to("cpu", copy=True).numpy()
     if isinstance(obj, HashTable):
         return {"keys": to_numpy(obj.keys), "fp": to_numpy(obj.fp),
                 "max_probe": obj.max_probe}

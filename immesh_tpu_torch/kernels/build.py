@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA sources.
+"""Build and load the port's native sources.
 
 Each `csrc/<name>.cu` exports a plain C launch function and is compiled by
-`nvcc` for sm_90a into `immesh_tpu_torch/_build/lib<name>.so` at first use,
-then loaded with ctypes.  Nothing is built or loaded at import time: this
-module only runs when a kernel is launched on a CUDA tensor (or when a
-caller builds ahead of time, as chip_smoke.py does).
+`nvcc` for sm_90a; each `csrc/<name>.cpp` is a host library compiled by the
+machine's C++ compiler.  Either lands in `immesh_tpu_torch/_build/
+lib<name>.so` at first use and is loaded with ctypes.  Nothing is built or
+loaded at import time: this module only runs when a kernel is launched on a
+CUDA tensor, when the host frontend first decodes a buffer, or when a caller
+builds ahead of time, as chip_smoke.py does.  A failed build raises with the
+compiler's output; nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -22,13 +25,18 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # its plain PyTorch version's rounding exactly
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+# host libraries: no -march=native (the library must run on any x86-64 the
+# checkout lands on) and no FMA contraction (the decode gates round as
+# their NumPy oracle does)
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def source_path(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+    cu = os.path.join(CSRC_DIR, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC_DIR, f"{name}.cpp")
 
 
 def library_path(name: str) -> str:
@@ -41,11 +49,19 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
+def _command(src: str, out: str) -> List[str]:
+    if src.endswith(".cu"):
+        return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+    return [os.environ.get("CXX") or "c++", *CXX_FLAGS, "-o", out, src]
+
+
 def build(names: Iterable[str], force: bool = False) -> Dict[str, str]:
-    """Compile each csrc/<name>.cu whose library is missing or older than
-    its source (every one with `force`), one nvcc process per source, all
-    started together.  Returns {name: library path}; raises
-    CalledProcessError if any compile fails."""
+    """Compile each csrc/<name>.{cu,cpp} whose library is missing or older
+    than its source (every one with `force`), one compiler process per
+    source, all started together.  Each writes a private temporary file
+    that is renamed into place, so concurrent builds (test workers) never
+    load a half-written library.  Returns {name: library path}; raises
+    RuntimeError with the compiler's output if any compile fails."""
     names = list(names)
     procs = {}
     for name in names:
@@ -55,22 +71,25 @@ def build(names: Iterable[str], force: bool = False) -> Dict[str, str]:
         if force or not fresh:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-            procs[name] = (subprocess.Popen(cmd), cmd, tmp)
-    failed = None
+            cmd = _command(src, tmp)
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), cmd, tmp)
+    failed = []
     for name, (proc, cmd, tmp) in procs.items():
-        if proc.wait() != 0:
-            failed = failed or subprocess.CalledProcessError(proc.returncode,
-                                                             cmd)
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, library_path(name))
-    if failed is not None:
-        raise failed
+    if failed:
+        raise RuntimeError("building the port's native sources failed:\n"
+                           + "\n".join(failed))
     return {name: library_path(name) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>, built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

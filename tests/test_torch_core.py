@@ -254,7 +254,12 @@ def test_importing_the_port_loads_no_jax():
             "immesh_tpu_torch.eval.mesh_quality, "
             "immesh_tpu_torch.lio.window, immesh_tpu_torch.dist.window_ba, "
             "immesh_tpu_torch.render.raster, immesh_tpu_torch.render.live, "
-            "immesh_tpu_torch.render.viewer, immesh_tpu_torch.utils.console; "
+            "immesh_tpu_torch.render.viewer, immesh_tpu_torch.utils.console, "
+            "immesh_tpu_torch.frontend.native, "
+            "immesh_tpu_torch.frontend.preprocess, "
+            "immesh_tpu_torch.frontend.features, "
+            "immesh_tpu_torch.frontend.sync, immesh_tpu_torch.texture, "
+            "immesh_tpu_torch.texture.pipeline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'immesh_tpu')]; "
             "assert not bad, bad")

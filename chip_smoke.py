@@ -72,7 +72,23 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 pose into a TexturePipeline (render ms, colours against the
                 paint, one render against the CPU), lk_track of 1,140 grid
                 features against the known image motion and the CPU, and
-                the coloured mesh through save_ply / load_ply.
+                the coloured mesh through save_ply / load_ply;
+ 13. dist     — the multi-rank dist/ path over torch.distributed, ranks
+                spawned with a FileStore rendezvous (NCCL takes no two
+                ranks on one card, so two ranks share the card over gloo):
+                13a dp LIO + capacity-sharded mesh at the KITTI point,
+                world 2, slab 32 (the pre-partitioned append), 3 warm-up +
+                DIST_FRAMES frames — replicas bit-identical every frame,
+                every pose within POSE_TOL_M, pairs_argmin launched on
+                every rank and equal to its plain version on a rank's last
+                real chunk, then the sharded-map LIO step (halo exchange
+                staged through the host on gloo); 13b phase 4's first scans
+                meshed at world 2 equal, triangle for triangle, a
+                single-device MeshPipeline at budgets that drop nothing;
+                13c phase 8's first window solved point-sharded at world 2
+                against the card's single-device solve; 13d dp LIO +
+                sharded mesh over NCCL at world 1; 13e the scaling curve at
+                worlds 1 and 2.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -189,6 +205,29 @@ LK_RANGE_PX = 40.0   # half window 10 × 2^(3 levels − 1)
 LK_MIN_TRACKED = 0.9
 LK_MEDIAN_TOL_PX = 0.15
 LK_WITHIN_1PX = 0.9
+# phase 13: the dist/ path.  Worlds of 2 ranks share the one card over
+# gloo; DIST_SLAB = 32 meshing voxels per slab gives keep fraction × margin
+# (32 + 4)/(32·2)·1.5 = 0.84 < 1, so the pre-partitioned append runs and
+# the per-rank budgets scale (1024 → 864 active voxels, chunk 512 → 216)
+DIST_WORLD = 2
+DIST_SLAB = 32
+DIST_FRAMES = 20          # timed, after 3 warm-up
+DIST_SHARDED_LIO_FRAMES = 5
+DIST_EXACT_FRAMES = 3     # phase 4's first scans, meshed again in 13b
+NCCL_FRAMES = 4
+SCALING_FRAMES = 4
+# window BA, point-sharded against single-device (tests/test_window_ba.py:168)
+DIST_BA_TOL = 1e-4
+# dp LIO against the single-device pipeline (phase 4) is printed, not
+# bounded.  The dp step downsamples each rank's rows to map_update_points /
+# n cells; here rank 0's half of the scan holds more 0.5 m cells than that
+# (4,544 against 4,096 on frame 5), so every frame it drops its forward-most
+# cells and the two pipelines fit different points.  At 32,768 and 65,536
+# rays no rank truncates and the JAX dp step parts from its single-device
+# pipeline by 0.0062 and 0.0131 m (tests/torch_dist_reference.py --rays N),
+# so the cut sizes cannot bound the full-width gap; the pose bound holds
+# each pipeline to ground truth
+
 # audit: a triangle on which the incircle oracle and the pairs argmin
 # disagree must have an f64 incircle margin (on the lifted points both
 # see) below this fraction of scale⁴ — 10× the keep threshold ε = 1e-6·s⁴
@@ -359,11 +398,13 @@ def pairs_bound_ms(u, v, valid, d_eps) -> tuple:
 
 
 # (seed, A, K, share of valid points): the KITTI chunk (512, 48) at three
-# seeds and at ~5 % and 100 % fill, the Avia chunk (64, 48), and the
-# smallest and largest K the kernel takes
+# seeds and at ~5 % and 100 % fill, the Avia chunk (64, 48), the smallest
+# and largest K the kernel takes, and the rank-local chunk (216, 48) of the
+# dist path (phase 13)
 PAIRS_CASES = ((0, 512, 48, 0.5), (1, 512, 48, 0.5), (2, 509, 48, 0.5),
                (3, 64, 48, 0.5), (4, 512, 48, 0.05), (5, 512, 48, 1.0),
-               (6, 64, 20, 0.5), (7, 64, 128, 0.5), (8, 64, 128, 1.0))
+               (6, 64, 20, 0.5), (7, 64, 128, 0.5), (8, 64, 128, 1.0),
+               (9, 216, 48, 0.5))
 
 
 def phase_kernels(dev):
@@ -406,7 +447,7 @@ def phase_kernels(dev):
              "source": "immesh_tpu_torch/csrc/pairs_argmin.cu",
              "replaces": "immesh_tpu/mesh/delaunay.py:289",
              "max_abs_err": max_err, "library_ms": None}
-    for A, key in ((512, ""), (64, "_64")):
+    for A, key in ((512, ""), (64, "_64"), (216, "_216")):
         uv, mask, tb = pairs_inputs(0, A, 48)
         ch = channels(uv, mask, tb, dev)
         W = torch.empty((A, 48, 48), dtype=torch.int32, device=dev)
@@ -597,7 +638,7 @@ def phase_main(dev, n_frames: int, warmup: int, kernel_ms: float):
     pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
     pk.reset_launches()
     ms, launches, errs, actives = [], [], [], []
-    diags = []
+    diags, positions, scans = [], [], []
     for k, (f, b) in enumerate(zip(gt, frames)):
         before = pk.launches
         t1 = time.perf_counter()
@@ -626,6 +667,10 @@ def phase_main(dev, n_frames: int, warmup: int, kernel_ms: float):
         errs.append(err)
         actives.append(n_act)
         launches.append(fired)
+        positions.append(pos)
+        if k < DIST_EXACT_FRAMES:  # phase 13b meshes these scans again
+            scans.append((world.cpu().numpy(), b.mask.cpu().numpy(),
+                          pipe.state.pos.cpu().numpy()))
         if k >= warmup:
             ms.append(dt)
             diags.append({key: int(val) for key, val in diag.items()})
@@ -668,7 +713,8 @@ def phase_main(dev, n_frames: int, warmup: int, kernel_ms: float):
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
         f"(mesh {pipe.mesh.n_compactions}, lio {pipe.lio.n_compactions}, "
         f"{pipe.mesh.compact_ms + pipe.lio.compact_ms:.1f} ms), drops {drops}")
-    return total_launches
+    return total_launches, {"gt": gt, "pos": positions, "scans": scans,
+                            "R0": R0, "p0": p0}
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +742,7 @@ def phase_parity(dev, n_frames: int = 6):
         if cfg.imu.imu_en:
             acc, gyr = sim.static_imu(100)
             for p in pipes.values():
-                p.lio.static_init(acc, gyr)
+                p.static_init(acc, gyr)
         R0, p0 = sim.traj.pose(0.0)
         R_align = R0 @ b.lio.state.rot.numpy().astype(np.float64).T
         gt = [sim.frame(k) for k in range(warm + n_frames)]
@@ -1034,7 +1080,8 @@ def ba_config():
 def phase_ba(dev, n_frames: int, warmup: int):
     """ImMeshRuntime with BA on over warm-up plus n_frames; returns the
     runtime, the simulator, the frame count and the VIEWER_FRAMES bundles
-    after them, and the pairs_argmin launches."""
+    after them, the pairs_argmin launches, and the first window (its
+    problem on the CPU, the card's solution and the solve's arguments)."""
     from immesh_tpu_torch.dist import window_ba
     from immesh_tpu_torch.eval.ate import evaluate_ate, from_rows
     from immesh_tpu_torch.kernels import pairs_argmin as pk
@@ -1144,7 +1191,7 @@ def phase_ba(dev, n_frames: int, warmup: int):
         f"last {errs[-1]:.4f} m; ATE "
         f"{ate['ate_rmse']:.4f} m RMSE; pairs_argmin {launches} launches; "
         f"live triangles {int(rt.mesh.store.n_triangles())}")
-    return rt, sim, n_all, frames[n_all:], launches
+    return rt, sim, n_all, frames[n_all:], launches, (prob.to("cpu"), sol, kw)
 
 
 # ---------------------------------------------------------------------------
@@ -2059,6 +2106,399 @@ class TexturePhase:
                 "lk_ms": lk_ms, "color_err": med_err}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-rank dist/ path
+# ---------------------------------------------------------------------------
+def state_digest(state, vm=None) -> str:
+    """sha256 of the replicated filter state's bytes (and a plane map's)."""
+    import hashlib
+    h = hashlib.sha256()
+    tensors = [state.rot, state.pos, state.vel, state.bg, state.ba,
+               state.grav, state.cov]
+    if vm is not None:
+        tensors += [vm.table.keys, vm.table.fp] + [
+            getattr(vm, f) for f in vm._FIELDS]
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def exact_mesh_config(cfg):
+    """kitti_config with per-frame mesh budgets that phase 4's first scans
+    never reach, and compaction off.  An exact sharded-vs-single-device
+    comparison needs both appends to drop and defer nothing: past
+    max_pts_per_frame an append keeps every step-th row of what it is given,
+    and a rank is given only its own slabs, so the kept rows differ; past
+    active_voxels_per_frame each side defers other voxels."""
+    return cfg.replace(mesh=dataclasses.replace(
+        cfg.mesh, max_pts_per_frame=cfg.preprocess.max_points,
+        file_voxels_per_frame=16384, active_voxels_per_frame=16384,
+        compact_check_every=0))
+
+
+def last_chunk_parity(smm) -> dict:
+    """pairs_argmin against its plain version on the last chunk of a rank's
+    last re-mesh that held a point, in the chunks triangulate_voxels cut
+    (the rank-local mesh_chunk)."""
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.mesh.delaunay import pairs_channels, pca_project
+    from immesh_tpu_torch.mesh.triangles import _pos_hash
+
+    slots, smask = smm.last_active
+    mc = smm.gm.cfg
+    C = mc.mesh_chunk
+    pull = smm.gm.pull_neighborhood(slots, smask)
+    pmask = pull["mask"]
+    real = [c0 for c0 in range(0, slots.shape[0], C)
+            if bool(pmask[c0:c0 + C].any())]
+    sl = slice(real[-1], real[-1] + C)
+    uv, _, _ = pca_project(pull["pts_sm"][sl], pmask[sl])
+    ch = pairs_channels(uv, pmask[sl], tiebreak=_pos_hash(pull["pts"][sl]),
+                        tie_scale=mc.tie_scale)
+    W = pk.pairs_argmin_cuda(*ch)
+    Wp = pk.pairs_argmin_plain(*ch)
+    return {"shape": tuple(ch[0].shape), "equal": bool(torch.equal(W, Wp)),
+            "chunk": real[-1] // C, "n_real": len(real),
+            "max_abs_err": int((W.long() - Wp.long()).abs().max()),
+            "fill": float(pmask[sl].float().mean())}
+
+
+def _frames_of(job, n):
+    import pickle
+    with open(job["frames"], "rb") as fh:
+        rows = pickle.load(fh)[:n]
+    return [SimpleNamespace(pts=r[0], t_rel=r[1], imu_stamps=r[2],
+                            imu_acc=r[3], imu_gyr=r[4], scan_duration=r[5])
+            for r in rows]
+
+
+def dist_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of phases 13a-13c, in a world that run_world spawned: both
+    ranks on the one card, joined over gloo through a DeviceMesh's group."""
+    from immesh_tpu_torch.core.ops import div
+    from immesh_tpu_torch.dist import comm, multihost
+    from immesh_tpu_torch.dist.lio import make_dp_lio_step
+    from immesh_tpu_torch.dist.mesh import (
+        create_sharded_mesh, gather_mesh, make_sharded_mesh_step)
+    from immesh_tpu_torch.dist.sharded_map import (
+        create_sharded_map, make_sharded_lio_step)
+    from immesh_tpu_torch.dist.window_ba import (
+        WindowProblem, make_dist_window_ba)
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.lio.pipeline import LioPipeline
+    from immesh_tpu_torch.map.hash import frame_unique_coords
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    group = multihost.build_mesh("dp", device_type="cuda").get_group("dp")
+    cfg = kitti_config()
+    frames = _frames_of(job, 3 + DIST_FRAMES)
+    out = {}
+
+    # 13a: dp LIO + capacity-sharded mesh
+    lio = LioPipeline(cfg, device=dev)  # the single-device initial state
+    state, vm = lio.state, lio.vm
+    lio_step, shard = make_dp_lio_step(cfg, group)
+    smm = create_sharded_mesh(cfg, group, slab_voxels=DIST_SLAB, device=dev)
+    mesh_step = make_sharded_mesh_step(cfg, group)
+    local = [shard(bundle(f, cfg, dev)) for f in frames]
+    rec = {k: [] for k in ("pos", "digest", "ms", "n_tris", "n_part_drop",
+                           "n_active", "launches")}
+    comm.reset_counts()
+    pk.reset_launches()
+    for b in local:
+        before = pk.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, vm, world_scan, _ = lio_step(state, vm, b)
+        smm, n_act, n_tris, n_drop = mesh_step(smm, world_scan, b.mask,
+                                               state.pos)
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["launches"].append(pk.launches - before)
+        rec["pos"].append(state.pos.cpu().numpy().astype(np.float64))
+        rec["digest"].append(state_digest(state, vm))
+        rec["n_tris"].append(int(n_tris))
+        rec["n_part_drop"].append(int(n_drop))
+        rec["n_active"].append(int(n_act))
+    b = local[-1]
+    cells = frame_unique_coords(
+        torch.floor(div(b.pts, cfg.lio.downsample_voxel)).to(torch.int32),
+        b.mask, b.pts.shape[0])[2]
+    out["dp"] = dict(rec, launches_total=pk.launches, staged=comm.staged,
+                     cells=int(cells),
+                     own_tris=int(smm.store.n_triangles()),
+                     own_pts=int(smm.gm.pt_count),
+                     budgets=(smm.gm.cfg.active_voxels_per_frame,
+                              smm.gm.cfg.mesh_chunk))
+    if rank == 0:
+        out["chunk"] = last_chunk_parity(smm)
+    del smm, local
+
+    # 13a, then: the sharded-map LIO step (halo exchange every frame)
+    lio = LioPipeline(cfg, device=dev)
+    state = lio.state
+    svm = create_sharded_map(cfg, group, device=dev)
+    slio_step = make_sharded_lio_step(cfg, group)
+    comm.reset_counts()
+    pos, digests, ms = [], [], []
+    for f in frames[:3 + DIST_SHARDED_LIO_FRAMES]:
+        b = bundle(f, cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, svm, _, _ = slio_step(state, svm, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        pos.append(state.pos.cpu().numpy().astype(np.float64))
+        digests.append(state_digest(state))
+    out["sharded_lio"] = {"pos": pos, "digest": digests, "ms": ms,
+                          "staged": comm.staged,
+                          "n_owned": int(svm.n_owned_voxels()),
+                          "n_halo": int(svm.is_halo.sum())}
+    del svm, lio
+
+    # 13b: phase 4's first scans, meshed at budgets that drop nothing
+    ecfg = exact_mesh_config(cfg)
+    smm = create_sharded_mesh(ecfg, group, slab_voxels=DIST_SLAB, device=dev)
+    mesh_step = make_sharded_mesh_step(ecfg, group)
+    drops = []
+    for pts, mask, sensor in job["scans"]:
+        N = mask.shape[0]
+        sl = slice(rank * N // world, (rank + 1) * N // world)
+        smm, _, n_tris, n_drop = mesh_step(
+            smm, torch.from_numpy(pts[sl]).to(dev),
+            torch.from_numpy(mask[sl]).to(dev),
+            torch.from_numpy(sensor).to(dev))
+        drops.append(int(n_drop))
+    g = gather_mesh(smm, group)
+    out["exact"] = {"n_tris": int(n_tris), "n_part_drop": drops,
+                    "own_tris": int(smm.store.n_triangles())}
+    if rank == 0:
+        out["exact"].update(pts=g["pts"], tris=g["tris"])
+    del smm
+
+    # 13c: phase 8's first window, point factors split over the ranks
+    prob_np, kw = job["window"]
+    prob = WindowProblem(*(torch.from_numpy(x).to(dev) for x in prob_np))
+    solve, shard_problem = make_dist_window_ba(group, **kw)
+    sol = solve(shard_problem(prob))
+    out["window"] = {k: sol[k].cpu().numpy()
+                     for k in ("rot", "pos", "normal", "d")}
+    return out
+
+
+def nccl_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 13d: the dp LIO + sharded mesh steps over NCCL at world 1."""
+    import torch.distributed as dist
+    from immesh_tpu_torch.dist.lio import make_dp_lio_step
+    from immesh_tpu_torch.dist.mesh import (
+        create_sharded_mesh, make_sharded_mesh_step)
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.lio.pipeline import LioPipeline
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = kitti_config()
+    lio = LioPipeline(cfg, device=dev)
+    state, vm = lio.state, lio.vm
+    lio_step, shard = make_dp_lio_step(cfg)
+    smm = create_sharded_mesh(cfg, slab_voxels=DIST_SLAB, device=dev)
+    mesh_step = make_sharded_mesh_step(cfg)
+    pos, ms = [], []
+    pk.reset_launches()
+    for f in _frames_of(job, NCCL_FRAMES):
+        b = shard(bundle(f, cfg, dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, vm, world_scan, _ = lio_step(state, vm, b)
+        smm, _, n_tris, _ = mesh_step(smm, world_scan, b.mask, state.pos)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        pos.append(state.pos.cpu().numpy().astype(np.float64))
+    return {"backend": dist.get_backend(), "pos": pos, "ms": ms,
+            "launches": pk.launches, "n_tris": int(n_tris)}
+
+
+def _tri_position_set(pts, tris) -> set:
+    """Triangles keyed by their sorted exact vertex positions."""
+    v = np.ascontiguousarray(pts[tris]).view(np.uint32)
+    return {tuple(sorted(map(tuple, t.tolist()))) for t in v}
+
+
+def phase_dist(dev, main_info: dict, window) -> int:
+    """Phase 13; returns the pairs_argmin launches of 13a's run, summed over
+    its ranks."""
+    import pickle
+    import tempfile
+    from immesh_tpu_torch.dist import multihost
+    from immesh_tpu_torch.mesh.pipeline import MeshPipeline
+
+    cfg = kitti_config()
+    gt, R0, p0 = main_info["gt"], main_info["R0"], main_info["p0"]
+    n_all = 3 + DIST_FRAMES
+    prob, sol, kw = window
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        path = os.path.join(tmp, "frames.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump([(f.pts, f.t_rel, f.imu_stamps, f.imu_acc, f.imu_gyr,
+                          f.scan_duration) for f in gt[:n_all]], fh)
+        job = {"frames": path, "scans": main_info["scans"],
+               "window": ([x.numpy() for x in prob], kw)}
+        t0 = time.perf_counter()
+        ranks = multihost.run_world(dist_rank, DIST_WORLD, (job,),
+                                    backend="gloo", deadline_s=600)
+        t_world = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = multihost.run_world(nccl_rank, 1, (job,), backend="nccl",
+                                   deadline_s=300)[0]
+        t_nccl = time.perf_counter() - t0
+
+    def pose_errs(pos):
+        return [float(np.linalg.norm(R0 @ p + p0 - f.gt_pos))
+                for p, f in zip(pos, gt)]
+
+    # 13a
+    dp = [r["dp"] for r in ranks]
+    for k in range(n_all):
+        if len({d["digest"][k] for d in dp}) != 1:
+            raise AssertionError(f"dist frame {k}: the replicated state and "
+                                 "plane map differ between the ranks")
+    errs = pose_errs(dp[0]["pos"])
+    if max(errs) > POSE_TOL_M:
+        k = int(np.argmax(errs))
+        raise AssertionError(f"dist frame {k}: pose {errs[k]:.3f} m from "
+                             f"ground truth (limit {POSE_TOL_M} m)")
+    gap = [float(np.linalg.norm(a - b))
+           for a, b in zip(dp[0]["pos"], main_info["pos"])]
+    for r, d in enumerate(dp):
+        if d["launches_total"] == 0:
+            raise AssertionError(f"dist rank {r}: pairs_argmin never launched")
+    chunk = ranks[0]["chunk"]
+    if not chunk["equal"] or chunk["shape"] != (216, 48):
+        raise AssertionError(f"dist: pairs_argmin on rank 0's last real "
+                             f"chunk: {chunk}")
+    frame_ms = np.max([d["ms"] for d in dp], axis=0)[3:]
+    launches = sum(d["launches_total"] for d in dp)
+    log(f"[dist] 13a: world {DIST_WORLD} (gloo, both ranks on "
+        f"{torch.cuda.get_device_name(0)}, group from a DeviceMesh), dp LIO "
+        f"+ sharded mesh at slab {DIST_SLAB}, per-rank budgets (active "
+        f"voxels, chunk) {dp[0]['budgets']}; {n_all} frames: replicated state "
+        f"and plane map bit-identical on both ranks every frame; pose err "
+        f"max {max(errs):.3f} m (limit {POSE_TOL_M} m), last {errs[-1]:.3f} "
+        f"m; dp vs single-device (phase 4) max {max(gap):.4f} m (frame "
+        f"{int(np.argmax(gap))}), per frame "
+        f"{', '.join(f'{g:.4f}' for g in gap)}; downsample cells of the "
+        f"last scan's rows per rank (raw points) "
+        f"{[d['cells'] for d in dp]} against a budget of "
+        f"{cfg.lio.map_update_points // DIST_WORLD} each")
+    log(f"[dist] 13a: frame {statistics.median(frame_ms):.1f} ms median "
+        f"(slowest rank per frame, {DIST_FRAMES} timed), "
+        f"{float(np.percentile(frame_ms, 90)):.1f} ms p90; per rank "
+        + "; ".join(f"rank {r}: {statistics.median(d['ms'][3:]):.1f} ms "
+                    f"median, pairs_argmin {d['launches_total']} launches, "
+                    f"{d['own_tris']} own triangles, {d['own_pts']} points, "
+                    f"{d['staged']} staged transfers"
+                    for r, d in enumerate(dp))
+        + f"; gathered triangles {dp[0]['n_tris'][-1]}, active voxels "
+        f"{dp[0]['n_active'][-1]} on the last frame; n_part_drops per "
+        f"frame {dp[0]['n_part_drop']}; set-up + run {t_world:.1f} s")
+    log(f"[dist] 13a: pairs_argmin on rank 0's last real chunk "
+        f"(chunk {chunk['chunk']} of {chunk['n_real']} with points, shape "
+        f"{chunk['shape']}, fill {chunk['fill']:.3f}): W equal to the plain "
+        f"version")
+
+    sh = [r["sharded_lio"] for r in ranks]
+    n_sh = len(sh[0]["pos"])
+    for k in range(n_sh):
+        if sh[0]["digest"][k] != sh[1]["digest"][k]:
+            raise AssertionError(f"dist sharded-map LIO frame {k}: the "
+                                 "replicated state differs between ranks")
+    errs_sh = pose_errs(sh[0]["pos"])
+    if max(errs_sh) > POSE_TOL_M:
+        raise AssertionError(f"dist sharded-map LIO: pose err "
+                             f"{max(errs_sh):.3f} m (limit {POSE_TOL_M} m)")
+    log(f"[dist] 13a: sharded-map LIO, {n_sh} frames: state bit-identical "
+        f"on both ranks, pose err max {max(errs_sh):.3f} m; "
+        f"{statistics.median(np.max([x['ms'] for x in sh], 0)[3:]):.1f} ms "
+        f"median per frame; owned voxels {[x['n_owned'] for x in sh]}, halo "
+        f"entries {[x['n_halo'] for x in sh]}, staged (host) ring transfers "
+        f"{[x['staged'] for x in sh]}")
+
+    # 13b
+    ex = ranks[0]["exact"]
+    ecfg = exact_mesh_config(cfg)
+    single = MeshPipeline(ecfg, device=dev)
+    for pts, mask, sensor in main_info["scans"]:
+        single.step(pts, mask, sensor)
+        bad = {k: int(v) for k, v in single.last_drops.items()
+               if k.startswith("drop_") and int(v)}
+        if bad:
+            raise AssertionError(f"dist 13b: the single-device reference "
+                                 f"dropped or deferred work: {bad}")
+    if any(ex["n_part_drop"]):
+        raise AssertionError(f"dist 13b: pre-partition drops "
+                             f"{ex['n_part_drop']}")
+    t = single.store.tri_ids.reshape(-1, 3).cpu().numpy()
+    s_single = _tri_position_set(single.gm.pts.cpu().numpy(),
+                                 t[np.all(t >= 0, axis=1)])
+    s_shard = _tri_position_set(ex["pts"], ex["tris"])
+    if s_shard != s_single:
+        raise AssertionError(
+            f"dist 13b: sharded mesh and single-device mesh differ: "
+            f"{len(s_shard - s_single)} triangles only sharded, "
+            f"{len(s_single - s_shard)} only single-device")
+    log(f"[dist] 13b: phase 4's first {len(main_info['scans'])} world scans "
+        f"meshed at world {DIST_WORLD} (slab {DIST_SLAB}, pre-partitioned "
+        f"append) equal a single-device MeshPipeline triangle for triangle "
+        f"(exact vertex positions): {len(s_single)} triangles "
+        f"({[r['exact']['own_tris'] for r in ranks]} per rank), no drops "
+        f"either side")
+
+    # 13c
+    wins = [r["window"] for r in ranks]
+    dmax = max(float(np.abs(w[k] - sol[k].cpu().numpy()).max())
+               for w in wins for k in ("rot", "pos", "d"))
+    same = all(np.array_equal(wins[0][k], wins[1][k]) for k in wins[0])
+    if not (same and dmax <= DIST_BA_TOL):
+        raise AssertionError(f"dist 13c: window BA at world {DIST_WORLD}: "
+                             f"max |Δ| {dmax:.2e} from the single-device "
+                             f"solve (limit {DIST_BA_TOL}), ranks equal "
+                             f"{same}")
+    log(f"[dist] 13c: phase 8's first window (K={prob.rot.shape[0]}, "
+        f"M={prob.normal.shape[0]}, {prob.pts.shape[1] // DIST_WORLD} "
+        f"points per keyframe per rank) solved at world {DIST_WORLD}: equal "
+        f"on both ranks, max |Δ| {dmax:.2e} from the card's single-device "
+        f"solve (limit {DIST_BA_TOL})")
+
+    # 13d
+    errs_n = pose_errs(nccl["pos"])
+    if nccl["backend"] != "nccl" or max(errs_n) > POSE_TOL_M \
+            or nccl["launches"] == 0:
+        raise AssertionError(f"dist 13d: {nccl['backend']}, pose err "
+                             f"{max(errs_n):.3f} m, {nccl['launches']} "
+                             "pairs_argmin launches")
+    log(f"[dist] 13d: world 1 over {nccl['backend']}: {NCCL_FRAMES} frames "
+        f"of dp LIO + sharded mesh, pose err max {max(errs_n):.3f} m, "
+        f"{statistics.median(nccl['ms'][1:]):.1f} ms median after the "
+        f"first, {nccl['launches']} pairs_argmin launches, {nccl['n_tris']} "
+        f"triangles; set-up + run {t_nccl:.1f} s")
+
+    # 13e
+    t0 = time.perf_counter()
+    curve = multihost.scaling_curve(cfg, [1, DIST_WORLD],
+                                    frames=SCALING_FRAMES, device="cuda")
+    for c in curve:
+        log(f"[dist] 13e: scaling n={c['n_devices']} ({c['backend']}, "
+            f"shared_device={c['shared_device']}): "
+            f"{c['frames_per_s']:.2f} frames/s, LIO {c['t_lio_ms']:.1f} ms, "
+            f"mesh {c['t_mesh_ms']:.1f} ms, overhead factor vs 1 rank "
+            f"{c['overhead_factor_vs_1dev']:.3f}")
+    log(f"[dist] 13e: {json.dumps(curve)}; shared_device: both ranks of "
+        f"n={DIST_WORLD} share one card, so wall time cannot drop with n "
+        f"and overhead_factor_vs_1dev is the metric ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40,
@@ -2082,14 +2522,15 @@ def main() -> int:
     pairs = phase_kernels(dev)
     incircle = phase_incircle(dev)
     phase_ints(dev)
-    pairs["launches"] = phase_main(dev, args.frames, 3, pairs["ms"])
+    pairs["launches"], main_info = phase_main(dev, args.frames, 3,
+                                              pairs["ms"])
     phase_parity(dev)
     rt = phase_runtime(dev, AVIA_FRAMES, 3)
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     pairs["launches_runtime"] = pk.launches  # counted from 0 by phase 6
     incircle["launches"] = phase_audit(dev, rt)
     del rt
-    rt, sim, n_before, frames, pairs["launches_ba"] = phase_ba(
+    rt, sim, n_before, frames, pairs["launches_ba"], window = phase_ba(
         dev, BA_FRAMES, 3)
     phase_ba_ab(dev)
     phase_render(dev, rt, sim, n_before, frames)
@@ -2102,6 +2543,8 @@ def main() -> int:
                                                  on_frame=tex.on_frame)
     pairs["launches_avia_wire"] = avia["launches"]
     tex.finish(rt, R_align, p0)
+    del rt
+    pairs["launches_dist"] = phase_dist(dev, main_info, window)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -18,9 +18,12 @@ the Schur complement S = Hpp − Hpl Hll⁻¹ Hplᵀ, the (6K×6K) pose system i
 solved by Cholesky, and the planes are back-substituted.  Planes move in a
 local tangent δ = (δu∈R², δd): n ← Exp([B(n)δu]ˣ) n, d ← d + δd.
 
-The JAX package also shards the point factors over chips and reduces the
-blocks with one psum per iteration (`make_dist_window_ba`, the `axis`
-argument); that waits for the port of dist/.
+Distribution: the factor axis — points — is sharded over the ranks of a
+process group (`make_dist_window_ba`, the `group` argument of
+`solve_window`).  Every rank builds the Gauss-Newton blocks of its point
+shard; one gathered sum per iteration (dist/comm.psum, rank order, the
+same bits on every rank) reduces them; the small Schur solve runs
+replicated.  JAX's `axis` inside `shard_map` becomes the group.
 
 Failure semantics follow XLA's: a singular plane block or a non-PD reduced
 system yields NaN in the solution instead of an exception, so the GN loop
@@ -30,12 +33,14 @@ core.ops.segment_sum, so a window refines to the same bits on every run.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from immesh_tpu_torch.core import so3
 from immesh_tpu_torch.core.ops import segment_sum
+from immesh_tpu_torch.dist import comm
 
 
 class WindowProblem(NamedTuple):
@@ -216,9 +221,11 @@ def _retract(rot, pos, normal, d, dp, dl):
 
 def _gn_iteration(rot, pos, normal, d, prob: WindowProblem, anchor_rot,
                   anchor_pos, huber_delta, gauge_weight, damping,
-                  plane_prior, fix_planes: bool):
+                  plane_prior, fix_planes: bool, group):
     blocks = _point_factor_blocks(rot, pos, normal, d, prob.pts,
                                   prob.plane_id, prob.weight, huber_delta)
+    if group is not None:
+        blocks = comm.psum(blocks, group)        # ← the one reduction
     K = blocks["Hpl"].shape[0]
     H_odo, b_odo = _odometry_blocks(rot, pos, prob, anchor_rot, anchor_pos,
                                     gauge_weight)
@@ -244,16 +251,47 @@ def _gn_iteration(rot, pos, normal, d, prob: WindowProblem, anchor_rot,
 def solve_window(prob: WindowProblem, *, iterations: int = 6,
                  huber_delta: float = 0.5, gauge_weight: float = 1e8,
                  damping: float = 1e-6, plane_prior: float = 10.0,
-                 fix_planes: bool = False) -> Dict[str, torch.Tensor]:
+                 fix_planes: bool = False,
+                 group: Optional[dist.ProcessGroup] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Run Gauss-Newton on the window, on the problem's device.  `cost` is
     the robust point cost at the start of the last iteration and
-    `last_step_norm` that iteration's pose step (zeros for 0 iterations)."""
+    `last_step_norm` that iteration's pose step (zeros for 0 iterations).
+    With a `group`, `prob` holds this rank's point shard and the blocks are
+    summed over the group's ranks every iteration (every rank must call)."""
     anchor_rot, anchor_pos = prob.rot[0], prob.pos[0]
     rot, pos, normal, d = prob.rot, prob.pos, prob.normal, prob.d
     cost = step = torch.zeros((), dtype=rot.dtype, device=rot.device)
     for _ in range(iterations):
         rot, pos, normal, d, cost, step = _gn_iteration(
             rot, pos, normal, d, prob, anchor_rot, anchor_pos, huber_delta,
-            gauge_weight, damping, plane_prior, fix_planes)
+            gauge_weight, damping, plane_prior, fix_planes, group)
     return {"rot": rot, "pos": pos, "normal": normal, "d": d,
             "cost": cost, "last_step_norm": step}
+
+
+def make_dist_window_ba(group: Optional[dist.ProcessGroup] = None,
+                        **solve_kw):
+    """The multi-rank window-BA solver: returns (solve, shard_problem).
+
+    `shard_problem(prob)` keeps this rank's slice of the point axis of
+    `pts/plane_id/weight` — columns [r·Np/n, (r+1)·Np/n), the P(None, axis)
+    layout of the JAX solver; poses, planes and odometry factors stay
+    whole.  `solve(local_prob)` runs solve_window with the blocks summed
+    over the group; every rank returns the same replicated solution."""
+    rank, n = comm.rank_size(group)
+    group = group if group is not None else dist.group.WORLD
+
+    def shard_problem(prob: WindowProblem) -> WindowProblem:
+        Np = prob.pts.shape[1]
+        if Np % n:
+            raise ValueError(f"{Np} points per keyframe do not split over "
+                             f"{n} ranks")
+        sl = slice(rank * Np // n, (rank + 1) * Np // n)
+        return prob._replace(pts=prob.pts[:, sl], plane_id=prob.plane_id[:, sl],
+                             weight=prob.weight[:, sl])
+
+    def solve(local_prob: WindowProblem) -> Dict[str, torch.Tensor]:
+        return solve_window(local_prob, group=group, **solve_kw)
+
+    return solve, shard_problem

@@ -17,7 +17,7 @@ entirely in NumPy on the host (a few thousand 3-vectors).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -184,3 +184,24 @@ def evaluate_ate(est: Trajectory, gt: Trajectory, max_dt: float = 0.02,
         "rpe_rot": rpe_r,
     }
 
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """Command line: ATE/RPE of a TUM trace against ground truth, printed
+    as one JSON object."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(
+        description="ATE/RPE of a TUM trace vs ground truth")
+    ap.add_argument("est", help="estimated trajectory (TUM format)")
+    ap.add_argument("gt", help="ground-truth trajectory (TUM format)")
+    ap.add_argument("--max-dt", type=float, default=0.02)
+    ap.add_argument("--scale", action="store_true", help="Sim(3) alignment")
+    a = ap.parse_args(argv)
+    out = evaluate_ate(load_tum(a.est), load_tum(a.gt), a.max_dt, a.scale)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -27,6 +27,22 @@ from immesh_tpu_torch.map.voxel_map import VoxelMap, _key_centers
 _IDENTITY_R = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
 
+def propagate_and_deskew(state: EsikfState, bundle: ScanBundle,
+                         pts_body: torch.Tensor, imu_cfg):
+    """(propagated state, scan points at scan end): IMU propagation and
+    deskew, or without an IMU the constant-twist model, whose filter bg
+    slot carries the body angular rate, so the deskew twist is {ω̂·T, v·T}."""
+    if imu_cfg.imu_en:
+        state_prop, seg = imu_mod.imu_propagate(state, bundle, imu_cfg)
+        return state_prop, imu_mod.deskew(seg, state_prop, pts_body,
+                                          bundle.t_rel)
+    state_prop = imu_mod.const_velocity_propagate(
+        state, bundle.scan_duration, imu_cfg)
+    return state_prop, imu_mod.deskew_const_twist(
+        pts_body, bundle.t_rel, bundle.scan_duration,
+        state.bg * bundle.scan_duration, state.vel * bundle.scan_duration)
+
+
 def lio_step(state: EsikfState, vm: VoxelMap, bundle: ScanBundle,
              cfg: ImMeshConfig):
     """One LiDAR frame. Returns (state, vm, world_scan, diag); `vm` is
@@ -48,18 +64,8 @@ def lio_step(state: EsikfState, vm: VoxelMap, bundle: ScanBundle,
         pts_body = bundle.pts
 
     # 1. propagate + deskew (reference Process2 → Forward/UndistortPcl)
-    if imu_cfg.imu_en:
-        state_prop, seg = imu_mod.imu_propagate(state, bundle, imu_cfg)
-        pts_end = imu_mod.deskew(seg, state_prop, pts_body, bundle.t_rel)
-    else:
-        # constant-twist model: the filter's bg slot carries the body
-        # angular rate, so the deskew twist is {ω̂·T, v·T}
-        state_prop = imu_mod.const_velocity_propagate(
-            state, bundle.scan_duration, imu_cfg)
-        pts_end = imu_mod.deskew_const_twist(
-            pts_body, bundle.t_rel, bundle.scan_duration,
-            state.bg * bundle.scan_duration, state.vel * bundle.scan_duration,
-        )
+    state_prop, pts_end = propagate_and_deskew(state, bundle, pts_body,
+                                               imu_cfg)
 
     # 2. scan downsample for registration/map (reference downSizeFilterSurf)
     down_pts, down_mask = voxel_downsample(

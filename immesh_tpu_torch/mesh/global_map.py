@@ -134,6 +134,10 @@ class GlobalPointMap:
         ("cells", "points", "voxels", "slots", "deferred" — deferred counts
         backlog beyond this frame's re-mesh budget, not lost work)."""
         cfg = self.cfg
+        if cfg.ablate.startswith("app_"):
+            raise NotImplementedError(
+                f"MeshConfig.ablate={cfg.ablate!r} (the reference's append "
+                "truncations) is not ported")
         N = pts_world.shape[0]
         dev = pts_world.device
         k_cells = min(N, cfg.max_pts_per_frame)

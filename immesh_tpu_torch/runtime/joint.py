@@ -61,6 +61,10 @@ class JointPipeline:
                                    2 * cfg.mesh.active_voxels_per_frame)
         self._backlog_q = []  # drop_deferred of the last two frames
 
+    def static_init(self, acc, gyr) -> None:
+        """IMU static initialization of the filter (reference IMU_init)."""
+        self.lio.static_init(acc, gyr)
+
     def prime_adaptive(self) -> None:
         """Force the next steps onto the hi-budget variant (benches call this
         during warm-up)."""

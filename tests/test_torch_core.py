@@ -253,6 +253,9 @@ def test_importing_the_port_loads_no_jax():
             "immesh_tpu_torch.runtime.demo, immesh_tpu_torch.eval, "
             "immesh_tpu_torch.eval.mesh_quality, "
             "immesh_tpu_torch.lio.window, immesh_tpu_torch.dist.window_ba, "
+            "immesh_tpu_torch.dist.comm, immesh_tpu_torch.dist.lio, "
+            "immesh_tpu_torch.dist.mesh, immesh_tpu_torch.dist.sharded_map, "
+            "immesh_tpu_torch.dist.multihost, "
             "immesh_tpu_torch.render.raster, immesh_tpu_torch.render.live, "
             "immesh_tpu_torch.render.viewer, immesh_tpu_torch.utils.console, "
             "immesh_tpu_torch.frontend.native, "

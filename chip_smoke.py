@@ -88,7 +88,20 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 13c phase 8's first window solved point-sharded at world 2
                 against the card's single-device solve; 13d dp LIO +
                 sharded mesh over NCCL at world 1; 13e the scaling curve at
-                worlds 1 and 2.
+                worlds 1 and 2;
+ 14. ablate   — the cumulative ablation sweep of tools/torch_ablate_e2e.py
+                at the KITTI point on phase 4's scans (JointPipeline
+                without the adaptive budget, 3 warm-up + ABLATE_FRAMES
+                frames a variant): base, lioonly, the five append cuts, the
+                nine triangulation cuts in pipeline order, base again and
+                fake_tri3; structural checks on every variant (no
+                pairs_argmin launch before argmin0, one a frame with active
+                voxels from it on, no triangles after a cut, no map points
+                after an append cut, every pose within POSE_TOL_M; the
+                chain runs ABLATE_PASSES times, a frame timed by its least
+                time over the passes), W of
+                argmin0's last chunk against the plain version, the map copy
+                an append cut costs, and each stage's Δ ms and Δ launches.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -232,6 +245,17 @@ DIST_BA_TOL = 1e-4
 # disagree must have an f64 incircle margin (on the lifted points both
 # see) below this fraction of scale⁴ — 10× the keep threshold ε = 1e-6·s⁴
 AUDIT_TIE = 1e-5
+# phase 14: the cumulative chain of tools/torch_ablate_e2e.py, base first
+# and last (host load moves frame times between runs), fake_tri3 beside it;
+# the chain runs ABLATE_PASSES times and a frame's time is its least over
+# the passes (host noise only adds)
+ABLATE_WARMUP, ABLATE_FRAMES, ABLATE_PASSES = 3, 10, 3
+ABLATE_CHAIN = ("base", "lioonly", "app_cell0", "app_insert0", "app_alloc0",
+                "app_file0", "app_active0", "skip_tri", "pull0", "argmin0",
+                "pairs0", "compact0", "tri30", "gather0", "sort30", "base",
+                "fake_tri3")
+ABLATE_NO_KERNEL = ("lioonly", "app_cell0", "app_insert0", "app_alloc0",
+                    "app_file0", "app_active0", "skip_tri", "pull0")
 
 
 def log(msg: str) -> None:
@@ -2499,6 +2523,148 @@ def phase_dist(dev, main_info: dict, window) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the ablation sweep
+# ---------------------------------------------------------------------------
+def load_ablate_tool():
+    """tools/torch_ablate_e2e.py, importing this module as chip_smoke."""
+    import importlib.util
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_ablate_e2e.py")
+    spec = importlib.util.spec_from_file_location("torch_ablate_e2e", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def check_ablate_run(name: str, out: dict, scans, R0, p0) -> None:
+    """Phase 14's structural checks on one run: a cut that runs the whole
+    frame, or nothing, fails."""
+    fr = out["frames"]
+    errs = [float(np.linalg.norm(R0 @ f["pos"] + p0 - g.gt_pos))
+            for f, g in zip(fr, scans)]
+    n_launch = sum(f["launches"] for f in fr)
+    checks = {
+        "pose": max(errs) <= POSE_TOL_M,
+        "launches": (n_launch == 0 if name in ABLATE_NO_KERNEL else
+                     all(f["launches"] >= 1 for f in fr if f["active"])
+                     and n_launch > 0),
+        "triangles": (out["triangles"] > 0) == (name in ("base", "fake_tri3")),
+        "map points": ((out["map_points"] == 0)
+                       == (name == "lioonly" or name.startswith("app_"))),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(
+            f"ablate {name}: {', '.join(bad)} check failed: pose err max "
+            f"{max(errs):.3f} m, pairs_argmin launches per frame "
+            f"{[f['launches'] for f in fr]}, active voxels "
+            f"{[f['active'] for f in fr]}, {out['triangles']} triangles, "
+            f"{out['map_points']} map points")
+    out["pose_max"] = max(errs)
+
+
+def phase_ablate(dev, main_info: dict) -> int:
+    """Phase 14; returns the pairs_argmin launches of the chain."""
+    import immesh_tpu_torch.mesh.triangles as tri
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.mesh.global_map import GlobalPointMap
+
+    tool = load_ablate_tool()
+    n_all = ABLATE_WARMUP + ABLATE_FRAMES
+    scans = main_info["gt"][:n_all]
+    R0, p0 = main_info["R0"], main_info["p0"]
+    log(f"[ablate] JointPipeline(kitti_config()) without the adaptive "
+        f"budget (active_voxels_per_frame "
+        f"{kitti_config().mesh.active_voxels_per_frame}, as "
+        f"tools/ablate_e2e.py; phase 4 runs with budget 2048) on phase 4's "
+        f"first {n_all} scans, {ABLATE_WARMUP} warm-up + {ABLATE_FRAMES} "
+        f"timed frames a variant, synchronised after every frame")
+
+    pairs_argmin = tri.pairs_argmin
+    last = {}
+
+    def recorded(*ch):  # argmin0's inputs and W, as the path's call got them
+        last["ch"], last["W"] = ch, pairs_argmin(*ch)
+        return last["W"]
+
+    runs = [[] for _ in ABLATE_CHAIN]  # per chain position, one run a pass
+    t0 = time.perf_counter()
+    pk.reset_launches()
+    for _ in range(ABLATE_PASSES):
+        for i, name in enumerate(ABLATE_CHAIN):
+            tri.pairs_argmin = recorded if name == "argmin0" else pairs_argmin
+            try:
+                out = tool.run_variant(name, tool.VARIANTS[name],
+                                       ABLATE_FRAMES, ABLATE_WARMUP,
+                                       device=dev, scans=scans)
+            finally:
+                tri.pairs_argmin = pairs_argmin
+            check_ablate_run(name, out, scans, R0, p0)
+            runs[i].append(out)
+    launches = pk.launches
+    t_chain = time.perf_counter() - t0
+    rows = []
+    for rs in runs:
+        row = {k: v for k, v in rs[0].items() if k != "frames"}
+        for key in ("ms", "mesh_ms"):
+            t = np.min([[f[key] for f in r["frames"][ABLATE_WARMUP:]]
+                        for r in rs], axis=0)
+            row[key + "_median"] = float(np.median(t))
+            row[key + "_p90"] = float(np.percentile(t, 90))
+        row["ms_median_per_pass"] = [r["ms_median"] for r in rs]
+        row["pose_max"] = max(r["pose_max"] for r in rs)
+        rows.append(row)
+
+    ch, W = last["ch"], last["W"]
+    Wp = pk.pairs_argmin_plain(*ch)
+    if not torch.equal(W, Wp):
+        raise AssertionError(f"ablate argmin0: W of the last chunk differs "
+                             f"from the plain version at "
+                             f"{int((W != Wp).sum())} entries")
+    gm = GlobalPointMap.create(kitti_config().mesh, device=dev)
+    copy_ms = event_ms(gm.clone, 20)
+    n_bytes = sum(t.numel() * t.element_size() for t in (
+        gm.pts, gm.pts_smooth, gm.dedup.keys, gm.dedup.fp, gm.vox.keys,
+        gm.vox.fp, gm.vox_pt_idx, gm.vox_pts, gm.vox_pts_sm, gm.vox_n,
+        gm.vox_new, gm.vox_meshed))
+    log(f"[ablate] argmin0's last chunk {tuple(ch[0].shape)} (fill "
+        f"{float(ch[3].mean()):.3f}, the unperturbed lift, d_eps 1e-6): W "
+        f"equal to the plain version, max |Δ| "
+        f"{int((W.long() - Wp.long()).abs().max())}; an append cut's copy of "
+        f"the map ({n_bytes / 2 ** 20:.1f} MiB) {copy_ms:.3f} ms a frame "
+        f"(median of 20, CUDA events)")
+
+    log(f"[ablate] {smi_line()}; {ABLATE_PASSES} passes of "
+        f"{len(ABLATE_CHAIN)} runs in {t_chain:.1f} s; a frame's ms (and its "
+        f"mesh step's, synchronised around it) is its least over the passes, "
+        f"then median and p90 over the timed frames; Δ against the row above "
+        f"(fake_tri3: against base); pose err max over every run "
+        f"{max(r['pose_max'] for r in rows):.3f} m")
+    log(f"[ablate] {'stage':<12} {'frame ms':>8} {'p90':>7} {'Δ':>7} "
+        f"{'mesh ms':>8} {'p90':>7} {'Δ':>7} {'launch/fr':>9} {'Δ':>5} "
+        f"{'triangles':>9} {'points':>7}")
+    prev = None
+    for r in rows:
+        ref = rows[-2] if r["variant"] == "fake_tri3" else prev
+        d = ("", "", "") if ref is None else (
+            f"{r['ms_median'] - ref['ms_median']:+.2f}",
+            f"{r['mesh_ms_median'] - ref['mesh_ms_median']:+.2f}",
+            f"{r['pairs_launches_per_frame'] - ref['pairs_launches_per_frame']:+.1f}")
+        log(f"[ablate] {r['variant']:<12} {r['ms_median']:8.2f} "
+            f"{r['ms_p90']:7.2f} {d[0]:>7} {r['mesh_ms_median']:8.2f} "
+            f"{r['mesh_ms_p90']:7.2f} {d[1]:>7} "
+            f"{r['pairs_launches_per_frame']:9.1f} {d[2]:>5} "
+            f"{r['triangles']:9d} {r['map_points']:7d}")
+        prev = r
+    log(f"[ablate] base first {rows[0]['ms_median']:.2f} ms, base last "
+        f"{rows[-2]['ms_median']:.2f} ms; per pass (median of its timed "
+        f"frames) first {rows[0]['ms_median_per_pass']}, last "
+        f"{rows[-2]['ms_median_per_pass']}; " + json.dumps(rows))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40,
@@ -2545,6 +2711,7 @@ def main() -> int:
     tex.finish(rt, R_align, p0)
     del rt
     pairs["launches_dist"] = phase_dist(dev, main_info, window)
+    pairs["launches_ablate"] = phase_ablate(dev, main_info)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

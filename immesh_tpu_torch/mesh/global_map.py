@@ -11,11 +11,18 @@ rank-ordered filing into per-voxel slots.
 The JAX reference updates the map functionally inside a donated program;
 here `append_frame`, `smooth_active`, `mark_meshed` and `compact` modify the
 tensors of this object in place.
+
+MeshConfig.ablate's append cuts ("app_cell0", "app_insert0", "app_alloc0",
+"app_file0", "app_active0") stop `append_frame` after the named stage and
+return what the reference's cut returns: the map as it was before the
+frame with frame_no advanced, an empty work list and zero drop counters.
+Since the stages before a cut have already written this map in place, a cut
+frame first copies the map and puts the copy back at the cut.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Tuple
 
 import numpy as np
@@ -124,6 +131,31 @@ class GlobalPointMap:
             cfg=cfg,
         )
 
+    def clone(self) -> "GlobalPointMap":
+        """A copy of the map that shares no tensor with this one."""
+        def copy(x):
+            if isinstance(x, HashTable):
+                return replace(x, keys=x.keys.clone(), fp=x.fp.clone())
+            return x.clone() if isinstance(x, torch.Tensor) else x
+        return replace(self, **{f.name: copy(getattr(self, f.name))
+                                for f in fields(self)})
+
+    def _trunc(self, before: "GlobalPointMap"):
+        """MeshConfig.ablate app_*: end the append here, as the reference's
+        `_trunc` does.  The map goes back to `before`, its copy from the
+        start of the frame, with frame_no + 1; the work list is empty and
+        every drop counter 0."""
+        for f in fields(self):
+            setattr(self, f.name, getattr(before, f.name))
+        self.frame_no = before.frame_no + 1
+        A = self.cfg.active_voxels_per_frame
+        dev = self.pts.device
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return (self, torch.zeros(A, dtype=torch.int32, device=dev),
+                torch.zeros(A, dtype=torch.bool, device=dev),
+                {k: zero for k in
+                 ("cells", "points", "voxels", "slots", "deferred")})
+
     # ==================================================================
     def append_frame(self, pts_world: torch.Tensor, mask: torch.Tensor
                      ) -> Tuple["GlobalPointMap", torch.Tensor, torch.Tensor,
@@ -134,10 +166,8 @@ class GlobalPointMap:
         ("cells", "points", "voxels", "slots", "deferred" — deferred counts
         backlog beyond this frame's re-mesh budget, not lost work)."""
         cfg = self.cfg
-        if cfg.ablate.startswith("app_"):
-            raise NotImplementedError(
-                f"MeshConfig.ablate={cfg.ablate!r} (the reference's append "
-                "truncations) is not ported")
+        cut = cfg.ablate
+        before = self.clone() if cut.startswith("app_") else None
         N = pts_world.shape[0]
         dev = pts_world.device
         k_cells = min(N, cfg.max_pts_per_frame)
@@ -171,6 +201,8 @@ class GlobalPointMap:
         else:
             cell = _grid_coords(pts_world, cfg.pts_minimum_scale, tag=0)
             _, first, n_cells = frame_unique_coords(cell[:, :3], mask, k_cells)
+        if cut == "app_cell0":
+            return self._trunc(before)
 
         # ---- 2. map-level dedup: find-or-insert into the presence grid ---
         cand_ok = first < N
@@ -180,6 +212,8 @@ class GlobalPointMap:
         slots, inserted = self.dedup.insert(cand_cell, cand_ok)
         # fresh ⇔ the key claimed a previously empty slot
         fresh = cand_ok & (slots >= 0) & inserted
+        if cut == "app_insert0":
+            return self._trunc(before)
 
         # ---- 3. bump-allocate point ids ----------------------------------
         order = torch.cumsum(fresh.to(i32), 0, dtype=i32) - 1
@@ -193,6 +227,8 @@ class GlobalPointMap:
         set_drop(self.pts_smooth, new_ids, p_ci, fresh)
         self.pt_count = torch.clamp(self.pt_count + n_new,
                                     max=cfg.points_capacity)
+        if cut == "app_alloc0":
+            return self._trunc(before)
 
         # ---- 4. voxel membership: rank-ordered scatter append ------------
         vcell = _grid_coords(p_ci, cfg.voxel_resolution, tag=0)
@@ -225,6 +261,8 @@ class GlobalPointMap:
                  + addc, vadd)
         set_drop(self.vox_new, vslots,
                  self.vox_new[vslots.clamp(min=0).long()] + addc, vadd)
+        if cut == "app_file0":
+            return self._trunc(before)
 
         # ---- 5. active set = pending backlog ∪ occupied neighbors --------
         V = self.vox_n.shape[0]
@@ -241,6 +279,8 @@ class GlobalPointMap:
         self.frame_no = self.frame_no + 1
         active_slots, active_mask, drop_dilate = self._dilate_active(
             psl.clamp(max=V - 1), pmask)
+        if cut == "app_active0":
+            return self._trunc(before)
         zero = torch.zeros((), dtype=i32, device=dev)
         drops = {
             "cells": torch.maximum(n_cells - k_cells, zero),

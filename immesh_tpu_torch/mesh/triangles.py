@@ -10,6 +10,14 @@ wholesale, so no global hash, lock or diff is needed.  Winding mirrors
 The reference's exact-f32 one-hot contractions and top-k payload keys were
 TPU gather workarounds; here they are integer gathers with the same
 outputs.  The store is updated in place.
+
+MeshConfig.ablate's triangulation cuts ("skip_tri", "pull0", "argmin0",
+"pairs0", "compact0", "fake_tri3", "tri30", "gather0", "sort30") stop a
+chunk after the named stage and return the reference's empty result at that
+point, so the active voxels' rows end up empty; "fake_tri3" instead runs the
+chunk with a wrong third vertex.  The reference folds the cut prefix into
+its outputs only so XLA cannot delete it; eager PyTorch runs every op it is
+given, so the port does not.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from immesh_tpu_torch.config import MeshConfig
 from immesh_tpu_torch.core.ops import div, set_drop
 from immesh_tpu_torch.core.so3 import cross
 from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.kernels.pairs_argmin import pairs_argmin
 from immesh_tpu_torch.mesh.delaunay import (
     angle_filter, compact_triangles, delaunay_pairs_w, pca_project)
 from immesh_tpu_torch.mesh.global_map import GlobalPointMap
@@ -138,30 +147,56 @@ def _sort3(k0, k1, k2, a0, a1, a2, p0, p1, p2):
     return a0, a1, a2, p0, p1, p2
 
 
+def _empty(a: int, C: int, device):
+    """The result of a chunk with nothing triangulated: (ids, counts, drops)."""
+    return (torch.full((a, C, 3), -1, dtype=torch.int32, device=device),
+            torch.zeros(a, dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+
 def _chunk_impl(pts_c, sm_c, pmask_c, gidx_c, key_c, sensor_pos,
                 cfg: MeshConfig):
     """Triangulate one chunk of voxels: (ids (a, C, 3), counts (a,), drops)."""
     a, K = pts_c.shape[0], pts_c.shape[1]
     C = cfg.tris_per_voxel
     C2 = min(4 * C, 2 * cfg.pull_capacity)
+    cut, dev = cfg.ablate, pts_c.device
+    if cut == "pull0":
+        return _empty(a, C, dev)
     uv, _, _ = pca_project(sm_c, pmask_c)
     phash = _pos_hash(pts_c)                                   # (a, K)
+    if cut == "argmin0":
+        # the reference's unperturbed lift and fixed d_eps
+        u, v = uv[..., 0].contiguous(), uv[..., 1].contiguous()
+        pairs_argmin(u, v, u * u + v * v, pmask_c.to(torch.float32),
+                     torch.full((a,), 1e-6, dtype=torch.float32, device=dev))
+        return _empty(a, C, dev)
     W, emit = delaunay_pairs_w(uv, pmask_c, tiebreak=phash,
                                tie_scale=cfg.tie_scale)        # (a, K, K) ×2
     keep = emit.reshape(a, K * K)
+    if cut == "pairs0":
+        return _empty(a, C, dev)
 
     rows, rmask = compact_triangles(keep, C2)                  # (a, C2)
     rowc = rows.clamp(min=0)
     t2 = torch.where(rmask, _gather_rows(W.reshape(a, K * K), rowc), 0)
+    if cut == "compact0":
+        return _empty(a, C, dev)
     drop1 = torch.sum(torch.clamp(
         torch.sum(keep.to(torch.int32), dim=-1) - C2, min=0))
     t0 = rowc // K
     t1 = rowc - t0 * K
+    if cut == "fake_tri3":
+        t2 = (t0 + t1) % K
+    if cut == "tri30":
+        return _empty(a, C, dev)
 
     v0, v1, v2 = (_gather_rows(pts_c, t) for t in (t0, t1, t2))
     i0, i1, i2 = (_gather_rows(gidx_c, t) for t in (t0, t1, t2))
 
     keep2 = rmask & angle_filter(v0, v1, v2, cfg.max_tri_angle_deg)
+    if cut == "gather0":
+        return _empty(a, C, dev)
     if cfg.max_edge_scale > 0:
         emax = cfg.max_edge_scale * cfg.pts_minimum_scale
         keep2 = keep2 & (
@@ -177,6 +212,8 @@ def _chunk_impl(pts_c, sm_c, pmask_c, gidx_c, key_c, sensor_pos,
     cen = ((q0 + q1) + q2) * (1.0 / 3.0)
     cen_key = torch.floor(div(cen, cfg.voxel_resolution)).to(torch.int32)
     keep2 = keep2 & torch.all(cen_key == key_c[:, None, :], dim=-1)
+    if cut == "sort30":
+        return _empty(a, C, dev)
 
     rows2, rmask2 = compact_triangles(keep2, C)                # (a, C)
     drop2 = torch.sum(torch.clamp(
@@ -204,21 +241,17 @@ def triangulate_voxels(gm: GlobalPointMap, slots: torch.Tensor,
     Chunks of `chunk` voxels are triangulated one launch each; a chunk with
     no active point is skipped — its result is the empty one, so the skip is
     exact (the reference's lax.cond)."""
-    if cfg.ablate:
-        raise NotImplementedError(
-            "MeshConfig.ablate (the reference's profiling truncations) is "
-            "not ported")
     A = slots.shape[0]
     C = cfg.tris_per_voxel
     dev = slots.device
+    if cfg.ablate == "skip_tri":
+        return _empty(A, C, dev)
     pull = gm.pull_neighborhood(slots, smask)
     pts, pmask, gidx = pull["pts"], pull["mask"], pull["idx"]
     pts_sm = pull["pts_sm"]  # smoothed geometry feeds the PCA/Delaunay
     vox_key = gm.vox.keys[slots.clamp(min=0).long(), :3]         # (A, 3)
 
-    ids = torch.full((A, C, 3), -1, dtype=torch.int32, device=dev)
-    counts = torch.zeros(A, dtype=torch.int32, device=dev)
-    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    ids, counts, dropped = _empty(A, C, dev)
     for c0 in range(0, A, chunk):
         sl = slice(c0, c0 + chunk)
         if not bool(pmask[sl].any()):

@@ -216,6 +216,49 @@ def test_plane_fit_and_noise_models():
            tgeo.point_to_plane_sigma2(*map(_t, args)), atol=1e-7)
 
 
+# the reference's f32 moments (bit patterns) of two plane-map voxels after
+# frame 1 of tests/torch_fault_c.py's sequence, both of near-line point
+# sets: (key, Σ(p − anchor), packed Σ(p − anchor)(p − anchor)ᵀ, N, Σσ²)
+NEAR_LINE_VOXELS = (
+    ((-3, -9, -2, 1), (3163543552, 3214864904, 1082209543),
+     (1061054952, 997860544, 1011542080, 1048815324, 3210079064, 1076753303),
+     6.0, 1050264716),
+    ((2, 4, 0, 0), (3238341893, 1082733478, 3229700944),
+     (1094239671, 3233699030, 1085417646, 1078204286, 3224970376, 1082153414),
+     6.0, 1053257060),
+)
+
+
+@pytest.mark.parametrize("voxel", NEAR_LINE_VOXELS, ids=("6211", "2606"))
+def test_plane_fit_of_a_near_line_voxel_is_the_reference_as_written(voxel):
+    """ROADMAP queue 3 item 9: where the two smallest eigenvalues nearly
+    coincide, eigh3x3's arccos(det(B)/2) turns one ulp into ~1e-5 of λ_min
+    and degrees of normal.  The port computes what the reference's code
+    says op by op (jax.disable_jit) bit for bit; the jitted reference
+    rounds otherwise (XLA:CPU), which is where the chained runs part."""
+    import jax
+    from immesh_tpu.map.voxel_map import _sym_unpack as jsym
+    from immesh_tpu_torch.map.voxel_map import _key_centers, _sym_unpack
+    key, sp, spp, n, s2 = voxel
+    sum_p = np.array(sp, np.uint32).view(np.float32)[None]
+    sum_pp = np.array(spp, np.uint32).view(np.float32)[None]
+    count = np.array([n], np.float32)
+    s2m = np.array([s2], np.uint32).view(np.float32) / count
+    anchor = _key_centers(torch.tensor([key], dtype=torch.int32), 3.0,
+                          torch.float32)
+    tf = tgeo.plane_from_moments(_t(sum_p), _sym_unpack(_t(sum_pp)),
+                                 _t(count), _t(s2m), anchor=anchor)
+    with jax.disable_jit():
+        jf = jgeo.plane_from_moments(
+            jnp.asarray(sum_p), jsym(jnp.asarray(sum_pp)), jnp.asarray(count),
+            jnp.asarray(s2m), anchor=jnp.asarray(anchor.numpy()))
+    for k in ("lam", "normal", "d", "center"):
+        np.testing.assert_array_equal(tf[k].numpy(), np.asarray(jf[k]),
+                                      err_msg=k)
+    lam_min = tf["lam"][0, 0].item()
+    assert lam_min < tf["lam"][0, 1].item() < 1e-4 < tf["lam"][0, 2].item()
+
+
 # ---------------------------------------------------------------------------
 # import hygiene
 # ---------------------------------------------------------------------------
@@ -227,6 +270,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "torch_profile.py")
+    yield os.path.join(REPO, "tools", "torch_ablate_e2e.py")
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),

@@ -1,9 +1,7 @@
 """Port parity of the entry points the port lacked or got wrong:
 JointPipeline.static_init (the IMU static initialization the reference's
-JointPipeline delegates to its LIO), GlobalPointMap.append_frame's refusal
-of the reference's append truncations (MeshConfig.ablate "app_*", not
-ported), the ATE/RPE command line eval/ate.py::main, and
-MeshPipeline.step on a zero-row scan.
+JointPipeline delegates to its LIO), the ATE/RPE command line
+eval/ate.py::main, and MeshPipeline.step on a zero-row scan.
 
 JointPipeline runs PRESETS["sim"] with its bundles cut to the 2,048 rays
 the simulator casts.  Tolerances: the IMU-on JointPipeline pose 1e-3 m per
@@ -27,10 +25,8 @@ from immesh_tpu.frontend.sim import LidarImuSimulator
 from immesh_tpu.frontend.types import ScanBundle as JBundle
 from immesh_tpu.mesh.pipeline import MeshPipeline as JMeshPipe
 from immesh_tpu_torch.config import ImMeshConfig as TConfig
-from immesh_tpu_torch.config import PRESETS
 from immesh_tpu_torch.eval import ate as tate
 from immesh_tpu_torch.frontend.types import ScanBundle as TBundle
-from immesh_tpu_torch.mesh.global_map import GlobalPointMap
 from immesh_tpu_torch.mesh.pipeline import MeshPipeline as TMeshPipe
 
 N_RAYS, N_STEPS = 2048, 4
@@ -73,16 +69,6 @@ def test_joint_pipeline_static_init_matches_reference():
                                    np.asarray(jp.state.pos), atol=1e-3,
                                    err_msg=f"frame {k}")
     assert int(tp.store.n_triangles()) > 0
-
-
-@pytest.mark.parametrize("cut", ["app_cell0", "app_insert0", "app_alloc0",
-                                 "app_file0", "app_active0"])
-def test_append_frame_refuses_unported_ablations(cut):
-    mc = dataclasses.replace(PRESETS["sim"]().mesh, points_capacity=2 ** 10,
-                             voxel_capacity=2 ** 8, ablate=cut)
-    gm = GlobalPointMap.create(mc, device="cpu")
-    with pytest.raises(NotImplementedError, match=cut):
-        gm.append_frame(torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool))
 
 
 def _write_tum(path, stamps, pos, quat):

@@ -165,10 +165,11 @@ def test_offline_pointcloud_to_mesh():
 
 
 def test_unported_paths_raise():
-    """The one option left unported (MeshConfig.ablate, the reference's
-    profiling truncations) raises when a frame reaches it; a runtime with
-    window BA on constructs (tests/test_torch_window_ba.py and
-    tests/test_torch_render.py drive BA, the viewer and reinforcement)."""
+    """No option of the runtime is left unported: a runtime with window BA
+    on constructs (tests/test_torch_window_ba.py and
+    tests/test_torch_render.py drive BA, the viewer and reinforcement), and
+    a frame under MeshConfig.ablate="skip_tri" (tests/test_torch_ablate.py
+    holds every cut to the reference) runs and leaves no live triangle."""
     cfg = TConfig.from_dict(_config().to_dict())
     rt = TRuntime(cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=True)),
                   mesh_enabled=False, device="cpu")
@@ -177,9 +178,10 @@ def test_unported_paths_raise():
         cfg.mesh, ablate="skip_tri")), device="cpu")
     sim = LidarImuSimulator(n_rays=N_RAYS, seed=6)
     rt.static_init(*sim.static_imu(50))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        rt.process_frame(TBundle.from_numpy(*_args(sim, 0, _config()),
-                                            device="cpu"))
+    rt.process_frame(TBundle.from_numpy(*_args(sim, 0, _config()),
+                                        device="cpu"))
+    assert int(rt.mesh.store.n_triangles()) == 0
+    assert int(rt.mesh.gm.n_points()) > 0
 
 
 def test_demo_main_runs_on_the_cpu(tmp_path, capsys):

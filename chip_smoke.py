@@ -101,7 +101,23 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 chain runs ABLATE_PASSES times, a frame timed by its least
                 time over the passes), W of
                 argmin0's last chunk against the plain version, the map copy
-                an append cut costs, and each stage's Δ ms and Δ launches.
+                an append cut costs, and each stage's Δ ms and Δ launches;
+ 15. profile  — the two stage profilers: tools/torch_profile_lio.py at
+                the KITTI point on phase 4's scans and at the Avia point
+                (IMU on, extrinsics) on phase 6's simulator, PROFILE_WARM
+                warm-up frames, then each LIO stage alone PROFILE_REPEAT
+                times back to back, and inside the composed step, in
+                three rounds, then once under torch.profiler (wall
+                ms, launches, syncs, copies, device-busy ms, ESIKF
+                iterations, the stages' sum beside a whole lio_step); the
+                stages
+                composed in order equal lio_step bit for bit and leave the
+                pipeline's map bit-identical; tools/torch_profile_stages.py
+                on phase 4's first 13 scans (lio, append, smooth, pull,
+                delaunay, apply, each synchronised alone): pairs_argmin
+                twice a frame in delaunay and nowhere else, W of its last
+                chunk against the plain version, every pose within
+                POSE_TOL_M.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -256,6 +272,11 @@ ABLATE_CHAIN = ("base", "lioonly", "app_cell0", "app_insert0", "app_alloc0",
                 "fake_tri3")
 ABLATE_NO_KERNEL = ("lioonly", "app_cell0", "app_insert0", "app_alloc0",
                     "app_file0", "app_active0", "skip_tri", "pull0")
+# phase 15: tools/torch_profile_lio.py's warm-up frames and calls a stage
+# (its defaults, but 10 calls for its 20), and
+# tools/torch_profile_stages.py's frames (its defaults)
+PROFILE_WARM, PROFILE_REPEAT = 5, 10
+PROFILE_STAGES_WARMUP, PROFILE_STAGES_FRAMES = 3, 10
 
 
 def log(msg: str) -> None:
@@ -2526,13 +2547,13 @@ def phase_dist(dev, main_info: dict, window) -> int:
 # ---------------------------------------------------------------------------
 # phase 14: the ablation sweep
 # ---------------------------------------------------------------------------
-def load_ablate_tool():
-    """tools/torch_ablate_e2e.py, importing this module as chip_smoke."""
+def load_tool(name: str):
+    """tools/<name>.py, importing this module as chip_smoke."""
     import importlib.util
     sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "torch_ablate_e2e.py")
-    spec = importlib.util.spec_from_file_location("torch_ablate_e2e", path)
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     return tool
@@ -2571,7 +2592,7 @@ def phase_ablate(dev, main_info: dict) -> int:
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.mesh.global_map import GlobalPointMap
 
-    tool = load_ablate_tool()
+    tool = load_tool("torch_ablate_e2e")
     n_all = ABLATE_WARMUP + ABLATE_FRAMES
     scans = main_info["gt"][:n_all]
     R0, p0 = main_info["R0"], main_info["p0"]
@@ -2665,6 +2686,96 @@ def phase_ablate(dev, main_info: dict) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the two stage profilers
+# ---------------------------------------------------------------------------
+def phase_profile(dev, main_info: dict) -> int:
+    """Phase 15; returns the pairs_argmin launches of the phase."""
+    import immesh_tpu_torch.mesh.delaunay as dl
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+
+    lio_tool = load_tool("torch_profile_lio")
+    stages_tool = load_tool("torch_profile_stages")
+    t_phase = time.perf_counter()
+    pk.reset_launches()
+    smi = smi_line()
+    n_lio = PROFILE_WARM + 1
+    avia_cfg = avia_config()
+    sim = make_avia_sim(avia_cfg)
+    static = sim.static_imu(100)  # drawn first, as the demo does
+    runs = (("kitti", kitti_config(), main_info["gt"][:n_lio], None),
+            ("avia", avia_cfg, [sim.frame(k) for k in range(n_lio)], static))
+    for path, cfg, scans, imu in runs:
+        out = lio_tool.profile_lio(cfg, scans, dev, PROFILE_WARM,
+                                   PROFILE_REPEAT, imu)
+        bad = [f"compose {k}" for k, ok in out["compose_matches"].items()
+               if not ok] + [f"map after {k}" for k, ok in
+                             out["map_unchanged"].items() if not ok]
+        if bad:
+            raise AssertionError(f"profile_lio {path}: {', '.join(bad)} "
+                                 f"differ")
+        log(f"[profile] tools/torch_profile_lio.py --path {path}: frame "
+            f"{PROFILE_WARM} after {PROFILE_WARM} warm-up frames, "
+            f"{PROFILE_REPEAT} calls a stage back to back and the composed "
+            f"step {PROFILE_REPEAT} times, in {lio_tool.ROUNDS} rounds, then "
+            f"one call under torch.profiler; {smi}; the stages composed in "
+            f"order equal "
+            f"lio_step bit for bit (state, world scan, map), the pipeline's "
+            f"map bit-identical after every stage")
+        for row in lio_tool.table(out):
+            log(f"[profile] {path} {row}")
+        log(f"[profile] {path} " + json.dumps(out))
+
+    n_st = PROFILE_STAGES_WARMUP + PROFILE_STAGES_FRAMES
+    scans = main_info["gt"][:n_st]
+    pairs_argmin, last = dl.pairs_argmin, {}
+
+    def recorded(*ch):  # delaunay_pairs_w's chunks, as the path gave them
+        last["ch"], last["W"] = ch, pairs_argmin(*ch)
+        return last["W"]
+
+    dl.pairs_argmin = recorded
+    try:
+        out = stages_tool.run_stages(kitti_config(), scans, dev,
+                                     PROFILE_STAGES_WARMUP)
+    finally:
+        dl.pairs_argmin = pairs_argmin
+    R0, p0 = main_info["R0"], main_info["p0"]
+    errs = [float(np.linalg.norm(R0 @ r["pos"] + p0 - g.gt_pos))
+            for r, g in zip(out["frames"], scans)]
+    per_frame = [r["pairs_launches"] for r in out["frames"]
+                 if r["pairs_launches"]]
+    if any(fr["delaunay"] != 2 or sum(fr.values()) != 2 for fr in per_frame):
+        raise AssertionError(
+            f"profile_stages: pairs_argmin launches per timed frame by "
+            f"stage {per_frame}, not 2 in delaunay and 0 elsewhere")
+    if max(errs) > POSE_TOL_M:
+        raise AssertionError(f"profile_stages: pose {max(errs):.3f} m from "
+                             f"ground truth (limit {POSE_TOL_M} m)")
+    ch, W = last["ch"], last["W"]
+    Wp = pk.pairs_argmin_plain(*ch)
+    if not torch.equal(W, Wp):
+        raise AssertionError(f"profile_stages delaunay: W of the last chunk "
+                             f"differs from the plain version at "
+                             f"{int((W != Wp).sum())} entries")
+    launches = pk.launches
+    log(f"[profile] tools/torch_profile_stages.py on phase 4's first {n_st} "
+        f"scans ({PROFILE_STAGES_WARMUP} warm-up, the last under "
+        f"torch.profiler for the counts; {PROFILE_STAGES_FRAMES} timed, "
+        f"synchronised before and after every stage); {smi}; pose err max "
+        f"{max(errs):.3f} m; delaunay's last chunk {tuple(ch[0].shape)} "
+        f"(fill {float(ch[3].mean()):.3f}): W equal to the plain version")
+    for row in stages_tool.table(out):
+        log(f"[profile] stages {row}")
+    out.pop("pipes")
+    out["frames"] = [{"ms": r["ms"], "pairs_launches": r["pairs_launches"]}
+                     for r in out["frames"]]
+    log("[profile] stages " + json.dumps(out))
+    log(f"[profile] phase 15 took {time.perf_counter() - t_phase:.1f} s, "
+        f"{launches} pairs_argmin launches")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40,
@@ -2712,6 +2823,7 @@ def main() -> int:
     del rt
     pairs["launches_dist"] = phase_dist(dev, main_info, window)
     pairs["launches_ablate"] = phase_ablate(dev, main_info)
+    pairs["launches_profile"] = phase_profile(dev, main_info)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

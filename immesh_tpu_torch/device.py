@@ -16,3 +16,10 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on `dev`: torch.cuda.synchronize on a CUDA
+    device, nothing on the CPU (whose ops finish before they return)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

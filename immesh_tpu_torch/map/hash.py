@@ -18,7 +18,7 @@ in place (JAX donated these buffers in joint_step).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -75,6 +75,10 @@ class HashTable:
         return cls(keys=keys, fp=torch.zeros(capacity, dtype=torch.int32,
                                              device=dev),
                    capacity=capacity, max_probe=max_probe)
+
+    def clone(self) -> "HashTable":
+        """A copy of the table that shares no tensor with this one."""
+        return replace(self, keys=self.keys.clone(), fp=self.fp.clone())
 
     @property
     def _mask(self) -> int:

@@ -12,7 +12,7 @@ here `update` and `compact` modify the tensors of this object in place.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -92,6 +92,11 @@ class VoxelMap:
             subdivided=torch.zeros(cap, dtype=torch.bool, device=dev),
             cfg=cfg,
         )
+
+    def clone(self) -> "VoxelMap":
+        """A copy of the map that shares no tensor with this one."""
+        return replace(self, table=self.table.clone(),
+                       **{n: getattr(self, n).clone() for n in self._FIELDS})
 
     # ==================================================================
     # growth (reference buildVoxelMap / updateVoxelMap)

@@ -134,9 +134,9 @@ class GlobalPointMap:
     def clone(self) -> "GlobalPointMap":
         """A copy of the map that shares no tensor with this one."""
         def copy(x):
-            if isinstance(x, HashTable):
-                return replace(x, keys=x.keys.clone(), fp=x.fp.clone())
-            return x.clone() if isinstance(x, torch.Tensor) else x
+            if isinstance(x, (HashTable, torch.Tensor)):
+                return x.clone()
+            return x
         return replace(self, **{f.name: copy(getattr(self, f.name))
                                 for f in fields(self)})
 

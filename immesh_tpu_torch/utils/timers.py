@@ -8,6 +8,8 @@ Mirrors the reference's `Common_tools::Timer` named tic/toc maps and
 (voxel_mapping.cpp:2005-2025) and `mesh_cost_time.log`
 (ImMesh_mesh_reconstruction.cpp:248-255).  The same log schemas are emitted so
 runs are directly comparable with the reference's timing plots (BASELINE.md).
+`profile_counts`, the port's own, counts a call's kernel launches, host
+syncs and device time under torch.profiler for the stage profilers.
 """
 
 from __future__ import annotations
@@ -98,3 +100,43 @@ class TrajectoryLogger:
         if self._f:
             self._f.close()
             self._f = None
+
+
+# the host's waits on the device and its device↔host copies, by CUDA runtime
+# call (tools/torch_profile.py counts the same names)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+COPY_CALLS = ("cudaMemcpyAsync",)
+_PROFILED = "profiled_call"
+
+
+def profile_counts(fn):
+    """Run fn() once under torch.profiler.  Returns (fn's result, counts):
+    "launches" the device kernels it ran, "syncs" and "copies" its
+    SYNC_CALLS and COPY_CALLS, "busy_ms" the summed device time of its
+    kernels and copies.  Host calls are counted inside a record_function
+    range around fn, which leaves out the profiler's own closing
+    synchronisation; without a CUDA device no device activity is traced
+    and every count reads 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        with record_function(_PROFILED):
+            out = fn()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    span = next(e.time_range for e in events
+                if e.name == _PROFILED and e.device_type != cuda)
+    host = [e.name for e in events if e.device_type != cuda
+            and span.start <= e.time_range.start <= span.end]
+    dev = [e for e in events if e.device_type == cuda and e.name != _PROFILED]
+    return out, {
+        "launches": sum(not e.name.startswith(("Memcpy", "Memset"))
+                        for e in dev),
+        "syncs": sum(n in SYNC_CALLS for n in host),
+        "copies": sum(n in COPY_CALLS for n in host),
+        "busy_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+    }

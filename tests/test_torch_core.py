@@ -271,6 +271,8 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "torch_profile.py")
     yield os.path.join(REPO, "tools", "torch_ablate_e2e.py")
+    yield os.path.join(REPO, "tools", "torch_profile_lio.py")
+    yield os.path.join(REPO, "tools", "torch_profile_stages.py")
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),

@@ -26,7 +26,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -81,7 +80,7 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
     voxels and position.  The mesh step is timed through a wrapper put in
     place of runtime/joint.py's mesh_step for the run."""
     import immesh_tpu_torch.runtime.joint as joint
-    from immesh_tpu_torch.device import resolve_device
+    from immesh_tpu_torch.device import resolve_device, synchronize
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.lio.pipeline import LioPipeline
 
@@ -92,24 +91,20 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
         scans = [sim.frame(k) for k in range(warmup + frames)]
     bundles = [chip_smoke.bundle(f, cfg, dev) for f in scans[:warmup + frames]]
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     mesh_step, mesh_ms = joint.mesh_step, []
 
     def timed_mesh_step(*args):
-        sync()
+        synchronize(dev)
         t0 = time.perf_counter()
         out = mesh_step(*args)
-        sync()
+        synchronize(dev)
         mesh_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
     lio_only = kv.get("_lio_only", False)
     pipe = (LioPipeline(cfg, device=dev) if lio_only
             else joint.JointPipeline(cfg, device=dev))
-    sync()
+    synchronize(dev)
     per_frame = []
     joint.mesh_step = timed_mesh_step
     try:
@@ -117,7 +112,7 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
             before, n_mesh = pk.launches, len(mesh_ms)
             t0 = time.perf_counter()
             _, diag = pipe.step(b)
-            sync()
+            synchronize(dev)
             ms = 1e3 * (time.perf_counter() - t0)
             per_frame.append({
                 "ms": ms, "mesh_ms": sum(mesh_ms[n_mesh:]),

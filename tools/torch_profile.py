@@ -24,6 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402  (the main path's configuration and scans)
 
+from immesh_tpu_torch.utils.timers import COPY_CALLS, SYNC_CALLS  # noqa: E402
+
 
 def _self_dev_us(evt) -> float:
     """Self device time of a key_averages() row (named per torch version)."""
@@ -76,8 +78,7 @@ def main() -> int:
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / args.frames
-    syncs = sum(e.count for e in ka if e.key in (
-        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync"))
+    syncs = sum(e.count for e in ka if e.key in SYNC_CALLS + COPY_CALLS)
     by_dev = sorted(ka, key=lambda e: _self_dev_us(e), reverse=True)
     by_host = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)
 

@@ -15,13 +15,36 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 launch, and one wrapper call with its checks and host
                 work) beside its bound and its plain version;
   3. ints     — the wrapping int32 hash arithmetic gives the same bits on the
-                card as on the CPU, and segment sums are deterministic;
+                card as on the CPU, the hash_probe kernels too (insert and
+                lookup on the card against the plain versions on the
+                CPU), and segment sums are deterministic;
+ 3b. hash     — the hash_probe kernels (hash_lookup, hash_insert) against
+                their plain versions on the card at the path's shapes: the
+                KITTI LIO run over phase 4's scans to the plane-map load
+                phase 4 reaches, every probe call of its last frame
+                recorded (the map update's unique keys, lookup_planes_stack's
+                L·P·N keys) and replayed through both on copies of the table
+                it found (slots, new, keys, fp bit for bit), also at
+                HASH_SHORT_PROBE where lanes exhaust; an insert of more
+                lanes than the card holds threads (the kernel's grid-stride
+                path); 0 host syncs a call under torch.profiler; the LIO's
+                costliest lookup and insert timed (device time, one wrapper
+                call, the plain version) beside a bound of bytes over the
+                memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
                 for warm-up plus N timed frames; checks that the kernel ran
-                on every frame with active voxels, that poses follow the
+                on every frame with active voxels and that both hash
+                kernels ran (as on every later path), that poses follow the
                 simulator's ground truth, that triangles exist and that a
                 compaction fired;
+ 4b. hash path — every probe call of phase 4's compacting frames (the
+                mesh dedup and voxel inserts at the tables' fullest, the
+                27-neighbour lookups, the compaction's rebuild inserts) and
+                of its last frame, recorded during phase 4, replayed as in
+                3b; the last frame's costliest lookup and insert timed for
+                the `kernels` line, each compacting frame's costliest
+                insert timed too;
   5. parity   — two small scan sequences, IMU-less KITTI-shaped and IMU-on
                 Avia-shaped, run on the card and on the CPU (the path the
                 tests hold against the JAX reference) agree;
@@ -138,7 +161,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-KERNELS = ("pairs_argmin", "incircle")  # the sources in immesh_tpu_torch/csrc
+# the sources in immesh_tpu_torch/csrc
+KERNELS = ("pairs_argmin", "incircle", "hash_probe")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -277,6 +301,10 @@ ABLATE_NO_KERNEL = ("lioonly", "app_cell0", "app_insert0", "app_alloc0",
 # tools/torch_profile_stages.py's frames (its defaults)
 PROFILE_WARM, PROFILE_REPEAT = 5, 10
 PROFILE_STAGES_WARMUP, PROFILE_STAGES_FRAMES = 3, 10
+# phase 3b: the probe limit that exhausts lanes at the plane map's load
+HASH_SHORT_PROBE = 1
+# the hash kernels' launches on each path, by path (hash_counts)
+PATH_COUNTS = {}
 
 
 def log(msg: str) -> None:
@@ -623,6 +651,7 @@ def phase_incircle(dev):
 # ---------------------------------------------------------------------------
 def phase_ints(dev):
     from immesh_tpu_torch.core.ops import segment_sum
+    from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.map.hash import (
         _fingerprint, _hash, frame_unique_coords)
     from immesh_tpu_torch.mesh.triangles import _pos_hash
@@ -658,38 +687,390 @@ def phase_ints(dev):
         raise AssertionError("segment_sum differs between two runs on the card")
     torch.testing.assert_close(a.cpu(), segment_sum(vals, seg, 1025),
                                rtol=1e-5, atol=1e-4)
+    # the hash kernels' own arithmetic: the same keys inserted and looked up
+    # by the kernels on the card and by the plain versions on the CPU, in a
+    # table at 50 % load (planted rows repeat: only the first is valid)
+    valid = torch.ones(4096, dtype=torch.bool)
+    valid[1:8] = False
+    tables = [(torch.full((2 ** 13, 4), hp.EMPTY, dtype=torch.int32,
+                          device=d),
+               torch.zeros(2 ** 13, dtype=torch.int32, device=d))
+              for d in ("cpu", dev)]
+    a = hp.insert_plain(tc, valid, *tables[0], 32)
+    a = a + (hp.lookup_plain(tc, tables[0][1], 32),)
+    b = hp.insert_cuda(tc.to(dev), valid.to(dev), *tables[1], 32)
+    b = b + (hp.lookup_cuda(tc.to(dev), tables[1][1], 32),)
+    for x, y in zip(a + tables[0], b + tables[1]):
+        if not torch.equal(x, y.cpu()):
+            raise AssertionError("hash_probe kernels on the card and the "
+                                 "plain versions on the CPU differ")
     log("[ints] _hash, _fingerprint, _pos_hash and frame_unique_coords are "
-        "bit-identical on the card and the CPU; segment_sum is "
-        "run-to-run deterministic on the card")
+        "bit-identical on the card and the CPU, and so are the hash_probe "
+        "kernels' slots, new flags, keys and fingerprints (4,096 int32 keys "
+        "over the full range into 8,192 slots) against the plain versions "
+        "on the CPU; segment_sum is run-to-run deterministic on the card")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the hash probe kernels against their plain versions
+# ---------------------------------------------------------------------------
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.kernels import incircle as ik
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    pk.reset_launches()
+    ik.reset_launches()
+    hp.reset_launches()
+
+
+def hash_counts(path: str, launches=None) -> dict:
+    """The hash kernels' launches on `path` (hash_probe.launches since
+    reset_counts(), or the given counts of a rank), kept in PATH_COUNTS;
+    fails if either kernel was never launched there."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    n = dict(hp.launches if launches is None else launches)
+    missing = [k for k, v in n.items() if v == 0]
+    if missing:
+        raise AssertionError(f"{path}: {', '.join(missing)} never launched")
+    PATH_COUNTS[path] = {k: PATH_COUNTS.get(path, {}).get(k, 0) + v
+                         for k, v in n.items()}
+    return n
+
+
+def kitti_scans(n: int):
+    """Phase 4's simulator and its first n scans at the KITTI point."""
+    t0 = time.perf_counter()
+    sim = make_sim(kitti_config().preprocess.max_points, 64)
+    gt = [sim.frame(k) for k in range(n)]
+    log(f"[scans] {n} scans of {kitti_config().preprocess.max_points} rays "
+        f"made in {time.perf_counter() - t0:.1f} s (set-up)")
+    return sim, gt
+
+
+def record_probes(fn):
+    """Run fn() with every HashTable lookup and insert recorded: the
+    inputs, and the table as the call found it.  Returns (fn's result,
+    the calls)."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    calls, lookup, insert = [], hp.lookup, hp.insert
+
+    def rec_lookup(coords, fp, max_probe):
+        calls.append(("lookup", coords.clone(), fp.clone(), max_probe))
+        return lookup(coords, fp, max_probe)
+
+    def rec_insert(coords, valid, keys, fp, max_probe):
+        calls.append(("insert", coords.clone(), valid.clone(), keys.clone(),
+                      fp.clone(), max_probe))
+        return insert(coords, valid, keys, fp, max_probe)
+
+    hp.lookup, hp.insert = rec_lookup, rec_insert
+    try:
+        out = fn()
+    finally:
+        hp.lookup, hp.insert = lookup, insert
+    return out, calls
+
+
+def probe_rounds(coords, slots, capacity: int, max_probe: int, valid=None,
+                 fp=None):
+    """Probe rounds each lane ran, read from its result: to the first probe
+    that reaches its slot; for a lane without one, to the first empty slot
+    of its chain when the lookup's fp is given (an absent key), else
+    max_probe (exhausted); 0 for an invalid lane."""
+    from immesh_tpu_torch.kernels.hash_probe import _fingerprint, _hash
+    mask = capacity - 1
+    h0, fq = _hash(coords, mask), _fingerprint(coords)
+    if valid is None:
+        valid = torch.ones_like(slots, dtype=torch.bool)
+    rounds = torch.where(valid, max_probe, 0).long()
+    for r in range(max_probe - 1, -1, -1):
+        cand = (h0 + r * fq) & mask
+        hit = cand == slots
+        if fp is not None:
+            hit |= (slots < 0) & (fp[cand.long()] == 0)
+        rounds = torch.where(valid & hit, r + 1, rounds)
+    return rounds
+
+
+def hash_bound_ms(n_lanes: int, in_bytes: int, out_bytes: int, rounds,
+                  winners: int = 0) -> tuple:
+    """Least time for this data, by bytes over the memory rate: each lane's
+    input read once and output written once, a 32-byte sector for every
+    probe round the lanes run (a random gather: the fp word of a lookup, the
+    16-byte key row of an insert) and, for an insert, a sector for each
+    winner's key row and one for its fingerprint."""
+    nbytes = (n_lanes * (in_bytes + out_bytes) + 32 * int(rounds.sum())
+              + 64 * winners)
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
+
+
+def histogram(rounds) -> str:
+    h = torch.bincount(rounds.cpu())
+    return ", ".join(f"{r}: {int(c)}" for r, c in enumerate(h) if c)
+
+
+def replay_probes(calls, what: str):
+    """Every recorded call again through each kernel and its plain version,
+    on copies of the table it found, at the call's max_probe and at
+    HASH_SHORT_PROBE: slots, new, keys and fp must be equal, and some insert
+    lane must exhaust at HASH_SHORT_PROBE.  Logs the calls and their probe
+    rounds; returns each kernel's largest absolute difference over its
+    outputs, and each call's probe rounds per lane at its own max_probe."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    err = {"hash_lookup": 0, "hash_insert": 0}
+    exhausted, rounds = 0, []
+    for c in calls:
+        for mp in (c[-1], HASH_SHORT_PROBE):
+            if c[0] == "lookup":
+                name, (_, coords, fp, _) = "hash_lookup", c
+                k, p = hp.lookup_cuda(coords, fp, mp), hp.lookup_plain(
+                    coords, fp, mp)
+                outs = [(k, p)]
+                if mp == c[-1]:
+                    rounds.append(probe_rounds(coords, p, fp.shape[0], mp,
+                                               fp=fp))
+            else:
+                name, (_, coords, valid, keys, fp, _) = "hash_insert", c
+                tk, tp = (keys.clone(), fp.clone()), (keys.clone(), fp.clone())
+                ks, kn = hp.insert_cuda(coords, valid, *tk, mp)
+                ps, pn = hp.insert_plain(coords, valid, *tp, mp)
+                outs = [(ks, ps), (kn, pn), *zip(tk, tp)]
+                if mp == c[-1]:
+                    rounds.append(probe_rounds(coords, ps, fp.shape[0], mp,
+                                               valid))
+                else:
+                    exhausted += int((valid & (ps < 0)).sum())
+            d = max((int((a.long() - b.long()).abs().max())
+                     for a, b in outs if a.numel()), default=0)
+            err[name] = max(err[name], d)
+            if d:
+                raise AssertionError(
+                    f"{what}: {name} and its plain version differ by {d} on "
+                    f"a recorded call ({coords.shape[0]} lanes, "
+                    f"{fp.shape[0]} slots, max_probe {mp})")
+    if exhausted == 0:
+        raise AssertionError(f"{what}: no insert lane exhausted at "
+                             f"max_probe {HASH_SHORT_PROBE}")
+    by_kind = {}
+    for c, r in zip(calls, rounds):
+        by_kind.setdefault(c[0], []).append(r)
+    shapes = ", ".join(f"{c[0]} {c[1].shape[0]} into {c[-2].shape[0]}"
+                       for c in calls)
+    log(f"[hash] {what}: {len(calls)} probe calls ({shapes}), each kernel "
+        f"bit-identical to its plain version (slots, new, keys, fp) at the "
+        f"call's max_probe and at {HASH_SHORT_PROBE}, where {exhausted} "
+        f"insert lanes exhaust; probe rounds per lane " + "; ".join(
+            f"{k} {{{histogram(torch.cat(r))}}}" for k, r in by_kind.items()))
+    return err, rounds
+
+
+def phase_strided(dev) -> dict:
+    """The insert kernel with more lanes than the card holds threads, so
+    each thread takes several lanes across the grid barriers: a table of
+    twice that many unique keys at ~26 % load, inserted in two overlapping
+    batches (10 % of lanes invalid), then looked up, against the plain
+    versions on copies of the table."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.map.hash import HashTable
+
+    props = torch.cuda.get_device_properties(dev)
+    resident = props.multi_processor_count * props.max_threads_per_multi_processor
+    u = 2 * resident
+    cap = 1 << (int(u / 0.3) - 1).bit_length()
+    g = torch.Generator(device=dev).manual_seed(9)
+    raw = torch.randint(-2 ** 20, 2 ** 20, (u + u // 8, 4), generator=g,
+                        device=dev, dtype=torch.int32)
+    raw[:, 3] &= 3
+    keys = torch.unique(raw, dim=0)
+    keys = keys[torch.randperm(keys.shape[0], generator=g, device=dev)[:u]]
+    if keys.shape[0] < u:
+        raise AssertionError("phase 3b: too few unique keys drawn")
+    valid = torch.rand(u, generator=g, device=dev) < 0.9
+    tk = HashTable.create(cap, 32, device=dev)
+    tp = tk.clone()
+    err = {"hash_lookup": 0, "hash_insert": 0}
+    for lo, hi in ((0, 3 * u // 4), (u // 2, u)):
+        c, v = keys[lo:hi].contiguous(), valid[lo:hi].contiguous()
+        outs = [*zip(hp.insert_cuda(c, v, tk.keys, tk.fp, 32),
+                     hp.insert_plain(c, v, tp.keys, tp.fp, 32)),
+                (tk.keys, tp.keys), (tk.fp, tp.fp)]
+        err["hash_insert"] = max(err["hash_insert"], max(
+            int((a.long() - b.long()).abs().max()) for a, b in outs))
+    q = torch.cat([keys, raw[:4096]])
+    err["hash_lookup"] = int((hp.lookup_cuda(q, tk.fp, 32).long()
+                              - hp.lookup_plain(q, tp.fp, 32).long())
+                             .abs().max())
+    if any(err.values()):
+        raise AssertionError(f"phase 3b: the strided insert or lookup "
+                             f"differs from its plain version: {err}")
+    load = int((tp.fp != 0).sum())
+    log(f"[hash] grid-stride: {u} lanes (twice the {resident} threads "
+        f"{props.multi_processor_count} SMs hold) into {cap} slots, two "
+        f"overlapping batches, then {q.shape[0]} lookups: both kernels "
+        f"bit-identical to their plain versions, table at "
+        f"{100 * load / cap:.1f} % load")
+    return err
+
+
+def time_probe(lib, c, rounds, what: str) -> dict:
+    """Time one recorded call: device time of its launch, one wrapper call,
+    the plain version, its bound, and the host calls of one wrapper call
+    under torch.profiler (which must hold no sync)."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.utils.timers import profile_counts
+
+    dev = c[1].device
+    if c[0] == "lookup":
+        _, q, fp, mp = c
+        n = q.shape[0]
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        _, counts = profile_counts(lambda: hp.lookup_cuda(q, fp, mp))
+        ms = device_ms(lambda: hp._launch_lookup(lib, q, fp, mp, slot))
+        wrapper_ms = event_ms(lambda: hp.lookup_cuda(q, fp, mp), 50)
+        plain_ms = event_ms(lambda: hp.lookup_plain(q, fp, mp), 5)
+        bound_ms, bound_by = hash_bound_ms(n, 16, 4, rounds)
+        note = "no copy"
+    else:
+        _, cc, v, keys0, fp0, mp = c
+        n = cc.shape[0]
+        keys, fp = keys0.clone(), fp0.clone()
+
+        def restore():
+            keys.copy_(keys0)
+            fp.copy_(fp0)
+
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        new = torch.empty(n, dtype=torch.bool, device=dev)
+        flags = torch.empty(mp, dtype=torch.int32, device=dev)
+        restore()
+        _, counts = profile_counts(lambda: hp.insert_cuda(cc, v, keys, fp, mp))
+        restore()
+        _, pn = hp.insert_plain(cc, v, keys, fp, mp)
+        restore_ms = device_ms(restore)
+        ms = device_ms(lambda: (restore(), hp._launch_insert(
+            lib, cc, v, keys, fp, mp, slot, new, flags))) - restore_ms
+        wrapper_ms = event_ms(lambda: (restore(), hp.insert_cuda(
+            cc, v, keys, fp, mp)), 50) - event_ms(restore, 50)
+        plain_ms = event_ms(lambda: (restore(), hp.insert_plain(
+            cc, v, keys, fp, mp)), 5) - event_ms(restore, 5)
+        bound_ms, bound_by = hash_bound_ms(n, 17, 5, rounds, int(pn.sum()))
+        note = (f"{int(v.sum())} valid, {int(pn.sum())} new; each launch "
+                f"behind a {1e3 * restore_ms:.2f} us copy of the table, "
+                f"which is subtracted")
+    log(f"[hash] {what}: hash_{c[0]} at ({n}, 4) into {c[-2].shape[0]} "
+        f"slots, max_probe {mp} ({note}): kernel {1e3 * ms:.2f} us (device "
+        f"time, median of 5 x 50 launches), wrapper call "
+        f"{1e3 * wrapper_ms:.2f} us (median of 50), plain version "
+        f"{1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.3f} us "
+        f"({bound_by}); one call under torch.profiler: {counts['launches']} "
+        f"launches, {counts['syncs']} syncs, {counts['copies']} copies; probe "
+        f"rounds per lane {{{histogram(rounds)}}}")
+    if counts["syncs"] != 0:
+        raise AssertionError(f"{what}: hash_{c[0]} waited on the card")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n,
+            "slots": c[-2].shape[0], "syncs_per_call": counts["syncs"],
+            "profiled_launches_per_call": counts["launches"]}
+
+
+def costliest(calls, rounds, kind: str):
+    """The recorded call of `kind` whose lanes run the most probe rounds,
+    and those rounds."""
+    return max(((c, r) for c, r in zip(calls, rounds) if c[0] == kind),
+               key=lambda cr: int(cr[1].sum()))
+
+
+def phase_hash(dev, gt) -> dict:
+    """Phase 3b.  The KITTI LIO on phase 4's scans up to the map load phase
+    4 reaches, its last frame's probes recorded and replayed (replay_probes);
+    the grid-stride case (phase_strided); 0 host syncs a call and the times
+    of the LIO's costliest lookup and insert.  Returns each kernel's largest
+    difference from its plain version."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.lio.pipeline import LioPipeline
+
+    cfg = kitti_config()
+    t_phase = time.perf_counter()
+    lio = LioPipeline(cfg, device=dev)
+    for f in gt[:-1]:
+        lio.step(bundle(f, cfg, dev))
+    last = bundle(gt[-1], cfg, dev)
+    _, calls = record_probes(lambda: lio.step(last))
+    torch.cuda.synchronize()
+    load = int(lio.vm.n_voxels())
+    what = (f"the KITTI LIO's last frame of phase 4's {len(gt)} scans, plane "
+            f"map {load} voxels of {cfg.voxel_map.capacity} slots "
+            f"({100 * load / cfg.voxel_map.capacity:.1f} %)")
+    err, rounds = replay_probes(calls, what)
+    strided = phase_strided(dev)
+    lib = hp._library()
+    for kind in ("lookup", "insert"):
+        time_probe(lib, *costliest(calls, rounds, kind),
+                   "the LIO's costliest " + kind)
+    log(f"[hash] phase 3b took {time.perf_counter() - t_phase:.1f} s")
+    return {k: max(err[k], strided[k]) for k in err}
+
+
+def phase_hash_path(dev, frames, err) -> list:
+    """Phase 4b.  The probe calls of phase 4's recorded frames (each frame
+    that compacted: its append at the tables' fullest, then the rebuild; and
+    the last frame) replayed as phase 3b's; the costliest lookup and insert
+    of the last frame timed for the `kernels` line, the costliest insert of
+    a compacting frame timed as well."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    t_phase = time.perf_counter()
+    lib = hp._library()
+    entries = {}
+    for k, calls in frames.items():
+        what = f"the KITTI joint frame {k} of phase 4" + (
+            " (the last)" if k == max(frames) else " (it compacted)")
+        e, rounds = replay_probes(calls, what)
+        err = {n: max(err[n], e[n]) for n in err}
+        kinds = ("lookup", "insert") if k == max(frames) else ("insert",)
+        for kind in kinds:
+            t = time_probe(lib, *costliest(calls, rounds, kind),
+                           f"frame {k}'s costliest {kind}")
+            if k == max(frames):
+                entries[kind] = t
+    log(f"[hash] phase 4b took {time.perf_counter() - t_phase:.1f} s")
+    return [{"name": f"hash_{kind}", "route": "cuda",
+             "source": "immesh_tpu_torch/csrc/hash_probe.cu",
+             "replaces": f"immesh_tpu/map/hash.py:{line}",
+             "max_abs_err": err[f"hash_{kind}"], "library_ms": None,
+             **entries[kind]}
+            for kind, line in (("lookup", 127), ("insert", 186))]
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
-def phase_main(dev, n_frames: int, warmup: int, kernel_ms: float):
+def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.runtime.joint import JointPipeline
 
     cfg = kitti_config()
     N = cfg.preprocess.max_points
-    t0 = time.perf_counter()
-    sim = make_sim(N, 64)
-    gt = [sim.frame(k) for k in range(warmup + n_frames)]
+    n_frames = len(gt) - warmup
     frames = [bundle(f, cfg, dev) for f in gt]
-    log(f"[main] {len(frames)} scans of {N} rays made in "
-        f"{time.perf_counter() - t0:.1f} s (set-up)")
     R0, p0 = sim.traj.pose(0.0)
 
     pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
-    pk.reset_launches()
+    reset_counts()
     ms, launches, errs, actives = [], [], [], []
     diags, positions, scans = [], [], []
+    probes = {}  # the probe calls of each compacting frame and of the last
     for k, (f, b) in enumerate(zip(gt, frames)):
         before = pk.launches
+        comp_before = pipe.mesh.n_compactions + pipe.lio.n_compactions
         t1 = time.perf_counter()
-        world, diag = pipe.step(b)
+        (world, diag), calls = record_probes(lambda: pipe.step(b))
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t1)
+        if (k == len(gt) - 1 or pipe.mesh.n_compactions
+                + pipe.lio.n_compactions > comp_before):
+            probes[k] = calls
+        del calls
         if k == 0:
             pipe.prime_adaptive()  # run the hi-budget variant during warm-up
         pos = pipe.state.pos.cpu().numpy().astype(np.float64)
@@ -723,6 +1104,7 @@ def phase_main(dev, n_frames: int, warmup: int, kernel_ms: float):
             f"{n_act} active voxels, {fired} kernel launches, backlog "
             f"{int(diag['drop_deferred'])}")
     total_launches = pk.launches
+    hashes = hash_counts("main")
 
     n_tris = int(pipe.store.n_triangles())
     n_pts = int(pipe.mesh.gm.n_points())
@@ -753,13 +1135,19 @@ def phase_main(dev, n_frames: int, warmup: int, kernel_ms: float):
         f"{p90:.1f} ms p90; pairs_argmin {timed_launches} launches "
         f"(~{100 * share:.2f} % of frame time at the phase-2 kernel time); "
         f"pose err max {max(errs):.3f} m, last {errs[-1]:.3f} m")
+    log("[main] over all " + str(len(gt)) + " frames: " + ", ".join(
+        f"{k} {n} launches ({n / len(gt):.1f} a frame)"
+        for k, n in hashes.items()))
     log(f"[main] live triangles {n_tris}, map points {n_pts}, mesh voxels "
         f"{int(pipe.mesh.gm.vox.occupancy())}, LIO voxels "
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
         f"(mesh {pipe.mesh.n_compactions}, lio {pipe.lio.n_compactions}, "
         f"{pipe.mesh.compact_ms + pipe.lio.compact_ms:.1f} ms), drops {drops}")
+    log(f"[main] probe calls recorded (copies of the tables they found, "
+        f"taken in every frame's time) and kept for phase 4b: frames "
+        f"{sorted(probes)}")
     return total_launches, {"gt": gt, "pos": positions, "scans": scans,
-                            "R0": R0, "p0": p0}
+                            "R0": R0, "p0": p0}, probes
 
 
 # ---------------------------------------------------------------------------
@@ -907,8 +1295,7 @@ def phase_runtime(dev, n_frames: int, warmup: int):
     R0, p0 = sim.traj.pose(0.0)
     # the filter's world frame is gravity-aligned at the initial body pose
     R_align = R0 @ rt.lio.state.rot.cpu().numpy().astype(np.float64).T
-    pk.reset_launches()
-    ik.reset_launches()
+    reset_counts()
     ms, lio_ms, mesh_ms, errs = [], [], [], []
     for k, (f, b) in enumerate(zip(gt, frames)):
         t1 = time.perf_counter()
@@ -933,6 +1320,7 @@ def phase_runtime(dev, n_frames: int, warmup: int):
             f"{int(st['n_active_voxels'])} active voxels, "
             f"{int(st['n_effective'])} matches")
     launches = pk.launches
+    hash_counts("runtime")
     if launches == 0:
         raise AssertionError("pairs_argmin was never launched by the runtime")
     if ik.launches != 0:
@@ -1170,7 +1558,7 @@ def phase_ba(dev, n_frames: int, warmup: int):
 
     window.solve_window = capture
     rt.ba.refine = timed_refine
-    pk.reset_launches()
+    reset_counts()
     ms_plain, ms_refined, errs, costs, rows = [], [], [], [], []
     for k in range(n_all):
         t1 = time.perf_counter()
@@ -1199,6 +1587,7 @@ def phase_ba(dev, n_frames: int, warmup: int):
     window.solve_window = solve_on_card
     rt.ba.refine = refine
     launches = pk.launches
+    hash_counts("ba")
     if rt.ba.n_refinements < 3:
         raise AssertionError(f"{rt.ba.n_refinements} window refinements "
                              "(at least 3 expected)")
@@ -1635,9 +2024,10 @@ def phase_replay_kitti(dev, n_frames: int, warmup: int):
                 counts.append((int(rt.mesh.store.n_triangles()),
                                int(rt.mesh.gm.n_points())))
 
-    pk.reset_launches()
+    reset_counts()
     outs = rt.run(bundles())
     launches = pk.launches
+    hash_counts("kitti_replay")
     rt.close()
     R0, p0 = sim.traj.pose(0.0)
     errs = [float(np.linalg.norm(R0 @ o["pos"].astype(np.float64) + p0 - g))
@@ -1749,7 +2139,7 @@ def phase_replay_avia(dev, n_frames: int, warmup: int, on_frame=None):
     R_align = R0 @ rt.lio.state.rot.cpu().numpy().astype(np.float64).T
     host, frame_ms, errs, snaps, card_pos = [], [], [], [], []
     stamp = 0.0
-    pk.reset_launches()
+    reset_counts()
     for k, f in enumerate(gt):
         if k < IMU_WARM:
             snaps.append(interop.to_numpy(
@@ -1795,6 +2185,7 @@ def phase_replay_avia(dev, n_frames: int, warmup: int, on_frame=None):
         if on_frame is not None:
             on_frame(k, rt)
     launches = pk.launches
+    hash_counts("avia_wire")
     if launches == 0:
         raise AssertionError("pairs_argmin was never launched on the Avia "
                              "wire path")
@@ -2229,6 +2620,7 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
         create_sharded_map, make_sharded_lio_step)
     from immesh_tpu_torch.dist.window_ba import (
         WindowProblem, make_dist_window_ba)
+    from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.lio.pipeline import LioPipeline
     from immesh_tpu_torch.map.hash import frame_unique_coords
@@ -2251,6 +2643,7 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
                            "n_active", "launches")}
     comm.reset_counts()
     pk.reset_launches()
+    hp.reset_launches()
     for b in local:
         before = pk.launches
         torch.cuda.synchronize()
@@ -2270,7 +2663,8 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
     cells = frame_unique_coords(
         torch.floor(div(b.pts, cfg.lio.downsample_voxel)).to(torch.int32),
         b.mask, b.pts.shape[0])[2]
-    out["dp"] = dict(rec, launches_total=pk.launches, staged=comm.staged,
+    out["dp"] = dict(rec, launches_total=pk.launches,
+                     hash_launches=dict(hp.launches), staged=comm.staged,
                      cells=int(cells),
                      own_tris=int(smm.store.n_triangles()),
                      own_pts=int(smm.gm.pt_count),
@@ -2338,6 +2732,7 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
     from immesh_tpu_torch.dist.lio import make_dp_lio_step
     from immesh_tpu_torch.dist.mesh import (
         create_sharded_mesh, make_sharded_mesh_step)
+    from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.lio.pipeline import LioPipeline
 
@@ -2351,6 +2746,7 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
     mesh_step = make_sharded_mesh_step(cfg)
     pos, ms = [], []
     pk.reset_launches()
+    hp.reset_launches()
     for f in _frames_of(job, NCCL_FRAMES):
         b = shard(bundle(f, cfg, dev))
         torch.cuda.synchronize()
@@ -2361,7 +2757,8 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
         ms.append(1e3 * (time.perf_counter() - t0))
         pos.append(state.pos.cpu().numpy().astype(np.float64))
     return {"backend": dist.get_backend(), "pos": pos, "ms": ms,
-            "launches": pk.launches, "n_tris": int(n_tris)}
+            "launches": pk.launches, "hash_launches": dict(hp.launches),
+            "n_tris": int(n_tris)}
 
 
 def _tri_position_set(pts, tris) -> set:
@@ -2418,6 +2815,7 @@ def phase_dist(dev, main_info: dict, window) -> int:
     for r, d in enumerate(dp):
         if d["launches_total"] == 0:
             raise AssertionError(f"dist rank {r}: pairs_argmin never launched")
+        hash_counts("dist", d["hash_launches"])
     chunk = ranks[0]["chunk"]
     if not chunk["equal"] or chunk["shape"] != (216, 48):
         raise AssertionError(f"dist: pairs_argmin on rank 0's last real "
@@ -2441,6 +2839,7 @@ def phase_dist(dev, main_info: dict, window) -> int:
         f"{float(np.percentile(frame_ms, 90)):.1f} ms p90; per rank "
         + "; ".join(f"rank {r}: {statistics.median(d['ms'][3:]):.1f} ms "
                     f"median, pairs_argmin {d['launches_total']} launches, "
+                    f"hash {d['hash_launches']}, "
                     f"{d['own_tris']} own triangles, {d['own_pts']} points, "
                     f"{d['staged']} staged transfers"
                     for r, d in enumerate(dp))
@@ -2517,6 +2916,7 @@ def phase_dist(dev, main_info: dict, window) -> int:
 
     # 13d
     errs_n = pose_errs(nccl["pos"])
+    hash_counts("dist_nccl", nccl["hash_launches"])
     if nccl["backend"] != "nccl" or max(errs_n) > POSE_TOL_M \
             or nccl["launches"] == 0:
         raise AssertionError(f"dist 13d: {nccl['backend']}, pose err "
@@ -2525,7 +2925,8 @@ def phase_dist(dev, main_info: dict, window) -> int:
     log(f"[dist] 13d: world 1 over {nccl['backend']}: {NCCL_FRAMES} frames "
         f"of dp LIO + sharded mesh, pose err max {max(errs_n):.3f} m, "
         f"{statistics.median(nccl['ms'][1:]):.1f} ms median after the "
-        f"first, {nccl['launches']} pairs_argmin launches, {nccl['n_tris']} "
+        f"first, {nccl['launches']} pairs_argmin launches, hash "
+        f"{nccl['hash_launches']}, {nccl['n_tris']} "
         f"triangles; set-up + run {t_nccl:.1f} s")
 
     # 13e
@@ -2612,7 +3013,7 @@ def phase_ablate(dev, main_info: dict) -> int:
 
     runs = [[] for _ in ABLATE_CHAIN]  # per chain position, one run a pass
     t0 = time.perf_counter()
-    pk.reset_launches()
+    reset_counts()
     for _ in range(ABLATE_PASSES):
         for i, name in enumerate(ABLATE_CHAIN):
             tri.pairs_argmin = recorded if name == "argmin0" else pairs_argmin
@@ -2625,6 +3026,7 @@ def phase_ablate(dev, main_info: dict) -> int:
             check_ablate_run(name, out, scans, R0, p0)
             runs[i].append(out)
     launches = pk.launches
+    hash_counts("ablate")
     t_chain = time.perf_counter() - t0
     rows = []
     for rs in runs:
@@ -2697,7 +3099,7 @@ def phase_profile(dev, main_info: dict) -> int:
     lio_tool = load_tool("torch_profile_lio")
     stages_tool = load_tool("torch_profile_stages")
     t_phase = time.perf_counter()
-    pk.reset_launches()
+    reset_counts()
     smi = smi_line()
     n_lio = PROFILE_WARM + 1
     avia_cfg = avia_config()
@@ -2759,6 +3161,7 @@ def phase_profile(dev, main_info: dict) -> int:
                              f"differs from the plain version at "
                              f"{int((W != Wp).sum())} entries")
     launches = pk.launches
+    hash_counts("profile")
     log(f"[profile] tools/torch_profile_stages.py on phase 4's first {n_st} "
         f"scans ({PROFILE_STAGES_WARMUP} warm-up, the last under "
         f"torch.profiler for the counts; {PROFILE_STAGES_FRAMES} timed, "
@@ -2799,8 +3202,12 @@ def main() -> int:
     pairs = phase_kernels(dev)
     incircle = phase_incircle(dev)
     phase_ints(dev)
-    pairs["launches"], main_info = phase_main(dev, args.frames, 3,
-                                              pairs["ms"])
+    sim, gt = kitti_scans(3 + args.frames)
+    hash_err = phase_hash(dev, gt)
+    pairs["launches"], main_info, probes = phase_main(dev, sim, gt, 3,
+                                                      pairs["ms"])
+    hashes = phase_hash_path(dev, probes, hash_err)
+    del probes
     phase_parity(dev)
     rt = phase_runtime(dev, AVIA_FRAMES, 3)
     from immesh_tpu_torch.kernels import pairs_argmin as pk
@@ -2827,11 +3234,15 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for e in hashes:  # launches on the main path, then on each other path
+        e["launches"] = PATH_COUNTS["main"][e["name"]]
+        e.update({f"launches_{path}": n[e["name"]]
+                  for path, n in PATH_COUNTS.items() if path != "main"})
     print(smi_line())
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: x for k, x in e.items()
                                         if k not in keys}}
-        for e in (pairs, incircle)]}))
+        for e in (pairs, incircle, *hashes)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,10 @@ prime-mix `Hash_map_3d`, src/tools/tools_kd_hash.hpp:54-136):
   * `insert` compares full keys and resolves same-slot claims by a
     scatter-min tournament: the lowest lane id wins.
 
-Where the JAX reference returns a new table, the port updates `keys`/`fp`
+Both probe loops, with the hash arithmetic, live in kernels/hash_probe.py:
+the plain PyTorch loops on the CPU, and on the card one CUDA kernel launch
+a call with no host read, as the reference's `lax.while_loop`s never leave
+the device.  Where the JAX reference returns a new table, the port updates `keys`/`fp`
 in place (JAX donated these buffers in joint_step).
 """
 
@@ -22,38 +25,11 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from immesh_tpu_torch.core.ops import div, set_drop
+from immesh_tpu_torch.core.ops import div
 from immesh_tpu_torch.device import resolve_device
-
-# same primes as the reference's spatial hash (tools_kd_hash.hpp:77)
-_P1 = 73856093
-_P2 = 19349669
-_P3 = 83492791
-_P4 = 3145739
-
-EMPTY = 0x7FFFFFFF  # sentinel coordinate for unoccupied slots
-
-
-def _hash(coords: torch.Tensor, mask: int) -> torch.Tensor:
-    """coords: (..., 4) int32 → slot index in [0, capacity). capacity = mask+1."""
-    h = (
-        coords[..., 0] * _P1
-        ^ coords[..., 1] * _P2
-        ^ coords[..., 2] * _P3
-        ^ coords[..., 3] * _P4
-    )
-    return h & mask
-
-
-def _fingerprint(coords: torch.Tensor) -> torch.Tensor:
-    """coords: (..., 4) int32 → odd nonzero int32 key fingerprint (Weyl
-    constants, forced odd; 0 in the fp array encodes an empty slot)."""
-    h = (coords[..., 0] * -1640531527
-         + coords[..., 1] * -1274297907
-         + coords[..., 2] * -1981354251
-         + coords[..., 3] * 1183186591)
-    h = h ^ (coords[..., 0] << 13) ^ (coords[..., 2] >> 7)
-    return h | 1
+from immesh_tpu_torch.kernels import hash_probe
+from immesh_tpu_torch.kernels.hash_probe import (  # noqa: F401
+    EMPTY, _fingerprint, _hash)
 
 
 @dataclass
@@ -88,24 +64,9 @@ class HashTable:
     def lookup(self, coords: torch.Tensor) -> torch.Tensor:
         """Batched lookup. coords: (N, 4) int32 → slot: (N,) int32, -1 if absent.
 
-        Probe rounds run until every lane resolved (found or proven absent)
-        or max_probe is reached; each round is one gather + compare."""
-        n = coords.shape[0]
-        h0 = _hash(coords, self._mask)
-        fpq = _fingerprint(coords)
-        done = torch.zeros(n, dtype=torch.bool, device=coords.device)
-        slot = torch.full((n,), -1, dtype=torch.int32, device=coords.device)
-        r = 0
-        while r < self.max_probe and not bool(done.all()):
-            cand = (h0 + r * fpq) & self._mask
-            f = self.fp[cand.long()]
-            is_empty = f == 0
-            match = f == fpq
-            slot = torch.where(~done & match & ~is_empty, cand, slot)
-            # empty slot before a match ⇒ key absent (probe-sequence invariant)
-            done = done | match | is_empty
-            r += 1
-        return slot
+        The probe loop is kernels/hash_probe.py's: its plain version on the
+        CPU, one CUDA kernel launch on the card."""
+        return hash_probe.lookup(coords.contiguous(), self.fp, self.max_probe)
 
     # ------------------------------------------------------------------
     def insert(self, coords: torch.Tensor, valid: torch.Tensor):
@@ -115,40 +76,9 @@ class HashTable:
         invalid entries or on probe/capacity exhaustion; new[i] marks lanes
         that claimed a previously empty slot (the reference reads this off
         the old table as `keys[slot] == EMPTY`).  Keys must be mutually
-        unique where valid."""
-        u = coords.shape[0]
-        dev = coords.device
-        h0 = _hash(coords, self._mask)
-        fpq = _fingerprint(coords)
-        ids = torch.arange(u, dtype=torch.int32, device=dev)
-        nowin = 0x3FFFFFFF
-        # index `capacity` is the drop lane of the claim scratch
-        claim = torch.full((self.capacity + 1,), nowin, dtype=torch.int32,
-                           device=dev)
-        done = ~valid
-        slot = torch.full((u,), -1, dtype=torch.int32, device=dev)
-        new = torch.zeros(u, dtype=torch.bool, device=dev)
-        r = 0
-        while r < self.max_probe and not bool(done.all()):
-            cand = (h0 + r * fpq) & self._mask
-            k = self.keys[cand.long()]
-            is_empty = k[:, 0] == EMPTY
-            match = torch.all(k == coords, dim=-1)
-            slot = torch.where(~done & match, cand, slot)
-            done = done | match
-
-            attempt = ~done & is_empty
-            catt = torch.where(attempt, cand, self.capacity).long()
-            claim.scatter_reduce_(0, catt, ids, reduce="amin")
-            won = attempt & (claim[catt] == ids)
-            set_drop(self.keys, cand, coords, won)
-            set_drop(self.fp, cand, fpq, won)
-            slot = torch.where(won, cand, slot)
-            new = new | won
-            claim[catt] = nowin  # restore scratch
-            done = done | won
-            r += 1
-        return slot, new
+        unique where valid.  The probe rounds are kernels/hash_probe.py's."""
+        return hash_probe.insert(coords.contiguous(), valid.contiguous(),
+                                 self.keys, self.fp, self.max_probe)
 
     def occupancy(self) -> torch.Tensor:
         return torch.sum(self.keys[:, 0] != EMPTY)

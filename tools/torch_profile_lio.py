@@ -30,8 +30,9 @@ checked bit for bit after each stage.
 Each stage runs once untimed, then --repeat times back to back with one
 device synchronisation at the end: wall ms per call, the JAX tool's
 measure.  The port's stages wait on the device inside (the ESIKF
-convergence test, the hash probe rounds, nonzero in masked scatters), so
-calls do not pipeline and the wall time is host time.  A whole lio_step
+convergence test, nonzero in masked scatters; the hash probe loops are one
+kernel launch each and do not), so calls do not pipeline and the wall time
+is host time.  A whole lio_step
 on the same frame, timed the same way on map copies, stands beside the
 stages' sum, and so does "in seq": each stage's ms inside compose() on
 --repeat map copies, synchronised before and after every stage, whose sum

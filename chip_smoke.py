@@ -4,7 +4,10 @@
 
 Phases (each one passes or the script exits non-zero; nothing is caught):
 
-  0. device   — requires CUDA and prints the card's name and power limit;
+  0. device   — requires CUDA and prints the card's name and power limit,
+                the CUDA runtime and driver versions, and whether torch has
+                CUDA-graph conditional nodes (the captured LIO step runs
+                its masked form either way: chosen in code);
   1. build    — compiles every kernel from csrc/ with nvcc, one process per
                 source, all started together;
   2. kernels  — holds each kernel (pairs_argmin, incircle) against its plain
@@ -20,8 +23,10 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 CPU), and segment sums are deterministic;
  3b. hash     — the hash_probe kernels (hash_lookup, hash_insert) against
                 their plain versions on the card at the path's shapes: the
-                KITTI LIO run over phase 4's scans to the plane-map load
-                phase 4 reaches, every probe call of its last frame
+                KITTI LIO run eagerly (graph=False: a replay of the
+                captured step calls no wrapper to record) over phase 4's
+                scans to the plane-map load phase 4 reaches, every probe
+                call of its last frame
                 recorded (the map update's unique keys, lookup_planes_stack's
                 L·P·N keys) and replayed through both on copies of the table
                 it found (slots, new, keys, fp bit for bit), also at
@@ -33,11 +38,20 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
-                for warm-up plus N timed frames; checks that the kernel ran
-                on every frame with active voxels and that both hash
-                kernels ran (as on every later path), that poses follow the
-                simulator's ground truth, that triangles exist and that a
-                compaction fired;
+                for warm-up plus N timed frames, its LIO half one captured
+                CUDA graph (frame 0 eager, frame 1 captured, then
+                replayed, as on every later path but the stage profilers'
+                and dist/); checks that the kernel ran on every frame with
+                active voxels and that both hash kernels and scatter_drop
+                ran (as on every later path): each launched by its wrapper
+                and each run on the device, by the kernel's own device
+                counter, exactly the eager launches plus every replay of
+                the launches recorded into the graph (path_counts), that
+                poses follow the simulator's ground truth, that triangles
+                exist and that a compaction fired; the probe, set_drop and
+                add_drop calls outside the graph (none during the capture)
+                are recorded on the compacting frames and the last; the
+                graph's nodes counted by type;
  4b. hash path — every probe call of phase 4's compacting frames (the
                 mesh dedup and voxel inserts at the tables' fullest, the
                 27-neighbour lookups, the compaction's rebuild inserts) and
@@ -140,9 +154,35 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 delaunay, apply, each synchronised alone): pairs_argmin
                 twice a frame in delaunay and nowhere else, W of its last
                 chunk against the plain version, every pose within
-                POSE_TOL_M.
+                POSE_TOL_M.  Both run the LIO eagerly (graph=False), so
+                the stages split it; torch_profile_lio adds the captured
+                step as its lio_step_graph row, held bit for bit to
+                lio_step;
+ 16. graph    — the captured LIO step: the KITTI LioPipeline (phase 4's
+                3 + 40 scans) and the Avia ImMeshRuntime (3 + 30 frames,
+                LIO and mesh) run eagerly and captured from the same start,
+                in turns: state, pose, world scan, diag and every
+                plane-map tensor (and the Avia triangles) bit for bit on
+                every frame, both plane maps compacted to half their
+                voxels after GRAPH_COMPACT_AT (neither reaches its
+                high-water mark in these runs); ESIKF iterations equal, the
+                frames where a refinement level was empty and where all
+                max_iterations bodies ran live reported; ms a step eager
+                against captured; the KITTI graph's kernel, memcpy and
+                memset nodes and recorded kernel launches equal to phase
+                4's (whose recorders were on); one captured step under torch.profiler
+                (0 syncs); the masked form's dead work in device ms (an
+                ESIKF body after convergence, an empty refinement level);
+                then scatter_drop against its plain version on every
+                set_drop/add_drop call recorded in phase 4's compacting and
+                last frames and in the eager KITTI LIO's compacting and
+                last frames, and on random calls of every dtype and width
+                at twice the threads the card holds; 0 syncs a call; the
+                last frame's costliest call timed for the `kernels` line.
 
-The line before the last is a JSON object describing every kernel; the last
+The line before the last is a JSON object describing every kernel (for the
+hash and scatter kernels "launches" by the wrapper and "device_runs" by the
+kernel's device counter, on the main path and on each other path); the last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -151,6 +191,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -162,7 +203,7 @@ import numpy as np
 import torch
 
 # the sources in immesh_tpu_torch/csrc
-KERNELS = ("pairs_argmin", "incircle", "hash_probe")
+KERNELS = ("pairs_argmin", "incircle", "hash_probe", "scatter_drop")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -303,8 +344,16 @@ PROFILE_WARM, PROFILE_REPEAT = 5, 10
 PROFILE_STAGES_WARMUP, PROFILE_STAGES_FRAMES = 3, 10
 # phase 3b: the probe limit that exhausts lanes at the plane map's load
 HASH_SHORT_PROBE = 1
-# the hash kernels' launches on each path, by path (hash_counts)
+# phase 16: the frames after which both pipelines compact their plane map
+# to half its voxels (neither plane map reaches its high-water mark in
+# these runs), and the Avia frames after 3 warm-up
+GRAPH_COMPACT_AT = (15, 30)
+GRAPH_AVIA_COMPACT_AT = 15
+GRAPH_AVIA_FRAMES = 30
+# the hash and scatter kernels' launches on each path, by path (path_counts)
 PATH_COUNTS = {}
+# the kernels whose launches every path counts (path_counts)
+PATH_KERNELS = ("hash_lookup", "hash_insert", "scatter_drop")
 
 
 def log(msg: str) -> None:
@@ -719,22 +768,61 @@ def reset_counts() -> None:
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import incircle as ik
     from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.kernels import scatter_drop as sd
     pk.reset_launches()
     ik.reset_launches()
     hp.reset_launches()
+    sd.reset_launches()
 
 
-def hash_counts(path: str, launches=None) -> dict:
-    """The hash kernels' launches on `path` (hash_probe.launches since
-    reset_counts(), or the given counts of a rank), kept in PATH_COUNTS;
-    fails if either kernel was never launched there."""
+def launch_counts() -> dict:
+    """Every kernel's launches by its wrapper since reset_counts(), by
+    kernel: eager ones (a launch recorded into a CUDA graph counts in the
+    module's `captured`, and its replays in the kernel's device counter,
+    path_now)."""
     from immesh_tpu_torch.kernels import hash_probe as hp
-    n = dict(hp.launches if launches is None else launches)
-    missing = [k for k, v in n.items() if v == 0]
-    if missing:
-        raise AssertionError(f"{path}: {', '.join(missing)} never launched")
-    PATH_COUNTS[path] = {k: PATH_COUNTS.get(path, {}).get(k, 0) + v
-                         for k, v in n.items()}
+    from immesh_tpu_torch.kernels import incircle as ik
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.kernels import scatter_drop as sd
+    return {"pairs_argmin": pk.launches, "incircle": ik.launches,
+            **hp.launches, "scatter_drop": sd.launches}
+
+
+def path_now() -> dict:
+    """The PATH_KERNELS' counts since reset_counts(): "launches" by their
+    wrappers (launch_counts) and "runs" on the device, eager and replayed
+    in CUDA graphs, from the kernels' own device counters (synchronises)."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.kernels import scatter_drop as sd
+    launches = launch_counts()
+    runs = {**hp.runs(), "scatter_drop": sd.runs()}
+    return {"launches": {k: launches[k] for k in PATH_KERNELS},
+            "runs": {k: runs[k] for k in PATH_KERNELS}}
+
+
+def path_counts(path: str, counts=None, graphs=None) -> dict:
+    """The PATH_KERNELS' counts on `path` (path_now(), or a rank's),
+    added up in PATH_COUNTS.  Fails if a kernel was never launched there
+    or never ran on the device, or if the device counted other runs than
+    the launches plus the replays of the launches recorded into the path's
+    captured LIO graphs (`graphs`, lio/captured.py's _Graph; () where the
+    path captures none; None where it is not at hand, and then the runs
+    must be at least the launches)."""
+    n = path_now() if counts is None else counts
+    for k in PATH_KERNELS:
+        launched, ran = n["launches"][k], n["runs"][k]
+        want = (launched if graphs is None else launched + sum(
+            g.replays * g.captured[k] for g in graphs))
+        if launched == 0 or ran == 0 or ran < want or (
+                graphs is not None and ran != want):
+            raise AssertionError(
+                f"{path}: {k} launched {launched} times by its wrapper and "
+                f"run {ran} times on the device (the launches and the "
+                f"graphs' replays: {want})")
+    old = PATH_COUNTS.get(path, {"launches": {}, "runs": {}})
+    PATH_COUNTS[path] = {part: {k: old[part].get(k, 0) + v
+                                for k, v in n[part].items()}
+                         for part in ("launches", "runs")}
     return n
 
 
@@ -751,17 +839,21 @@ def kitti_scans(n: int):
 def record_probes(fn):
     """Run fn() with every HashTable lookup and insert recorded: the
     inputs, and the table as the call found it.  Returns (fn's result,
-    the calls)."""
+    the calls).  A call under CUDA-graph capture is not recorded: its
+    copies would be captured into the graph and repeated at every
+    replay."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     calls, lookup, insert = [], hp.lookup, hp.insert
 
     def rec_lookup(coords, fp, max_probe):
-        calls.append(("lookup", coords.clone(), fp.clone(), max_probe))
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append(("lookup", coords.clone(), fp.clone(), max_probe))
         return lookup(coords, fp, max_probe)
 
     def rec_insert(coords, valid, keys, fp, max_probe):
-        calls.append(("insert", coords.clone(), valid.clone(), keys.clone(),
-                      fp.clone(), max_probe))
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append(("insert", coords.clone(), valid.clone(),
+                          keys.clone(), fp.clone(), max_probe))
         return insert(coords, valid, keys, fp, max_probe)
 
     hp.lookup, hp.insert = rec_lookup, rec_insert
@@ -769,6 +861,37 @@ def record_probes(fn):
         out = fn()
     finally:
         hp.lookup, hp.insert = lookup, insert
+    return out, calls
+
+
+def record_scatters(fn):
+    """Run fn() with every set_drop and add_drop on the card recorded: the
+    kind, dst as the call found it, idx, src (a copy, or the scalar) and
+    ok.  Returns (fn's result, the calls).  A replay of the captured LIO
+    step calls no wrapper, so its scatters are not among them, and a call
+    under capture is not recorded (record_probes)."""
+    from immesh_tpu_torch.kernels import scatter_drop as sd
+    calls, set_cuda, add_cuda = [], sd.set_cuda, sd.add_cuda
+
+    def keep(kind, dst, idx, src, ok):
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((kind, dst.clone(), idx.clone(),
+                          src.clone() if torch.is_tensor(src) else src,
+                          ok.clone()))
+
+    def rec_set(dst, idx, src, ok):
+        keep("set", dst, idx, src, ok)
+        return set_cuda(dst, idx, src, ok)
+
+    def rec_add(dst, idx, src, ok):
+        keep("add", dst, idx, src, ok)
+        return add_cuda(dst, idx, src, ok)
+
+    sd.set_cuda, sd.add_cuda = rec_set, rec_add
+    try:
+        out = fn()
+    finally:
+        sd.set_cuda, sd.add_cuda = set_cuda, add_cuda
     return out, calls
 
 
@@ -992,7 +1115,8 @@ def phase_hash(dev, gt) -> dict:
 
     cfg = kitti_config()
     t_phase = time.perf_counter()
-    lio = LioPipeline(cfg, device=dev)
+    # eager: a replay of the captured step calls no wrapper to record
+    lio = LioPipeline(cfg, device=dev, graph=False)
     for f in gt[:-1]:
         lio.step(bundle(f, cfg, dev))
     last = bundle(gt[-1], cfg, dev)
@@ -1060,17 +1184,19 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     ms, launches, errs, actives = [], [], [], []
     diags, positions, scans = [], [], []
     probes = {}  # the probe calls of each compacting frame and of the last
+    scatters = {}  # and their set_drop / add_drop calls
     for k, (f, b) in enumerate(zip(gt, frames)):
         before = pk.launches
         comp_before = pipe.mesh.n_compactions + pipe.lio.n_compactions
         t1 = time.perf_counter()
-        (world, diag), calls = record_probes(lambda: pipe.step(b))
+        ((world, diag), calls), scat = record_scatters(
+            lambda: record_probes(lambda: pipe.step(b)))
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t1)
         if (k == len(gt) - 1 or pipe.mesh.n_compactions
                 + pipe.lio.n_compactions > comp_before):
-            probes[k] = calls
-        del calls
+            probes[k], scatters[k] = calls, scat
+        del calls, scat
         if k == 0:
             pipe.prime_adaptive()  # run the hi-budget variant during warm-up
         pos = pipe.state.pos.cpu().numpy().astype(np.float64)
@@ -1104,7 +1230,9 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
             f"{n_act} active voxels, {fired} kernel launches, backlog "
             f"{int(diag['drop_deferred'])}")
     total_launches = pk.launches
-    hashes = hash_counts("main")
+    graph = pipe.lio.captured.graphs
+    hashes = path_counts("main", graphs=graph)
+    nodes = graph[0].nodes()
 
     n_tris = int(pipe.store.n_triangles())
     n_pts = int(pipe.mesh.gm.n_points())
@@ -1136,18 +1264,26 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"(~{100 * share:.2f} % of frame time at the phase-2 kernel time); "
         f"pose err max {max(errs):.3f} m, last {errs[-1]:.3f} m")
     log("[main] over all " + str(len(gt)) + " frames: " + ", ".join(
-        f"{k} {n} launches ({n / len(gt):.1f} a frame)"
-        for k, n in hashes.items()))
+        f"{k} {n} wrapper launches and {hashes['runs'][k]} runs on the "
+        f"device ({hashes['runs'][k] / len(gt):.1f} a frame, "
+        f"{graph[0].captured[k]} in each replay)"
+        for k, n in hashes["launches"].items()))
     log(f"[main] live triangles {n_tris}, map points {n_pts}, mesh voxels "
         f"{int(pipe.mesh.gm.vox.occupancy())}, LIO voxels "
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
         f"(mesh {pipe.mesh.n_compactions}, lio {pipe.lio.n_compactions}, "
         f"{pipe.mesh.compact_ms + pipe.lio.compact_ms:.1f} ms), drops {drops}")
-    log(f"[main] probe calls recorded (copies of the tables they found, "
-        f"taken in every frame's time) and kept for phase 4b: frames "
-        f"{sorted(probes)}")
+    log(f"[main] the LIO step ran as one captured CUDA graph: "
+        f"{pipe.lio.captured.replays} replays of {len(gt)} frames (frame 0 "
+        f"eager, the warm-up), the graph's nodes {nodes}; probe, set_drop "
+        f"and add_drop calls outside it recorded (copies of the tables and "
+        f"targets they found, taken in every frame's time, none inside the "
+        f"capture) and kept for phases 4b and 16: frames {sorted(probes)}, "
+        f"{sum(map(len, scatters.values()))} scatters")
     return total_launches, {"gt": gt, "pos": positions, "scans": scans,
-                            "R0": R0, "p0": p0}, probes
+                            "R0": R0, "p0": p0, "graph_nodes": nodes,
+                            "graph_captured": graph[0].captured}, \
+        probes, scatters
 
 
 # ---------------------------------------------------------------------------
@@ -1320,7 +1456,7 @@ def phase_runtime(dev, n_frames: int, warmup: int):
             f"{int(st['n_active_voxels'])} active voxels, "
             f"{int(st['n_effective'])} matches")
     launches = pk.launches
-    hash_counts("runtime")
+    path_counts("runtime", graphs=rt.lio.captured.graphs)
     if launches == 0:
         raise AssertionError("pairs_argmin was never launched by the runtime")
     if ik.launches != 0:
@@ -1587,7 +1723,7 @@ def phase_ba(dev, n_frames: int, warmup: int):
     window.solve_window = solve_on_card
     rt.ba.refine = refine
     launches = pk.launches
-    hash_counts("ba")
+    path_counts("ba", graphs=rt.lio.captured.graphs)
     if rt.ba.n_refinements < 3:
         raise AssertionError(f"{rt.ba.n_refinements} window refinements "
                              "(at least 3 expected)")
@@ -2027,7 +2163,7 @@ def phase_replay_kitti(dev, n_frames: int, warmup: int):
     reset_counts()
     outs = rt.run(bundles())
     launches = pk.launches
-    hash_counts("kitti_replay")
+    path_counts("kitti_replay", graphs=rt.lio.captured.graphs)
     rt.close()
     R0, p0 = sim.traj.pose(0.0)
     errs = [float(np.linalg.norm(R0 @ o["pos"].astype(np.float64) + p0 - g))
@@ -2185,7 +2321,7 @@ def phase_replay_avia(dev, n_frames: int, warmup: int, on_frame=None):
         if on_frame is not None:
             on_frame(k, rt)
     launches = pk.launches
-    hash_counts("avia_wire")
+    path_counts("avia_wire", graphs=rt.lio.captured.graphs)
     if launches == 0:
         raise AssertionError("pairs_argmin was never launched on the Avia "
                              "wire path")
@@ -2622,6 +2758,7 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
         WindowProblem, make_dist_window_ba)
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.kernels import scatter_drop as sd
     from immesh_tpu_torch.lio.pipeline import LioPipeline
     from immesh_tpu_torch.map.hash import frame_unique_coords
 
@@ -2644,6 +2781,7 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
     comm.reset_counts()
     pk.reset_launches()
     hp.reset_launches()
+    sd.reset_launches()
     for b in local:
         before = pk.launches
         torch.cuda.synchronize()
@@ -2664,7 +2802,8 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
         torch.floor(div(b.pts, cfg.lio.downsample_voxel)).to(torch.int32),
         b.mask, b.pts.shape[0])[2]
     out["dp"] = dict(rec, launches_total=pk.launches,
-                     hash_launches=dict(hp.launches), staged=comm.staged,
+                     path_counts=path_now(),
+                     staged=comm.staged,
                      cells=int(cells),
                      own_tris=int(smm.store.n_triangles()),
                      own_pts=int(smm.gm.pt_count),
@@ -2734,6 +2873,7 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
         create_sharded_mesh, make_sharded_mesh_step)
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
+    from immesh_tpu_torch.kernels import scatter_drop as sd
     from immesh_tpu_torch.lio.pipeline import LioPipeline
 
     dev = torch.device("cuda", 0)
@@ -2747,6 +2887,7 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
     pos, ms = [], []
     pk.reset_launches()
     hp.reset_launches()
+    sd.reset_launches()
     for f in _frames_of(job, NCCL_FRAMES):
         b = shard(bundle(f, cfg, dev))
         torch.cuda.synchronize()
@@ -2757,7 +2898,8 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
         ms.append(1e3 * (time.perf_counter() - t0))
         pos.append(state.pos.cpu().numpy().astype(np.float64))
     return {"backend": dist.get_backend(), "pos": pos, "ms": ms,
-            "launches": pk.launches, "hash_launches": dict(hp.launches),
+            "launches": pk.launches,
+            "path_counts": path_now(),
             "n_tris": int(n_tris)}
 
 
@@ -2815,7 +2957,7 @@ def phase_dist(dev, main_info: dict, window) -> int:
     for r, d in enumerate(dp):
         if d["launches_total"] == 0:
             raise AssertionError(f"dist rank {r}: pairs_argmin never launched")
-        hash_counts("dist", d["hash_launches"])
+        path_counts("dist", d["path_counts"], graphs=())  # eager
     chunk = ranks[0]["chunk"]
     if not chunk["equal"] or chunk["shape"] != (216, 48):
         raise AssertionError(f"dist: pairs_argmin on rank 0's last real "
@@ -2839,7 +2981,7 @@ def phase_dist(dev, main_info: dict, window) -> int:
         f"{float(np.percentile(frame_ms, 90)):.1f} ms p90; per rank "
         + "; ".join(f"rank {r}: {statistics.median(d['ms'][3:]):.1f} ms "
                     f"median, pairs_argmin {d['launches_total']} launches, "
-                    f"hash {d['hash_launches']}, "
+                    f"hash and scatter {d['path_counts']}, "
                     f"{d['own_tris']} own triangles, {d['own_pts']} points, "
                     f"{d['staged']} staged transfers"
                     for r, d in enumerate(dp))
@@ -2916,7 +3058,7 @@ def phase_dist(dev, main_info: dict, window) -> int:
 
     # 13d
     errs_n = pose_errs(nccl["pos"])
-    hash_counts("dist_nccl", nccl["hash_launches"])
+    path_counts("dist_nccl", nccl["path_counts"], graphs=())  # eager
     if nccl["backend"] != "nccl" or max(errs_n) > POSE_TOL_M \
             or nccl["launches"] == 0:
         raise AssertionError(f"dist 13d: {nccl['backend']}, pose err "
@@ -2925,8 +3067,8 @@ def phase_dist(dev, main_info: dict, window) -> int:
     log(f"[dist] 13d: world 1 over {nccl['backend']}: {NCCL_FRAMES} frames "
         f"of dp LIO + sharded mesh, pose err max {max(errs_n):.3f} m, "
         f"{statistics.median(nccl['ms'][1:]):.1f} ms median after the "
-        f"first, {nccl['launches']} pairs_argmin launches, hash "
-        f"{nccl['hash_launches']}, {nccl['n_tris']} "
+        f"first, {nccl['launches']} pairs_argmin launches, hash and "
+        f"scatter {nccl['path_counts']}, {nccl['n_tris']} "
         f"triangles; set-up + run {t_nccl:.1f} s")
 
     # 13e
@@ -3026,7 +3168,7 @@ def phase_ablate(dev, main_info: dict) -> int:
             check_ablate_run(name, out, scans, R0, p0)
             runs[i].append(out)
     launches = pk.launches
-    hash_counts("ablate")
+    path_counts("ablate")
     t_chain = time.perf_counter() - t0
     rows = []
     for rs in runs:
@@ -3112,7 +3254,8 @@ def phase_profile(dev, main_info: dict) -> int:
                                    PROFILE_REPEAT, imu)
         bad = [f"compose {k}" for k, ok in out["compose_matches"].items()
                if not ok] + [f"map after {k}" for k, ok in
-                             out["map_unchanged"].items() if not ok]
+                             out["map_unchanged"].items() if not ok] + (
+            [] if out["graph_matches"] else ["the captured step"])
         if bad:
             raise AssertionError(f"profile_lio {path}: {', '.join(bad)} "
                                  f"differ")
@@ -3161,7 +3304,7 @@ def phase_profile(dev, main_info: dict) -> int:
                              f"differs from the plain version at "
                              f"{int((W != Wp).sum())} entries")
     launches = pk.launches
-    hash_counts("profile")
+    path_counts("profile")
     log(f"[profile] tools/torch_profile_stages.py on phase 4's first {n_st} "
         f"scans ({PROFILE_STAGES_WARMUP} warm-up, the last under "
         f"torch.profiler for the counts; {PROFILE_STAGES_FRAMES} timed, "
@@ -3179,6 +3322,459 @@ def phase_profile(dev, main_info: dict) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the captured LIO step and the scatter_drop kernel
+# ---------------------------------------------------------------------------
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (NaN payloads and -0.0 included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over the elements (0 when the bits agree)."""
+    if same_bits(a, b):
+        return 0.0
+    d = (a.double() - b.double()).abs().nan_to_num(float("inf"))
+    return max(float(d.max()), 1.0)  # bits differ: never report 0
+
+
+def map_tensors(vm) -> list:
+    return [("keys", vm.table.keys), ("fp", vm.table.fp)] + [
+        (n, getattr(vm, n)) for n in vm._FIELDS]
+
+
+def lio_differs(a_state, b_state, a_vm, b_vm, extra=()) -> list:
+    """Names of the state fields, plane-map tensors and extra (name, a, b)
+    pairs whose bits differ."""
+    pairs = [(f.name, getattr(a_state, f.name), getattr(b_state, f.name))
+             for f in dataclasses.fields(a_state)]
+    pairs += [(n, x, y) for (n, x), (_, y) in zip(map_tensors(a_vm),
+                                                  map_tensors(b_vm))]
+    return [n for n, x, y in [*pairs, *extra] if not same_bits(x, y)]
+
+
+def compact_half(vm, pos) -> None:
+    """Compact the plane map to half its live voxels around pos, as
+    LioPipeline.maybe_compact does past its high-water mark."""
+    from immesh_tpu_torch.lio.pipeline import _keep_radius_vm
+    low = max(1, int(vm.n_voxels()) // 2)
+    vm.compact(pos, _keep_radius_vm(vm, pos, low, vm.cfg.local_map_radius))
+
+
+def dead_work_ms(pipe, b, cfg) -> dict:
+    """Device time of the masked form's dead work on frame b, from pipe's
+    state and map (copies; nothing changes): one ESIKF body (busy ms of
+    lio_update at max_iterations less that at max_iterations − 1) and one
+    empty refinement level (busy ms of a level update with an all-false
+    mask), each under torch.profiler."""
+    from immesh_tpu_torch.lio import esikf
+    from immesh_tpu_torch.utils.timers import profile_counts
+    lio_tool = load_tool("torch_profile_lio")
+    x = lio_tool.compose(pipe.state, pipe.vm.clone(), b, cfg)
+    busy = {}
+    for n in (cfg.lio.max_iterations, cfg.lio.max_iterations - 1):
+        lc = dataclasses.replace(cfg.lio, max_iterations=n)
+        vm = pipe.vm.clone()
+        busy[n] = min(profile_counts(lambda: esikf.lio_update(
+            x["state_prop"], vm, x["down_pts"], x["pcov"], x["down_mask"],
+            lc, cfg.voxel_map))[1]["busy_ms"] for _ in range(3))
+    vm = pipe.vm.clone()
+    pts = x["state_new"].transform_points(x["down_pts"])
+    pc = x["pcov"]
+    sig = (pc[:, 0, 0] + pc[:, 1, 1] + pc[:, 2, 2]) / 3.0
+    none = torch.zeros_like(x["down_mask"])
+    level = min(profile_counts(lambda: vm._update_level(
+        pts, sig, none, cfg.voxel_map.max_layers - 1,
+        cfg.voxel_map.touched_voxels_per_scan))[1]["busy_ms"]
+        for _ in range(3))
+    return {"body_ms": busy[cfg.lio.max_iterations]
+            - busy[cfg.lio.max_iterations - 1], "level_ms": level}
+
+
+def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
+                 static=None, runtime=False):
+    """Two pipelines from the same start, one eager (graph=False) and one
+    captured, stepped in turns over `frames`: LioPipelines, or
+    ImMeshRuntimes (LIO and mesh) when `runtime`.  After the frames in
+    `compact_at` both compact their plane map to half its voxels.  Every
+    frame: state, world scan (LioPipeline) or pose (runtime), diag and
+    every plane-map tensor bit for bit, and ESIKF iterations equal.
+    Returns per-frame records, the captured pipeline's counts (path_now,
+    its steps only), the two pipelines, and the eager pipeline's
+    set_drop/add_drop calls at the frames in `record_at`."""
+    from immesh_tpu_torch.lio.pipeline import LioPipeline
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
+
+    def make(graph):
+        if runtime:
+            p = ImMeshRuntime(cfg, device=dev, graph=graph)
+        else:
+            p = LioPipeline(cfg, device=dev, graph=graph)
+        if static is not None:
+            p.static_init(*static)
+        return p
+
+    eager, cap = make(False), make(True)
+    le, lc = (eager.lio, cap.lio) if runtime else (eager, cap)
+    counts = {part: dict.fromkeys(PATH_KERNELS, 0)
+              for part in ("launches", "runs")}
+    rows, recorded = [], {}
+    for k, b in enumerate(frames):
+        def run(p):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if runtime:
+                out = p.process_frame(b, t=0.1 * k)
+                got = (None, {n: out[n] for n in ("n_effective",
+                                                  "iterations", "levels")})
+            else:
+                got = p.step(b)
+            torch.cuda.synchronize()
+            return got, 1e3 * (time.perf_counter() - t0)
+
+        if k in record_at:
+            ((we, de), ms_e), recorded[k] = record_scatters(
+                lambda: run(eager))
+        else:
+            (we, de), ms_e = run(eager)
+        before = path_now()
+        (wc, dc), ms_c = run(cap)
+        after = path_now()
+        for part, n in counts.items():
+            for name in n:
+                n[name] += after[part][name] - before[part][name]
+        extra = [(f"diag {n}", de[n], dc[n]) for n in de]
+        if we is not None:
+            extra.append(("world_scan", we, wc))
+        if runtime:
+            extra += [("triangles", eager.mesh.store.tri_ids,
+                       cap.mesh.store.tri_ids)]
+        bad = lio_differs(le.state, lc.state, le.vm, lc.vm, extra)
+        if bad:
+            raise AssertionError(f"graph: frame {k}: the captured step and "
+                                 f"the eager step differ in {bad}")
+        compacted = k in compact_at
+        if compacted:
+            for p in (le, lc):
+                compact_half(p.vm, p.state.pos)
+            bad = lio_differs(le.state, lc.state, le.vm, lc.vm)
+            if bad:
+                raise AssertionError(f"graph: frame {k}: after the "
+                                     f"compaction the maps differ in {bad}")
+        rows.append({"ms_eager": ms_e, "ms_graph": ms_c,
+                     "compacted": compacted, "iterations":
+                     int(de["iterations"]), "levels": int(de["levels"])})
+    if lc.captured.replays != len(frames) - 1:
+        raise AssertionError(f"graph: {lc.captured.replays} replays of "
+                             f"{len(frames)} frames")
+    return rows, counts, (eager, cap), recorded
+
+
+def graph_summary(name, rows, warmup, cfg) -> dict:
+    """Median and p90 ms a step, eager and captured, over the timed
+    frames; the frames where a refinement level was skipped and where the
+    ESIKF ran all its bodies live."""
+    t = rows[warmup:]
+    out = {f"{k}_{q}": (statistics.median if q == "median" else
+                        lambda v: float(np.percentile(v, 90)))(
+                            [r[f"ms_{k}"] for r in t])
+           for k in ("eager", "graph") for q in ("median", "p90")}
+    out["skipped_level_frames"] = [
+        k for k, r in enumerate(rows)
+        if r["levels"] < cfg.voxel_map.max_layers - 1]
+    out["max_iteration_frames"] = [
+        k for k, r in enumerate(rows)
+        if r["iterations"] == cfg.lio.max_iterations]
+    out["iterations"] = [r["iterations"] for r in rows]
+    out["compacted_frames"] = [k for k, r in enumerate(rows)
+                               if r["compacted"]]
+    log(f"[graph] {name}: {len(rows)} frames ({warmup} warm-up), eager and "
+        f"captured bit-identical every frame (plane map compacted after "
+        f"frames {out['compacted_frames']}); ms a step eager "
+        f"{out['eager_median']:.2f} median / {out['eager_p90']:.2f} p90, "
+        f"captured {out['graph_median']:.2f} / {out['graph_p90']:.2f}; "
+        f"ESIKF iterations {out['iterations']}, a refinement level skipped "
+        f"on frames {out['skipped_level_frames']}, all "
+        f"{cfg.lio.max_iterations} bodies live on frames "
+        f"{out['max_iteration_frames']}")
+    return out
+
+
+def scatter_bound_ms(kind, dst, idx, src, ok) -> tuple:
+    """Least time for this call, by bytes over the memory rate: every ok
+    flag read once; for each selected lane its target and its src row
+    read, and its dst row written (and read, for an add)."""
+    sel = int(ok.sum())
+    row = dst[0].numel() * dst.element_size() if dst.shape[0] else 0
+    src_row = row if torch.is_tensor(src) else 0
+    nbytes = (ok.numel() + sel * (idx.element_size() + src_row + row
+                                  + (row if kind == "add" else 0)))
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
+
+
+def scatter_versions(kind):
+    from immesh_tpu_torch.kernels import scatter_drop as sd
+    return ((sd.set_cuda, sd.set_plain) if kind == "set"
+            else (sd.add_cuda, sd.add_plain))
+
+
+def replay_scatters(calls, what: str) -> float:
+    """Every recorded call again through the kernel and its plain version,
+    on copies of the dst it found: bit for bit.  Returns the largest
+    absolute difference (0)."""
+    err = 0.0
+    for kind, dst, idx, src, ok in calls:
+        kern, plain = scatter_versions(kind)
+        a, b = dst.clone(), dst.clone()
+        kern(a, idx, src, ok)
+        plain(b, idx, src, ok)
+        e = abs_err(a, b)
+        err = max(err, e)
+        if e:
+            raise AssertionError(
+                f"{what}: scatter_drop {kind} and its plain version differ "
+                f"by {e} on a recorded call (dst {tuple(dst.shape)} "
+                f"{dst.dtype}, {ok.numel()} lanes)")
+    kinds = {}
+    for c in calls:
+        key = f"{c[0]} {str(c[1].dtype)[6:]}{list(c[1].shape[1:])}"
+        kinds[key] = kinds.get(key, 0) + 1
+    log(f"[graph] scatter_drop on {what}: {len(calls)} recorded calls, "
+        f"each bit-identical to its plain version ({kinds})")
+    return err
+
+
+def scatter_random(dev) -> float:
+    """scatter_drop against its plain version on random calls of every
+    dtype and row width the port uses, idx int32 and int64, scalar src,
+    strided src, 2-D lanes, no lane and every lane selected, at twice the
+    threads the card holds (each thread takes several elements)."""
+    props = torch.cuda.get_device_properties(dev)
+    lanes = 2 * props.multi_processor_count * \
+        props.max_threads_per_multi_processor
+    g = torch.Generator(device=dev).manual_seed(16)
+    cases = [("set", torch.float32, (), torch.int32, "tensor"),
+             ("set", torch.float32, (3,), torch.int64, "tensor"),
+             ("set", torch.float32, (6,), torch.int32, "strided"),
+             ("set", torch.int32, (), torch.int64, "tensor"),
+             ("set", torch.int32, (3,), torch.int32, "tensor"),
+             ("set", torch.bool, (), torch.int32, "tensor"),
+             ("set", torch.bool, (), torch.int32, True),
+             ("set", torch.int32, (), torch.int32, 0),
+             ("set", torch.int64, (), torch.int32, "tensor"),
+             ("set", torch.float32, (3,), torch.int32, "lanes2d"),
+             ("set", torch.float32, (48, 3), torch.int32, "tensor"),
+             ("add", torch.float32, (), torch.int32, "strided"),
+             ("add", torch.float32, (3,), torch.int32, "tensor"),
+             ("add", torch.float32, (6,), torch.int64, "tensor"),
+             ("set", torch.float32, (3,), torch.int32, "none"),
+             ("add", torch.float32, (6,), torch.int32, "all"),
+             ("set", torch.int32, (3,), torch.int64, "out_of_range"),
+             ("add", torch.float32, (3,), torch.int32, "out_of_range")]
+    err = 0.0
+    for kind, dtype, row, idx_dtype, src_kind in cases:
+        n = lanes if row != (48, 3) else lanes // 48
+        rows = 2 * n
+
+        def rand(shape):
+            if dtype == torch.bool:
+                return torch.rand(shape, generator=g, device=dev) < 0.5
+            if dtype.is_floating_point:
+                return torch.randn(shape, generator=g, device=dev)
+            return torch.randint(-2 ** 30, 2 ** 30, shape, generator=g,
+                                 device=dev).to(dtype)
+
+        dst = rand((rows,) + row)
+        idx = torch.randperm(rows, generator=g, device=dev)[:n].to(idx_dtype)
+        ok = torch.rand(n, generator=g, device=dev) < 0.7
+        if src_kind == "none":
+            ok = torch.zeros_like(ok)
+        elif src_kind == "all":
+            ok = torch.ones_like(ok)
+        if src_kind in (True, 0):
+            src = src_kind
+        elif src_kind == "strided":  # a column block of a wider tensor
+            w = max(1, math.prod(row))
+            src = rand((n, w + 5))[:, 2:2 + w].reshape((n,) + row)
+        else:
+            src = rand((n,) + row)
+        if src_kind == "out_of_range":
+            # every third target from the end, every fifth outside
+            # [-rows, rows): read as the reference's mode="drop" does
+            lane = torch.arange(n, device=dev)
+            far = torch.where(lane % 2 == 0, rows + lane, -rows - 1 - lane)
+            idx = torch.where(lane % 3 == 0, idx - rows, idx)
+            idx = torch.where(lane % 5 == 0, far, idx).to(idx_dtype)
+        if src_kind == "lanes2d":
+            idx, ok = idx.reshape(n // 8, 8), ok.reshape(n // 8, 8)
+            src = src.reshape((n // 8, 8) + row)
+        kern, plain = scatter_versions(kind)
+        a, b = dst.clone(), dst.clone()
+        kern(a, idx, src, ok)
+        plain(b, idx, src, ok)
+        e = abs_err(a, b)
+        err = max(err, e)
+        if e:
+            raise AssertionError(f"scatter_drop {kind} {dtype} row {row} "
+                                 f"idx {idx_dtype} src {src_kind}: differs "
+                                 f"from its plain version by {e}")
+    log(f"[graph] scatter_drop on {len(cases)} random calls ({lanes} lanes, "
+        f"twice the threads {props.multi_processor_count} SMs hold; f32 "
+        f"rows of 1, 3, 6 and 144, int32, int64 and bool, scalar, strided "
+        f"and 2-D-lane src, no lane and every lane selected, targets from "
+        f"the end and out of range, set and add): "
+        f"each bit-identical to its plain version")
+    return err
+
+
+def time_scatter(call, what: str) -> dict:
+    """Device µs of one launch, one wrapper call and the plain version on a
+    recorded call, beside its bound; 0 host syncs a call."""
+    from immesh_tpu_torch.kernels import scatter_drop as sd
+    from immesh_tpu_torch.utils.timers import profile_counts
+    kind, dst0, idx, src, ok = call
+    kern, plain = scatter_versions(kind)
+    dst = dst0.clone()
+    lib = sd._library()
+    _, counts = profile_counts(lambda: kern(dst, idx, src, ok))
+    ms = device_ms(lambda: sd.launch(lib, dst, idx, src, ok, kind == "add"))
+    wrapper_ms = event_ms(lambda: kern(dst, idx, src, ok), 50)
+    plain_ms = event_ms(lambda: plain(dst, idx, src, ok), 20)
+    bound_ms, bound_by = scatter_bound_ms(kind, dst, idx, src, ok)
+    log(f"[graph] {what}: scatter_drop {kind} of {ok.numel()} lanes "
+        f"({int(ok.sum())} selected) into {tuple(dst.shape)} {dst.dtype}: "
+        f"kernel {1e3 * ms:.2f} us (device time, median of 5 x 50 "
+        f"launches), wrapper call {1e3 * wrapper_ms:.2f} us (median of 50), "
+        f"plain version {1e3 * plain_ms:.1f} us, bound "
+        f"{1e3 * bound_ms:.4f} us ({bound_by}); one call under "
+        f"torch.profiler: {counts['launches']} launches, {counts['syncs']} "
+        f"syncs, {counts['copies']} copies")
+    if counts["syncs"] != 0:
+        raise AssertionError(f"{what}: scatter_drop waited on the card")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": ok.numel(),
+            "syncs_per_call": counts["syncs"]}
+
+
+def costliest_scatter(calls):
+    """The recorded call that moves the most bytes (its bound)."""
+    return max(calls, key=lambda c: scatter_bound_ms(*c)[0])
+
+
+def phase_graph(dev, main_info, scatters) -> dict:
+    """Phase 16.  The KITTI LioPipeline and the Avia ImMeshRuntime eager
+    and captured from the same start, bit for bit every frame (run_lio_pair),
+    with the masked form's dead work; one captured step's syncs and
+    launches under torch.profiler; then scatter_drop against its plain
+    version on every recorded call (phase 4's compacting frames and last
+    frame, the eager KITTI run's compacting frames and last frame) and on
+    random calls, 0 syncs a call, and the last frame's costliest call timed
+    for the `kernels` line."""
+    from immesh_tpu_torch.utils.timers import profile_counts
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    cfg = kitti_config()
+    gt = main_info["gt"]
+    frames = [bundle(f, cfg, dev) for f in gt]
+    last = len(frames) - 1
+    reset_counts()
+    rows, counts, (eager, cap), lio_calls = run_lio_pair(
+        dev, cfg, frames, 3, GRAPH_COMPACT_AT,
+        record_at=(*GRAPH_COMPACT_AT, last))
+    (graph,) = cap.captured.graphs
+    path_counts("graph_kitti", counts, graphs=[graph])
+    nodes = graph.nodes()
+    # launches and copies: a recorder's copy inside phase 4's capture would
+    # add memcpy (or copy-kernel) nodes.  Other node types are left out: a
+    # graph captured after the first in a process holds 6 mem_alloc and 6
+    # mem_free nodes more (a library's stream-ordered allocations)
+    same = ("kernel", "memcpy", "memset")
+    if [nodes[k] for k in same] != [main_info["graph_nodes"][k]
+                                    for k in same] \
+            or graph.captured != main_info["graph_captured"]:
+        raise AssertionError(
+            f"graph: the KITTI LioPipeline's graph holds {nodes} nodes and "
+            f"{graph.captured} kernel launches, phase 4's (recorders on) "
+            f"{main_info['graph_nodes']} and {main_info['graph_captured']}")
+    kitti = graph_summary("KITTI LioPipeline", rows, 3, cfg)
+    R0, p0 = main_info["R0"], main_info["p0"]
+    err = float(np.linalg.norm(R0 @ cap.state.pos.cpu().numpy() + p0
+                               - gt[-1].gt_pos))
+    if err > POSE_TOL_M:
+        raise AssertionError(f"graph: KITTI pose {err:.3f} m from ground "
+                             f"truth (limit {POSE_TOL_M} m)")
+    b = frames[-1]
+    prof = {}
+    for name, p in (("eager", eager), ("captured", cap)):
+        _, prof[name] = profile_counts(lambda: p.advance(b))
+    if prof["captured"]["syncs"] != 0:
+        raise AssertionError(f"graph: the captured KITTI step waited on the "
+                             f"card: {prof['captured']}")
+    dead = dead_work_ms(eager, b, cfg)
+    n_body = sum(cfg.lio.max_iterations - i for i in kitti["iterations"])
+    n_level = sum(cfg.voxel_map.max_layers - 1 - r["levels"] for r in rows)
+    dead_ms = (n_body * dead["body_ms"] + n_level * dead["level_ms"]) / len(
+        frames)
+    dead.update(bodies=n_body, levels=n_level, ms_a_frame=dead_ms)
+    log(f"[graph] KITTI: {smi}; one step under torch.profiler (the last "
+        f"frame again): eager {prof['eager']}, captured {prof['captured']}; "
+        f"the graph's nodes {nodes}, its kernels, copies and sets as "
+        f"phase 4's {main_info['graph_nodes']}; per frame "
+        f"{counts['runs']['scatter_drop'] / len(frames):.1f} scatter_drop "
+        f"runs on the device on the captured path ({counts}); the masked "
+        f"form's dead work "
+        f"over the {len(frames)} frames: {n_body} ESIKF bodies after "
+        f"convergence x {dead['body_ms']:.3f} ms busy and {n_level} empty "
+        f"refinement levels x {dead['level_ms']:.3f} ms busy = "
+        f"{dead_ms:.3f} ms a frame of device time; pose err {err:.3f} m")
+    del eager, cap
+
+    acfg = avia_config()
+    sim = make_avia_sim(acfg)
+    static = sim.static_imu(100)  # drawn first, as the demo does
+    aframes = [bundle(sim.frame(k), acfg, dev)
+               for k in range(3 + GRAPH_AVIA_FRAMES)]
+    reset_counts()
+    arows, acounts, (aeager, acap), _ = run_lio_pair(
+        dev, acfg, aframes, 3, (GRAPH_AVIA_COMPACT_AT,), static=static,
+        runtime=True)
+    path_counts("graph_avia", acounts, graphs=acap.lio.captured.graphs)
+    avia = graph_summary("Avia ImMeshRuntime (LIO and mesh)", arows, 3, acfg)
+    _, aprof = profile_counts(lambda: acap.lio.advance(aframes[-1]))
+    if aprof["syncs"] != 0:
+        raise AssertionError(f"graph: the captured Avia step waited on the "
+                             f"card: {aprof}")
+    adead = dead_work_ms(aeager.lio, aframes[-1], acfg)
+    log(f"[graph] Avia: one captured LIO step under torch.profiler: "
+        f"{aprof}; dead work: an ESIKF body {adead['body_ms']:.3f} ms busy, "
+        f"an empty level {adead['level_ms']:.3f} ms busy")
+    del aeager, acap
+
+    err = replay_scatters([c for k in sorted(scatters)
+                           for c in scatters[k]],
+                          f"phase 4's frames {sorted(scatters)}")
+    err = max(err, replay_scatters(
+        [c for k in sorted(lio_calls) for c in lio_calls[k]],
+        f"the eager KITTI LIO's frames {sorted(lio_calls)}"))
+    err = max(err, scatter_random(dev))
+    entry = time_scatter(costliest_scatter(scatters[max(scatters)]),
+                         f"phase 4's last frame's costliest call")
+    time_scatter(costliest_scatter(lio_calls[last]),
+                 "the KITTI LIO's costliest call (its last frame)")
+    log(f"[graph] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "scatter_drop", "route": "cuda",
+            "source": "immesh_tpu_torch/csrc/scatter_drop.cu",
+            "replaces": "immesh_tpu/map/voxel_map.py:180",
+            "max_abs_err": err, "library_ms": None, **entry,
+            "graph": {"kitti": kitti, "avia": avia,
+                      "kitti_profiled": prof, "avia_profiled": aprof,
+                      "dead_kitti": dead, "dead_avia": adead}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40,
@@ -3190,8 +3786,16 @@ def main() -> int:
             "runs only on a GPU")
         return 2
     dev = torch.device("cuda", 0)
-    log(f"[device] {smi_line()}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.split()[0]
+    cond = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+    log(f"[device] {smi_line()}; torch {torch.__version__}, CUDA runtime "
+        f"{torch.version.cuda}, driver {driver}, "
+        f"{torch.cuda.device_count()} device(s); CUDA-graph conditional "
+        f"nodes in torch (CUDAGraph.begin_capture_to_if_node): "
+        f"{'present' if cond else 'absent'}; the captured LIO step runs the "
+        f"masked form (lio/esikf.py, map/voxel_map.py), chosen in code")
 
     from immesh_tpu_torch.kernels import build
     t0 = time.perf_counter()
@@ -3204,8 +3808,8 @@ def main() -> int:
     phase_ints(dev)
     sim, gt = kitti_scans(3 + args.frames)
     hash_err = phase_hash(dev, gt)
-    pairs["launches"], main_info, probes = phase_main(dev, sim, gt, 3,
-                                                      pairs["ms"])
+    pairs["launches"], main_info, probes, scatters = phase_main(
+        dev, sim, gt, 3, pairs["ms"])
     hashes = phase_hash_path(dev, probes, hash_err)
     del probes
     phase_parity(dev)
@@ -3231,18 +3835,25 @@ def main() -> int:
     pairs["launches_dist"] = phase_dist(dev, main_info, window)
     pairs["launches_ablate"] = phase_ablate(dev, main_info)
     pairs["launches_profile"] = phase_profile(dev, main_info)
+    scatter = phase_graph(dev, main_info, scatters)
+    del scatters
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for e in hashes:  # launches on the main path, then on each other path
-        e["launches"] = PATH_COUNTS["main"][e["name"]]
-        e.update({f"launches_{path}": n[e["name"]]
-                  for path, n in PATH_COUNTS.items() if path != "main"})
+    for e in (*hashes, scatter):  # the main path's, then each other path's
+        # launches: by the wrapper (eager); device_runs: the kernel's own
+        # device counter, eager and replayed in the captured LIO graph
+        e["launches"] = PATH_COUNTS["main"]["launches"][e["name"]]
+        e["device_runs"] = PATH_COUNTS["main"]["runs"][e["name"]]
+        for path, n in PATH_COUNTS.items():
+            if path != "main":
+                e[f"launches_{path}"] = n["launches"][e["name"]]
+                e[f"device_runs_{path}"] = n["runs"][e["name"]]
     print(smi_line())
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: x for k, x in e.items()
                                         if k not in keys}}
-        for e in (pairs, incircle, *hashes)]}))
+        for e in (pairs, incircle, *hashes, scatter)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,9 +22,10 @@ _EPS = 1e-12
 
 
 def _axis(i: int, like: torch.Tensor) -> torch.Tensor:
-    e = torch.zeros(3, dtype=like.dtype, device=like.device)
-    e[i] = 1.0
-    return e.expand(like.shape)
+    """Unit axis i broadcast to like's shape, made on like's device (an
+    element written from the host would be a copy and a sync)."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[i].expand(
+        like.shape)
 
 
 def eigh3x3(A: torch.Tensor):

@@ -2,6 +2,8 @@
 
 JAX's `mode="drop"` scatters skip out-of-bounds targets silently; torch
 raises on them, so every such scatter here takes an explicit lane mask.
+The scatters are kernels/scatter_drop.py's: its plain version for CPU
+tensors, one launch of its CUDA kernel for CUDA tensors, with no host read.
 Segment sums are taken without atomics (a stable sort by segment, then a
 segmented reduction), so the f32 result is the same on every run instead of
 depending on the order in which CUDA atomics land.
@@ -10,6 +12,8 @@ depending on the order in which CUDA atomics land.
 from __future__ import annotations
 
 import torch
+
+from immesh_tpu_torch.kernels import scatter_drop
 
 
 def div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -28,20 +32,29 @@ def set_drop(dst: torch.Tensor, idx: torch.Tensor, src, ok: torch.Tensor
     `idx` and `ok` share one shape (the lanes); `src` is a scalar or a
     tensor of the lanes' shape plus dst's trailing dims.  Targets of the
     selected lanes must be distinct (as they are at every call site)."""
-    sel = ok.reshape(-1).nonzero().squeeze(1)
-    tgt = idx.reshape(-1)[sel].long()
-    if torch.is_tensor(src):
-        src = src.reshape((-1,) + src.shape[ok.dim():])[sel]
-    dst[tgt] = src
+    if dst.device.type == "cpu":
+        scatter_drop.set_plain(dst, idx, src, ok)
+    else:
+        scatter_drop.set_cuda(dst, idx, src, ok)
 
 
 def add_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
              ok: torch.Tensor) -> None:
-    """In place: dst[idx[l]] += src[l] for every lane l with ok[l] (1-D
-    lanes; the selected targets are distinct at every call site, so the sum
-    order does not depend on the device)."""
-    sel = ok.nonzero().squeeze(1)
-    dst.index_add_(0, idx[sel].long(), src[sel])
+    """In place: dst[idx[l]] += src[l] for every lane l with ok[l] (f32; the
+    selected targets are distinct at every call site, so the sum order does
+    not depend on the device)."""
+    if dst.device.type == "cpu":
+        scatter_drop.add_plain(dst, idx, src, ok)
+    else:
+        scatter_drop.add_cuda(dst, idx, src, ok)
+
+
+def nan_where_failed(x: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    """NaN out the factorisations whose LAPACK/cuSOLVER info is nonzero —
+    what XLA returns for a singular inverse or a non-PD Cholesky.  With the
+    `_ex` forms nothing is read back on the host."""
+    bad = (info != 0).reshape(info.shape + (1, 1))
+    return torch.where(bad, torch.full_like(x, float("nan")), x)
 
 
 def segment_sum(values: torch.Tensor, seg: torch.Tensor,

@@ -49,6 +49,10 @@
 //   * Data written by other blocks during the launch (keys, fp, the round
 //     flags) is read with ld.global.cg, from L2, never from a stale L1 line.
 //
+// Thread 0 of block 0 of either kernel adds one to its device counter,
+// g_runs[0] (lookup) or g_runs[1] (insert): the kernels' runs on the device,
+// eager or replayed in a CUDA graph, read back by hash_probe_runs.
+//
 // Cost: both are bound by memory latency, not by bytes or operations: every
 // probe round is one dependent random 32-byte sector per lane (fp for a
 // lookup, the 16-byte key row for an insert), and the insert adds an atomic
@@ -67,6 +71,10 @@ namespace {
 
 constexpr int32_t kEmpty = 0x7FFFFFFF;
 constexpr int kThreads = 256;
+
+// runs of the lookup (0) and insert (1) kernels on the current device since
+// the last hash_probe_reset_runs
+__device__ unsigned long long g_runs[2];
 
 // per-lane insert state, kept in the `new` output until the last pass
 enum : uint8_t { kOpen = 0, kAttempt = 1, kDone = 2, kWonPending = 3, kWon = 4 };
@@ -103,6 +111,7 @@ __global__ void __launch_bounds__(kThreads)
 hash_lookup_kernel(const int32_t* __restrict__ coords,
                    const int32_t* __restrict__ fp, int n, uint32_t mask,
                    int max_probe, int32_t* __restrict__ slot) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[0], 1ULL);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Key k = load_key(coords, i);
@@ -127,6 +136,7 @@ hash_insert_kernel(const int32_t* __restrict__ coords,
                    int32_t* fp, uint32_t mask, int max_probe,
                    int32_t* __restrict__ slot, uint8_t* __restrict__ state,
                    int32_t* open_flag) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[1], 1ULL);
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * blockDim.x;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -257,4 +267,17 @@ extern "C" int hash_insert_launch(const int32_t* coords, const uint8_t* valid,
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   cudaError_t last = cudaGetLastError();  // clears the launch's error, if any
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// out[0], out[1]: the lookup and insert kernels' runs on the current device
+// since the last reset.  Synchronous; returns the CUDA error.
+extern "C" int hash_probe_runs(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs)));
+}
+
+// Both counters of the current device to 0.  Synchronous; returns the CUDA
+// error.
+extern "C" int hash_probe_reset_runs() {
+  const unsigned long long zero[2] = {0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_runs, zero, sizeof(zero)));
 }

@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from immesh_tpu_torch.core import so3
-from immesh_tpu_torch.core.ops import segment_sum
+from immesh_tpu_torch.core.ops import nan_where_failed, segment_sum
 from immesh_tpu_torch.dist import comm
 
 
@@ -170,13 +170,6 @@ def _odometry_blocks(rot, pos, prob: WindowProblem, anchor_rot, anchor_pos,
     return H, b
 
 
-def _nan_where_failed(x: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
-    """NaN out the factorisations whose LAPACK/cuSOLVER info is nonzero —
-    what XLA returns for a singular inverse or a non-PD Cholesky."""
-    bad = (info != 0).reshape(info.shape + (1, 1))
-    return torch.where(bad, torch.full_like(x, float("nan")), x)
-
-
 def schur_solve(Hpp_full: torch.Tensor, Hpl: torch.Tensor, Hll: torch.Tensor,
                 bp: torch.Tensor, bl: torch.Tensor,
                 damping: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -188,7 +181,7 @@ def schur_solve(Hpp_full: torch.Tensor, Hpl: torch.Tensor, Hll: torch.Tensor,
     dtype, dev = Hpp_full.dtype, Hpp_full.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     Hll_inv, info = torch.linalg.inv_ex(Hll + damping * eye3)  # batched
-    Hll_inv = _nan_where_failed(Hll_inv, info)
+    Hll_inv = nan_where_failed(Hll_inv, info)
 
     Hpl_f = Hpl.permute(0, 2, 1, 3).reshape(K * 6, M, 3)
     # S = Hpp − Hpl Hll⁻¹ Hplᵀ ; bs = bp − Hpl Hll⁻¹ bl
@@ -198,7 +191,7 @@ def schur_solve(Hpp_full: torch.Tensor, Hpl: torch.Tensor, Hll: torch.Tensor,
 
     S = S + damping * torch.eye(K * 6, dtype=dtype, device=dev)
     chol, info = torch.linalg.cholesky_ex(S)
-    chol = _nan_where_failed(chol, info)
+    chol = nan_where_failed(chol, info)
     dp = torch.cholesky_solve(bs[:, None], chol)[:, 0]         # (6K,)
 
     # back-substitute: δl = Hll⁻¹ (bl − Hplᵀ δp)

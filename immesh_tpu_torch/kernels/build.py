@@ -96,3 +96,46 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _libs[name] = lib
     return lib
+
+
+def bind_runs(lib: ctypes.CDLL, prefix: str) -> None:
+    """Declare a kernel library's device run counters: `<prefix>_runs(out)`
+    copies them to the host, `<prefix>_reset_runs()` zeroes them, each on
+    the current device, each returning the CUDA error."""
+    getattr(lib, f"{prefix}_runs").argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong)]
+    getattr(lib, f"{prefix}_runs").restype = ctypes.c_int
+    getattr(lib, f"{prefix}_reset_runs").argtypes = []
+    getattr(lib, f"{prefix}_reset_runs").restype = ctypes.c_int
+
+
+def read_runs(lib: ctypes.CDLL, prefix: str, n: int,
+              devices: Iterable[int]) -> List[int]:
+    """A library's n device run counters (bind_runs), summed over the CUDA
+    `devices`, each synchronised first: the kernels' runs on the device,
+    eager or replayed in a CUDA graph."""
+    import torch
+    total = [0] * n
+    for d in sorted(devices):
+        with torch.cuda.device(d):
+            torch.cuda.synchronize()
+            out = (ctypes.c_ulonglong * n)()
+            err = getattr(lib, f"{prefix}_runs")(out)
+            if err != 0:
+                raise RuntimeError(f"{prefix}: reading the run counters "
+                                   f"failed: CUDA error {err}")
+            total = [t + v for t, v in zip(total, out)]
+    return total
+
+
+def reset_runs(lib: ctypes.CDLL, prefix: str, devices: Iterable[int]) -> None:
+    """A library's device run counters to 0 on the CUDA `devices`, each
+    synchronised first."""
+    import torch
+    for d in sorted(devices):
+        with torch.cuda.device(d):
+            torch.cuda.synchronize()
+            err = getattr(lib, f"{prefix}_reset_runs")()
+            if err != 0:
+                raise RuntimeError(f"{prefix}: resetting the run counters "
+                                   f"failed: CUDA error {err}")

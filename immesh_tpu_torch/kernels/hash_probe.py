@@ -18,6 +18,11 @@ immesh_tpu/map/hash.py's HashTable.lookup (:127) and HashTable.insert
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel in csrc/hash_probe.cu or raises — there is no fallback.
+
+Counts, by kernel: `launches` the launches the wrappers made, `captured`
+those they recorded into a CUDA graph under stream capture (they run at
+each replay, not then), and `runs()` the kernels' runs on the device, eager
+and replayed, from counters the kernels themselves add to.
 """
 
 from __future__ import annotations
@@ -40,13 +45,27 @@ _P4 = 3145739
 EMPTY = 0x7FFFFFFF  # sentinel coordinate for unoccupied slots
 _NOWIN = 0x3FFFFFFF  # the plain insert's claim scratch when no lane claims
 
-# kernel launches by kernel since the last reset_launches()
+# kernel launches by kernel since the last reset_launches(), and those
+# recorded into a CUDA graph since then
 launches = {"hash_lookup": 0, "hash_insert": 0}
+captured = {"hash_lookup": 0, "hash_insert": 0}
+_devices = set()  # the CUDA devices the kernels were launched on
 
 
 def reset_launches() -> None:
+    """launches, captured and the device's run counters to 0."""
     for name in launches:
-        launches[name] = 0
+        launches[name] = captured[name] = 0
+    if _lib is not None:
+        _build.reset_runs(_lib, NAME, _devices)
+
+
+def runs() -> dict:
+    """Each kernel's runs on the device since reset_launches(), eager and
+    replayed in CUDA graphs (synchronises the devices they ran on)."""
+    n = ([0, 0] if _lib is None else
+         _build.read_runs(_lib, NAME, 2, _devices))
+    return dict(zip(launches, n))
 
 
 def _hash(coords: torch.Tensor, mask: int) -> torch.Tensor:
@@ -152,6 +171,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hash_insert_launch.argtypes = [p, p, i, p, p, i, i, p, p, p, p]
     lib.hash_lookup_launch.restype = i
     lib.hash_insert_launch.restype = i
+    _build.bind_runs(lib, NAME)
     return lib
 
 
@@ -166,10 +186,13 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _check(err: int, name: str) -> None:
+def _check(err: int, name: str, device, capturing: bool) -> None:
+    """Raise on a launch's error; else count it, in `captured` under
+    stream capture."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+    _devices.add(device.index)
+    (captured if capturing else launches)[name] += 1
 
 
 def _launch_lookup(lib, coords, fp, max_probe: int, slot) -> None:
@@ -181,7 +204,8 @@ def _launch_lookup(lib, coords, fp, max_probe: int, slot) -> None:
         err = lib.hash_lookup_launch(
             coords.data_ptr(), fp.data_ptr(), coords.shape[0], fp.shape[0],
             max_probe, slot.data_ptr(), stream)
-    _check(err, "hash_lookup")
+        capturing = torch.cuda.is_current_stream_capturing()
+    _check(err, "hash_lookup", coords.device, capturing)
 
 
 def _launch_insert(lib, coords, valid, keys, fp, max_probe: int, slot, new,
@@ -194,7 +218,8 @@ def _launch_insert(lib, coords, valid, keys, fp, max_probe: int, slot, new,
             coords.data_ptr(), valid.data_ptr(), coords.shape[0],
             keys.data_ptr(), fp.data_ptr(), fp.shape[0], max_probe,
             slot.data_ptr(), new.data_ptr(), flags.data_ptr(), stream)
-    _check(err, "hash_insert")
+        capturing = torch.cuda.is_current_stream_capturing()
+    _check(err, "hash_insert", coords.device, capturing)
 
 
 def _check_inputs(dev, specs) -> None:

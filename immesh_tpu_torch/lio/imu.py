@@ -82,8 +82,9 @@ def imu_propagate(state: EsikfState, bundle: ScanBundle, cfg: ImuConfig
                       torch.zeros_like(dts))
     dt1 = dts[:, None]
 
-    g_std = torch.sqrt(torch.tensor(cfg.gyr_cov, dtype=dtype, device=dev))
-    a_std = torch.sqrt(torch.tensor(cfg.acc_cov, dtype=dtype, device=dev))
+    # made on the card (torch.tensor would copy from the host and sync)
+    g_std = torch.sqrt(torch.full((), cfg.gyr_cov, dtype=dtype, device=dev))
+    a_std = torch.sqrt(torch.full((), cfg.acc_cov, dtype=dtype, device=dev))
 
     w = gyr_mid - state.bg[None, :]          # (K, 3) bias-corrected rates
     a_body = acc_mid - state.ba[None, :]

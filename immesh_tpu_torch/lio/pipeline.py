@@ -5,6 +5,12 @@ src/voxel_mapping.cpp:1660-2050): the IMU branch (imu_propagate + deskew)
 and the IMU-less constant-twist branch, with LiDAR→IMU extrinsics.
 
 The full deskewed world-frame scan is returned for the meshing stage.
+
+The reference's step is one jitted program with no host round-trips
+(immesh_tpu/lio/pipeline.py:32).  Here `lio_step` reads no device value on
+the host either, and on the card `LioPipeline` runs it as one captured CUDA
+graph, replayed every frame (lio/captured.py); `graph=False` keeps the
+eager step.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from immesh_tpu_torch.core.state import EsikfState
 from immesh_tpu_torch.device import resolve_device
 from immesh_tpu_torch.frontend.types import ScanBundle
 from immesh_tpu_torch.lio import imu as imu_mod
+from immesh_tpu_torch.lio.captured import CapturedLioStep
 from immesh_tpu_torch.lio.downsample import voxel_downsample
 from immesh_tpu_torch.lio.esikf import lio_update
 from immesh_tpu_torch.map.hash import EMPTY
@@ -46,7 +53,7 @@ def propagate_and_deskew(state: EsikfState, bundle: ScanBundle,
 def extrinsics(imu_cfg, like: torch.Tensor):
     """The LiDAR→IMU extrinsics (r_ext (3, 3), t_ext (3,)) in `like`'s dtype
     and device, or None where they are the identity and points arrive in
-    the body frame."""
+    the body frame.  A copy from the host: LioPipeline makes them once."""
     if (tuple(imu_cfg.extrinsic_t) == (0.0, 0.0, 0.0)
             and tuple(imu_cfg.extrinsic_r) == _IDENTITY_R):
         return None
@@ -72,23 +79,28 @@ def point_cov(down_pts: torch.Tensor, ext, map_cfg) -> torch.Tensor:
 
 
 def grow_map(vm: VoxelMap, state: EsikfState, down_pts: torch.Tensor,
-             pcov: torch.Tensor, down_mask: torch.Tensor) -> None:
+             pcov: torch.Tensor, down_mask: torch.Tensor) -> torch.Tensor:
     """Insert the downsampled scan at `state`'s pose into the plane map, in
-    place (reference map_incremental_grow)."""
+    place (reference map_incremental_grow).  Returns the number of
+    refinement levels that had points (VoxelMap.update_levels)."""
     sigma2 = (pcov[:, 0, 0] + pcov[:, 1, 1] + pcov[:, 2, 2]) / 3.0
-    vm.update(state.transform_points(down_pts), sigma2, down_mask)
+    return vm.update_levels(state.transform_points(down_pts), sigma2,
+                            down_mask)
 
 
 def lio_step(state: EsikfState, vm: VoxelMap, bundle: ScanBundle,
-             cfg: ImMeshConfig):
+             cfg: ImMeshConfig, ext):
     """One LiDAR frame. Returns (state, vm, world_scan, diag); `vm` is
     updated in place.  world_scan is the full deskewed scan in world frame,
-    shaped like bundle.pts with bundle.mask validity."""
+    shaped like bundle.pts with bundle.mask validity.  `ext` is
+    extrinsics(cfg.imu, ...), made once by the caller (a copy from the
+    host).  diag: "converged", "n_effective", "iterations" (live ESIKF
+    bodies) and "levels" (refinement levels with points), device
+    scalars."""
     lio_cfg, map_cfg, imu_cfg = cfg.lio, cfg.voxel_map, cfg.imu
 
     # 0. LiDAR→IMU extrinsics: points arrive in the LiDAR frame; express them
     # once in the IMU/body frame the filter state lives in
-    ext = extrinsics(imu_cfg, bundle.pts)
     pts_body = bundle.pts if ext is None else bundle.pts @ ext[0].T + ext[1]
 
     # 1. propagate + deskew (reference Process2 → Forward/UndistortPcl)
@@ -107,16 +119,23 @@ def lio_step(state: EsikfState, vm: VoxelMap, bundle: ScanBundle,
 
     # 4. map growth with the posterior pose
     if lio_cfg.update_map:
-        grow_map(vm, state_new, down_pts, pcov, down_mask)
+        levels = grow_map(vm, state_new, down_pts, pcov, down_mask)
+    else:
+        levels = torch.zeros((), dtype=torch.int32, device=down_pts.device)
 
     world_scan = state_new.transform_points(pts_end)
-    return state_new, vm, world_scan, diag
+    return state_new, vm, world_scan, dict(diag, levels=levels)
 
 
 class LioPipeline:
-    """Host-side wrapper holding filter + map state across frames."""
+    """Host-side wrapper holding filter + map state across frames.
 
-    def __init__(self, cfg: ImMeshConfig, device="cuda"):
+    On a CUDA device the step runs as one captured CUDA graph
+    (lio/captured.py: the first frame eager, the second captured, every
+    frame after it replayed); `graph=False` runs it eagerly, as every CPU
+    device does."""
+
+    def __init__(self, cfg: ImMeshConfig, device="cuda", graph: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = EsikfState.identity(
@@ -127,6 +146,9 @@ class LioPipeline:
             init_grav_cov=cfg.lio.init_grav_cov, device=self.device,
         )
         self.vm = VoxelMap.create(cfg.voxel_map, device=self.device)
+        self.ext = extrinsics(cfg.imu, self.state.pos)  # made once
+        self.captured = (CapturedLioStep(cfg, self.ext, self.device)
+                         if graph and self.device.type == "cuda" else None)
         self.frame_idx = 0
         self.n_compactions = 0
         self.compact_ms = 0.0   # wall time spent inside compaction events
@@ -160,10 +182,21 @@ class LioPipeline:
         self.state = fresh
 
     def step(self, bundle: ScanBundle):
-        self.state, self.vm, world_scan, diag = lio_step(
-            self.state, self.vm, bundle, self.cfg)
-        self.frame_idx += 1
+        world_scan, diag = self.advance(bundle)
         self.maybe_compact()
+        return world_scan, diag
+
+    def advance(self, bundle: ScanBundle):
+        """The LIO step on this pipeline's state and map, without the
+        compaction trigger: the captured graph, or lio_step eagerly.
+        Returns (world_scan, diag)."""
+        if self.captured is None:
+            self.state, self.vm, world_scan, diag = lio_step(
+                self.state, self.vm, bundle, self.cfg, self.ext)
+        else:
+            self.state, world_scan, diag = self.captured(self.state, self.vm,
+                                                         bundle)
+        self.frame_idx += 1
         return world_scan, diag
 
     def maybe_compact(self) -> bool:

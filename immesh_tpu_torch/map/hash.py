@@ -95,8 +95,7 @@ def frame_unique_coords(coords: torch.Tensor, mask: torch.Tensor, k: int):
     `lax.sort(num_keys=C)` is chained stable sorts, last key first."""
     n, c = coords.shape
     dev = coords.device
-    big = torch.tensor(0x7FFFFFFF, dtype=torch.int32, device=dev)
-    cols = [torch.where(mask, coords[:, i], big) for i in range(c)]
+    cols = [torch.where(mask, coords[:, i], 0x7FFFFFFF) for i in range(c)]
     order = torch.arange(n, device=dev)
     for col in reversed(cols):
         order = order[torch.argsort(col[order], stable=True)]

@@ -52,10 +52,11 @@ class ImMeshRuntime:
     """End-to-end LiDAR(-inertial) odometry + incremental meshing."""
 
     def __init__(self, cfg: ImMeshConfig, log_dir: Optional[str] = None,
-                 mesh_enabled: bool = True, device="cuda"):
+                 mesh_enabled: bool = True, device="cuda", graph: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.lio = LioPipeline(cfg, device=self.device)
+        # graph: the LIO step as one captured CUDA graph on the card
+        self.lio = LioPipeline(cfg, device=self.device, graph=graph)
         self.mesh = (MeshPipeline(cfg, device=self.device)
                      if mesh_enabled else None)
         self.ba = WindowBA(cfg) if cfg.ba.enabled else None
@@ -164,6 +165,7 @@ class ImMeshRuntime:
             # device scalars — callers that want numbers int() them
             "n_active_voxels": n_active_dev,
             "n_effective": diag["n_effective"],
+            "iterations": diag["iterations"], "levels": diag["levels"],
             "ba_cost": ba_cost,
         }
 

@@ -23,14 +23,23 @@ from immesh_tpu_torch.mesh.triangles import TriangleStore
 
 
 def joint_step(state: EsikfState, vm: VoxelMap, gm: GlobalPointMap,
-               store: TriangleStore, bundle: ScanBundle, cfg: ImMeshConfig):
-    """propagate → deskew → ESIKF → map grow → append → re-mesh.  Returns
-    (state, vm, gm, store, world_scan, slots, smask, diag)."""
-    state, vm, world_scan, diag = lio_step(state, vm, bundle, cfg)
+               store: TriangleStore, bundle: ScanBundle, cfg: ImMeshConfig,
+               ext):
+    """propagate → deskew → ESIKF → map grow → append → re-mesh: lio_step
+    (`ext` its extrinsics), then _mesh_half.  Returns (state, vm, gm,
+    store, world_scan, slots, smask, diag)."""
+    state, vm, world_scan, diag = lio_step(state, vm, bundle, cfg, ext)
+    return (state, vm) + _mesh_half(gm, store, world_scan, bundle, state,
+                                    diag, cfg)
+
+
+def _mesh_half(gm, store, world_scan, bundle, state, diag, cfg):
+    """joint_step after the LIO step: (gm, store, world_scan, slots, smask,
+    diag)."""
     gm, store, n_active, slots, smask, mdiag = mesh_step(
         gm, store, world_scan, bundle.mask, state.pos, cfg.mesh.mesh_chunk)
     diag = dict(diag, n_active_voxels=n_active, **mdiag)
-    return state, vm, gm, store, world_scan, slots, smask, diag
+    return gm, store, world_scan, slots, smask, diag
 
 
 class JointPipeline:
@@ -44,13 +53,21 @@ class JointPipeline:
     program; the port keeps the same two-deep queue (and reads it
     synchronously), so the hi/lo decision falls on the same frames in both.
     As in the reference, mesh_step sizes its work list from the point map's
-    own config (gm.cfg), not from the config joint_step is given."""
+    own config (gm.cfg), not from the config joint_step is given.
+
+    A step is joint_step's composition: the LioPipeline's step without its
+    compaction trigger (LioPipeline.advance: on a CUDA device its captured
+    graph, which reads no mesh setting and so serves both budgets; eager
+    with `graph=False` and on the CPU), then _mesh_half with the frame's
+    config, eagerly."""
 
     def __init__(self, cfg: ImMeshConfig, adaptive_mesh_budget: int = 0,
-                 adaptive_threshold: int = 0, device="cuda"):
+                 adaptive_threshold: int = 0, device="cuda",
+                 graph: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.lio = LioPipeline(cfg, device=self.device)    # state + voxel map
+        self.lio = LioPipeline(cfg, device=self.device,  # state + voxel map
+                               graph=graph)
         self.mesh = MeshPipeline(cfg, device=self.device)  # point map + store
         self.frame_idx = 0
         self._cfg_hi = None
@@ -76,10 +93,10 @@ class JointPipeline:
         if self._cfg_hi is not None and len(self._backlog_q) >= 2 \
                 and int(self._backlog_q[0]) > self.adaptive_threshold:
             cfg = self._cfg_hi
-        (self.lio.state, self.lio.vm, self.mesh.gm, self.mesh.store,
-         world_scan, slots, smask, diag) = joint_step(
-            self.lio.state, self.lio.vm, self.mesh.gm, self.mesh.store,
-            bundle, cfg)
+        world_scan, diag = self.lio.advance(bundle)
+        (self.mesh.gm, self.mesh.store, world_scan, slots, smask,
+         diag) = _mesh_half(self.mesh.gm, self.mesh.store, world_scan,
+                            bundle, self.lio.state, diag, cfg)
         if self._cfg_hi is not None:
             self._backlog_q = (self._backlog_q + [diag["drop_deferred"]])[-2:]
         self.mesh.last_active = (slots, smask)

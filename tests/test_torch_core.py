@@ -273,6 +273,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "torch_ablate_e2e.py")
     yield os.path.join(REPO, "tools", "torch_profile_lio.py")
     yield os.path.join(REPO, "tools", "torch_profile_stages.py")
+    yield os.path.join(REPO, "tools", "torch_ab_lio.py")
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),

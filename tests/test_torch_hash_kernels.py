@@ -285,6 +285,7 @@ def test_a_cpu_table_never_loads_the_cuda_library(monkeypatch):
     slots, new = table.insert(keys, torch.ones(100, dtype=torch.bool))
     assert bool(new.all()) and bool((table.lookup(keys) == slots).all())
     assert hp.launches == {"hash_lookup": 0, "hash_insert": 0}
+    assert hp.runs() == hp.captured == hp.launches
 
 
 def test_a_tensor_off_the_cpu_never_takes_the_plain_loop(monkeypatch):
@@ -340,6 +341,7 @@ def test_kernels_equal_the_plain_versions_on_the_card(dev, case):
     assert torch.equal(hp.lookup_cuda(q, tk.fp, max_probe),
                        hp.lookup_plain(q, tp.fp, max_probe))
     assert hp.launches == {"hash_lookup": 1, "hash_insert": len(batches)}
+    assert hp.runs() == hp.launches  # the kernels' own device counters
 
 
 @pytest.mark.cuda

@@ -38,6 +38,7 @@ from immesh_tpu_torch.core.state import EsikfState as TState
 from immesh_tpu_torch.frontend.types import ScanBundle as TBundle
 from immesh_tpu_torch.lio import imu as timu
 from immesh_tpu_torch.lio.pipeline import LioPipeline as TLio
+from immesh_tpu_torch.lio.pipeline import extrinsics
 from immesh_tpu_torch.lio.pipeline import lio_step as t_lio_step
 
 M = 64            # IMU window slots (ImuConfig.max_imu_per_scan)
@@ -208,8 +209,9 @@ def test_lio_step_with_imu_and_extrinsics_matches_reference():
     a = args(N_PRE)
     js, jvm, jworld, jdiag = j_lio_step(lio.state, lio.vm,
                                         JBundle.from_numpy(*a), cfg)
+    tb = TBundle.from_numpy(*a, device="cpu")
     ts, tvm, tworld, tdiag = t_lio_step(
-        o["state"], o["vm"], TBundle.from_numpy(*a, device="cpu"), tcfg)
+        o["state"], o["vm"], tb, tcfg, extrinsics(tcfg.imu, tb.pts))
     assert int(tdiag["n_effective"]) > 300
     assert abs(int(jdiag["n_effective"]) - int(tdiag["n_effective"])) <= 2
     np.testing.assert_allclose(np.asarray(js.pos), ts.pos.numpy(), atol=1e-4)

@@ -82,14 +82,16 @@ def _split(jax_tris, port_tris):
     return more, fewer, same
 
 
-def _budget_recorder(module, log):
-    """Wrap module.joint_step to log the re-mesh budget of each call."""
-    inner = module.joint_step
+def _budget_recorder(module, name, log):
+    """Wrap module.<name>, whose last argument is the frame's config, to log
+    the re-mesh budget of each call: the reference's joint_step, the port's
+    _mesh_half (JointPipeline.step's mesh half)."""
+    inner = getattr(module, name)
 
-    def joint_step(*args):
+    def recorded(*args):
         log.append(args[-1].mesh.active_voxels_per_frame)
         return inner(*args)
-    return joint_step
+    return recorded
 
 
 @pytest.fixture(scope="module")
@@ -105,8 +107,10 @@ def runs():
                               adaptive_threshold=600, device="cpu")
     budgets = {"jax": [], "port": []}
     mp = pytest.MonkeyPatch()
-    mp.setattr(jjoint, "joint_step", _budget_recorder(jjoint, budgets["jax"]))
-    mp.setattr(tjoint, "joint_step", _budget_recorder(tjoint, budgets["port"]))
+    mp.setattr(jjoint, "joint_step",
+               _budget_recorder(jjoint, "joint_step", budgets["jax"]))
+    mp.setattr(tjoint, "_mesh_half",
+               _budget_recorder(tjoint, "_mesh_half", budgets["port"]))
     frames = []
     try:
         for k in range(N_FRAMES):

@@ -46,6 +46,7 @@ from immesh_tpu_torch.frontend.types import ScanBundle as TBundle
 from immesh_tpu_torch.lio import imu as timu
 from immesh_tpu_torch.lio.association import associate as t_associate
 from immesh_tpu_torch.lio.downsample import voxel_downsample as t_downsample
+from immesh_tpu_torch.lio.pipeline import extrinsics
 from immesh_tpu_torch.lio.pipeline import lio_step as t_lio_step
 from immesh_tpu_torch.mesh.pipeline import (
     MeshPipeline as TMeshPipe, _compact_mesh, _keep_radius_mesh as t_keep_radius,
@@ -138,9 +139,9 @@ def test_lio_step_matches_reference(ref):
     o = _port(ref, "state", "vm")
     js, jvm, jworld, jdiag = j_lio_step(ref["state"], ref["vm"],
                                         JBundle.from_numpy(*ref["args"]), cfg)
+    tb = TBundle.from_numpy(*ref["args"], device="cpu")
     ts, tvm, tworld, tdiag = t_lio_step(
-        o["state"], o["vm"], TBundle.from_numpy(*ref["args"], device="cpu"),
-        tcfg)
+        o["state"], o["vm"], tb, tcfg, extrinsics(tcfg.imu, tb.pts))
     assert int(tdiag["n_effective"]) > 1000
     assert abs(int(jdiag["n_effective"]) - int(tdiag["n_effective"])) <= 2
     assert bool(jdiag["converged"]) == bool(tdiag["converged"])

@@ -115,7 +115,7 @@ def test_lio_stages_compose_to_lio_step(tools, path):
     tlio, _, chip_smoke = tools
     cfg, pipe, b = _warm(chip_smoke, path)
     vm_ref, vm_comp = pipe.vm.clone(), pipe.vm.clone()
-    st, _, world, diag = lio_step(pipe.state, vm_ref, b, cfg)
+    st, _, world, diag = lio_step(pipe.state, vm_ref, b, cfg, pipe.ext)
     x = tlio.compose(pipe.state, vm_comp, b, cfg)
     assert set(tlio.stage_names(cfg)) >= {"downsample", "pcov",
                                           "esikf_update_x3", "map_update"}
@@ -207,7 +207,7 @@ def test_profile_stages_matches_mesh_pipeline(tools, stages_run):
     for f in scans:
         b = chip_smoke.bundle(f, cfg, "cpu")
         ref_lio.state, ref_lio.vm, world, _ = lio_step(
-            ref_lio.state, ref_lio.vm, b, cfg)
+            ref_lio.state, ref_lio.vm, b, cfg, ref_lio.ext)
         ref_mesh.step(world, b.mask, ref_lio.state.pos)
     assert int(ref_mesh.store.n_triangles()) > 0
     for got, want in ((mesh.gm, ref_mesh.gm), (mesh.store, ref_mesh.store),

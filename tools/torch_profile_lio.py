@@ -19,8 +19,9 @@ map; its intermediates are the fixed inputs every stage is timed on:
          map_update, world_transform
 
 associate_x1 is one association at the propagated state, which
-esikf_update_x3 (lio_update) runs once per iteration; the iterations are
-counted and printed, and associate_x1 stays out of the stages' sum.
+esikf_update_x3 (lio_update) runs once per static body (max_iterations of
+them, those after convergence masked); the live iterations are printed, and
+associate_x1 stays out of the stages' sum.
 map_update inserts the downsampled scan at the posterior pose, as lio_step
 does (the JAX tool uses the propagated one).  The port updates the map in
 place, so map_update runs on copies of the map made before its timed loop,
@@ -29,12 +30,10 @@ checked bit for bit after each stage.
 
 Each stage runs once untimed, then --repeat times back to back with one
 device synchronisation at the end: wall ms per call, the JAX tool's
-measure.  The port's stages wait on the device inside (the ESIKF
-convergence test, nonzero in masked scatters; the hash probe loops are one
-kernel launch each and do not), so calls do not pipeline and the wall time
-is host time.  A whole lio_step
-on the same frame, timed the same way on map copies, stands beside the
-stages' sum, and so does "in seq": each stage's ms inside compose() on
+measure.  No stage reads a device value on the host, so the host enqueues
+ahead of the card and the wall time is the larger of the two.  A whole
+lio_step on the same frame, timed the same way on map copies, stands beside
+the stages' sum, and so does "in seq": each stage's ms inside compose() on
 --repeat map copies, synchronised before and after every stage, whose sum
 is the step's own time.  The host's load moves these times by tens of per
 cent within a run, so the measurement runs ROUNDS times and each time is
@@ -43,9 +42,16 @@ timings, one further call a stage under torch.profiler gives kernel
 launches, host syncs (cudaStream/DeviceSynchronize), copies
 (cudaMemcpyAsync) and device-busy ms (utils/timers.py::profile_counts).
 The last line is a JSON object with the JAX tool's keys (ms per call) and
-these.
+these.  On the card a last row, lio_step_graph, is the same step as
+LioPipeline runs it there, one captured CUDA graph (lio/captured.py), on a
+copy of the map: warmed up and captured on the frozen frame, its first
+replay held bit for bit to lio_step, then called back to back (each call
+copies the bundle and state in, replays and copies the outputs out; the
+map grows by the same scan at every replay), and once under the profiler.
+The pipeline itself runs eagerly (graph=False), so the stages split it.
 `--device cuda` (the default) raises without a card; `--device cpu` runs
-here, where the profiler sees no device and its counts read 0.
+here, where the profiler sees no device, its counts read 0 and there is no
+graph row.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from immesh_tpu_torch.device import resolve_device, synchronize  # noqa: E402
 from immesh_tpu_torch.lio import esikf  # noqa: E402
 from immesh_tpu_torch.lio import imu as imu_mod  # noqa: E402
 from immesh_tpu_torch.lio.association import associate  # noqa: E402
+from immesh_tpu_torch.lio.captured import CapturedLioStep  # noqa: E402
 from immesh_tpu_torch.lio.downsample import voxel_downsample  # noqa: E402
 from immesh_tpu_torch.lio.pipeline import (  # noqa: E402
     LioPipeline, extrinsics, grow_map, lio_step, point_cov)
@@ -94,8 +101,8 @@ def _stage_fns(cfg) -> dict:
     lio_cfg, map_cfg, imu_cfg = cfg.lio, cfg.voxel_map, cfg.imu
 
     def extrinsic(x, vm, b):
-        ext = extrinsics(imu_cfg, b.pts)
-        return {"ext": ext, "pts_body": b.pts @ ext[0].T + ext[1]}
+        ext = x["ext"]  # made once, as LioPipeline does
+        return {"pts_body": b.pts @ ext[0].T + ext[1]}
 
     def const_propagate(x, vm, b):
         return {"state_prop": imu_mod.const_velocity_propagate(
@@ -154,7 +161,8 @@ def compose(state, vm, bundle, cfg, clock=None) -> dict:
     down_mask, pcov, state_new, diag, world.  `clock(name, run)`, where
     given, makes each stage's call run()."""
     fns = _stage_fns(cfg)
-    x = {"state": state, "pts_body": bundle.pts, "ext": None}
+    x = {"state": state, "pts_body": bundle.pts,
+         "ext": extrinsics(cfg.imu, bundle.pts)}
     for name in stage_names(cfg):
         if name not in IN_ESIKF:
             def run(f=fns[name]):
@@ -190,20 +198,10 @@ def same_state(a, b) -> bool:
 
 
 def esikf_iterations(fn) -> int:
-    """Run fn() once and count the associations lio_update makes in it:
-    one per ESIKF iteration."""
-    assoc, n = esikf.associate, [0]
-
-    def counted(*args, **kw):
-        n[0] += 1
-        return assoc(*args, **kw)
-
-    esikf.associate = counted
-    try:
-        fn()
-    finally:
-        esikf.associate = assoc
-    return n[0]
+    """Run fn(), the esikf_update_x3 stage, once: the ESIKF's live
+    iterations (diag["iterations"], the reference while_loop's trip count;
+    each of the max_iterations static bodies runs one association)."""
+    return int(fn()["diag"]["iterations"])
 
 
 def wall_ms(fn, maps, dev) -> float:
@@ -251,7 +249,7 @@ def profile_lio(cfg, scans, device="cuda", warm_frames: int = 5,
     lio_step, bit for bit) and "map_unchanged" (per stage: the pipeline's
     map bit-identical after it)."""
     dev = resolve_device(device)
-    pipe = LioPipeline(cfg, device=dev)
+    pipe = LioPipeline(cfg, device=dev, graph=False)
     if static_imu is not None:
         pipe.static_init(*static_imu)
     bundles = [chip_smoke.bundle(f, cfg, dev)
@@ -264,7 +262,7 @@ def profile_lio(cfg, scans, device="cuda", warm_frames: int = 5,
     x = compose(state, vm_composed, b, cfg)
 
     def whole(m):
-        return lio_step(state, m, b, cfg)
+        return lio_step(state, m, b, cfg, pipe.ext)
 
     st_ref, vm_ref, world_ref, _ = whole(vm.clone())
     out = {"path": "avia" if cfg.imu.imu_en else "kitti",
@@ -309,10 +307,40 @@ def profile_lio(cfg, scans, device="cuda", warm_frames: int = 5,
         unchanged[name] = same_map(vm, snapshot)
     out["profiled"] = profiled
     out["map_unchanged"] = unchanged
+    out["esikf_bodies"] = cfg.lio.max_iterations
+    if dev.type == "cuda":
+        out.update(graph_row(state, vm, b, cfg, pipe.ext, dev, repeat))
     if dev.type == "cpu":
         out["note"] = ("CPU run: the profiler traces no device, so launches, "
                        "syncs, copies and busy_ms read 0")
     return out
+
+
+def graph_row(state, vm, b, cfg, ext, dev, repeat: int) -> dict:
+    """lio_step as the captured graph on a copy of the map (see the module
+    note): "lio_step_graph_ms" (least of ROUNDS rounds, each in
+    "lio_step_graph_rounds"), "lio_step_graph_profiled" (one call),
+    "lio_step_graph_nodes" (the graph's nodes by type, from the graph
+    itself: exact where the profiler may drop records) and
+    "graph_matches" (its first replay against lio_step on a copy of the
+    same map: state, world scan and map bit for bit)."""
+    m = vm.clone()
+    cap = CapturedLioStep(cfg, ext, dev)
+    cap(state, m, b)                      # the warm-up: eager, a real step
+    ref = m.clone()
+    st_e, _, world_e, _ = lio_step(state, ref, b, cfg, ext)
+    st_g, world_g, _ = cap(state, m, b)   # captured, then replayed
+    matches = (same_state(st_g, st_e) and same_map(m, ref)
+               and torch.equal(bits(world_g), bits(world_e)))
+    del ref
+    rounds = [wall_ms(lambda mm: cap(state, mm, b), [m] * (repeat + 1), dev)
+              for _ in range(ROUNDS)]
+    _, prof = profile_counts(lambda: cap(state, m, b))
+    return {"lio_step_graph_ms": min(rounds),
+            "lio_step_graph_rounds": rounds,
+            "lio_step_graph_profiled": prof,
+            "lio_step_graph_nodes": cap.graphs[0].nodes(),
+            "graph_matches": matches}
 
 
 def table(out: dict) -> list:
@@ -320,9 +348,11 @@ def table(out: dict) -> list:
     rows = [f"{'stage':<16} {'ms/call':>9} {'in seq':>8} {'launches':>8} "
             f"{'syncs':>6} {'copies':>6} {'busy ms':>8}"]
     seq = dict(out["in_sequence"], lio_step=out["in_sequence_sum_ms"])
-    for name in [*out["profiled"], "lio_step"]:
-        p = out["profiled"].get(name) or out["lio_step_profiled"]
-        ms = out["lio_step_ms" if name == "lio_step" else name]
+    whole = ["lio_step"] + (["lio_step_graph"] if "graph_matches" in out
+                            else [])
+    for name in [*out["profiled"], *whole]:
+        p = out["profiled"].get(name) or out[f"{name}_profiled"]
+        ms = out[f"{name}_ms" if name in whole else name]
         in_seq = f"{seq[name]:8.3f}" if name in seq else f"{'-':>8}"
         rows.append(f"{name:<16} {ms:9.3f} {in_seq} {p['launches']:8d} "
                     f"{p['syncs']:6d} {p['copies']:6d} {p['busy_ms']:8.3f}")
@@ -332,7 +362,13 @@ def table(out: dict) -> list:
                 f"{out['stages_sum_ms']:.3f} ms, in sequence "
                 f"{out['in_sequence_sum_ms']:.3f} ms, against lio_step "
                 f"{out['lio_step_ms']:.3f} ms; ESIKF iterations "
-                f"{out['esikf_iterations']} (each runs associate once)")
+                f"{out['esikf_iterations']} live of {out['esikf_bodies']} "
+                f"bodies (each runs associate once)")
+    if "graph_matches" in out:
+        rows.append(f"lio_step_graph: the captured step, called back to "
+                    f"back; first replay bit-identical to lio_step: "
+                    f"{out['graph_matches']}; the graph's nodes "
+                    f"{out['lio_step_graph_nodes']}")
     if "note" in out:
         rows.append(out["note"])
     return rows

@@ -59,7 +59,7 @@ def frame_stages(lio, mesh, bundle, cfg) -> dict:
 
     def s_lio():
         lio.state, lio.vm, got["world"], _ = lio_step(lio.state, lio.vm,
-                                                      bundle, cfg)
+                                                      bundle, cfg, lio.ext)
 
     def s_append():
         mesh.gm, got["slots"], got["smask"], _ = mesh.gm.append_frame(
@@ -91,7 +91,8 @@ def run_stages(cfg, scans, device="cuda", warmup: int = 3) -> dict:
     output plus "frames" (per frame the position and each stage's ms and
     pairs_argmin launches) and "pipes" (the LioPipeline and MeshPipeline)."""
     dev = resolve_device(device)
-    lio, mesh = LioPipeline(cfg, device=dev), MeshPipeline(cfg, device=dev)
+    lio = LioPipeline(cfg, device=dev, graph=False)  # stages split eagerly
+    mesh = MeshPipeline(cfg, device=dev)
     frames, profiled = [], {}
     for k, f in enumerate(scans):
         b = chip_smoke.bundle(f, cfg, dev)

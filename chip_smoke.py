@@ -38,20 +38,25 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
-                for warm-up plus N timed frames, its LIO half one captured
-                CUDA graph (frame 0 eager, frame 1 captured, then
-                replayed, as on every later path but the stage profilers'
-                and dist/); checks that the kernel ran on every frame with
-                active voxels and that both hash kernels and scatter_drop
+                for warm-up plus N timed frames, its LIO step and its mesh
+                step each one captured CUDA graph (frame 0 eager, frame 1
+                captured, then replayed, as on every later path but the
+                ablation's and the stage profilers' mesh step and dist/);
+                checks that pairs_argmin ran on the device (its own device
+                counter) on every frame with active voxels and that every
+                path kernel (pairs_argmin, both hash kernels, scatter_drop)
                 ran (as on every later path): each launched by its wrapper
                 and each run on the device, by the kernel's own device
                 counter, exactly the eager launches plus every replay of
-                the launches recorded into the graph (path_counts), that
+                the launches recorded into the graphs (path_counts), that
                 poses follow the simulator's ground truth, that triangles
                 exist and that a compaction fired; the probe, set_drop and
-                add_drop calls outside the graph (none during the capture)
-                are recorded on the compacting frames and the last; the
-                graph's nodes counted by type;
+                add_drop calls outside the graphs (none during a capture)
+                are recorded on the compacting frames and the last, and
+                those of the mesh step on the same frames from an eager
+                run of the mesh step over phase 4's world scans, which
+                must end bit for bit as phase 4's map (eager_mesh_calls);
+                the graphs' nodes counted by type;
  4b. hash path — every probe call of phase 4's compacting frames (the
                 mesh dedup and voxel inserts at the tables' fullest, the
                 27-neighbour lookups, the compaction's rebuild inserts) and
@@ -64,9 +69,9 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 tests hold against the JAX reference) agree;
   6. runtime  — ImMeshRuntime, the system's entry point, at the Avia
                 operating point (32,768-point scans, IMU on at 200 Hz,
-                LiDAR→IMU extrinsics) for 3 warm-up plus 30 timed frames;
-                checks pose, mesh accuracy, logs, PLY and checkpoint
-                round-trips;
+                LiDAR→IMU extrinsics) for 3 warm-up plus 30 timed frames,
+                its LIO and mesh steps captured; checks pose, mesh
+                accuracy, logs, PLY and checkpoint round-trips;
   7. audit    — the voxels re-meshed on the runtime's last frame go through
                 pairs_argmin in the path's chunks (bit parity, device time,
                 fill), the O(K⁴) incircle oracle delaunay_mask (the
@@ -160,9 +165,9 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 lio_step;
  16. graph    — the captured LIO step: the KITTI LioPipeline (phase 4's
                 3 + 40 scans) and the Avia ImMeshRuntime (3 + 30 frames,
-                LIO and mesh) run eagerly and captured from the same start,
-                in turns: state, pose, world scan, diag and every
-                plane-map tensor (and the Avia triangles) bit for bit on
+                LIO and mesh) run eagerly (graph=False) and captured from
+                the same start, in turns: state, pose, world scan, diag and
+                every plane-map tensor (and the Avia triangles) bit for bit on
                 every frame, both plane maps compacted to half their
                 voxels after GRAPH_COMPACT_AT (neither reaches its
                 high-water mark in these runs); ESIKF iterations equal, the
@@ -170,20 +175,37 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 max_iterations bodies ran live reported; ms a step eager
                 against captured; the KITTI graph's kernel, memcpy and
                 memset nodes and recorded kernel launches equal to phase
-                4's (whose recorders were on); one captured step under torch.profiler
-                (0 syncs); the masked form's dead work in device ms (an
-                ESIKF body after convergence, an empty refinement level);
+                4's (whose recorders were on); one captured step under
+                torch.profiler (0 syncs); the masked form's dead work in
+                device ms (an ESIKF body after convergence, an empty
+                refinement level);
                 then scatter_drop against its plain version on every
                 set_drop/add_drop call recorded in phase 4's compacting and
                 last frames and in the eager KITTI LIO's compacting and
                 last frames, and on random calls of every dtype and width
                 at twice the threads the card holds; 0 syncs a call; the
-                last frame's costliest call timed for the `kernels` line.
+                last frame's costliest call timed for the `kernels` line;
+ 17. mesh graph — the captured mesh step: the KITTI JointPipeline (phase
+                4's 3 + 40 scans, adaptive budget) and the Avia
+                ImMeshRuntime (3 + 30 frames), each run with the mesh step
+                eager and captured (the LIO step captured in both) from the
+                same start, in turns: point map, store, work list, active
+                count, every drop counter, filter state and plane map bit
+                for bit on every frame, the plane maps compacted to half
+                after GRAPH_COMPACT_AT and the KITTI mesh maps on their own
+                (Avia: both maps forced after GRAPH_AVIA_COMPACT_AT); the
+                compaction and hi/lo budget frames equal; the KITTI mesh
+                graph's kernel, memcpy and memset nodes and recorded
+                launches equal to phase 4's; one mesh step of each under
+                torch.profiler (0 syncs captured); the dead chunks the
+                captured step ran (chunks with no active voxel, which the
+                eager step skips) and the device ms of one; ms a frame with
+                the mesh eager against captured.
 
-The line before the last is a JSON object describing every kernel (for the
-hash and scatter kernels "launches" by the wrapper and "device_runs" by the
-kernel's device counter, on the main path and on each other path); the last
-line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object describing every kernel (for
+pairs_argmin and the hash and scatter kernels "launches" by the wrapper and
+"device_runs" by the kernel's device counter, on the main path and on each
+other path); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -350,10 +372,13 @@ HASH_SHORT_PROBE = 1
 GRAPH_COMPACT_AT = (15, 30)
 GRAPH_AVIA_COMPACT_AT = 15
 GRAPH_AVIA_FRAMES = 30
-# the hash and scatter kernels' launches on each path, by path (path_counts)
+# the path kernels' launches and device runs on each path, by path
+# (path_counts)
 PATH_COUNTS = {}
-# the kernels whose launches every path counts (path_counts)
-PATH_KERNELS = ("hash_lookup", "hash_insert", "scatter_drop")
+# the kernels whose launches every path counts (path_counts); the LIO-only
+# paths count all but pairs_argmin
+PATH_KERNELS = ("pairs_argmin", "hash_lookup", "hash_insert", "scatter_drop")
+LIO_KERNELS = PATH_KERNELS[1:]
 
 
 def log(msg: str) -> None:
@@ -793,26 +818,40 @@ def path_now() -> dict:
     wrappers (launch_counts) and "runs" on the device, eager and replayed
     in CUDA graphs, from the kernels' own device counters (synchronises)."""
     from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
     launches = launch_counts()
-    runs = {**hp.runs(), "scatter_drop": sd.runs()}
+    runs = {"pairs_argmin": pk.runs(), **hp.runs(),
+            "scatter_drop": sd.runs()}
     return {"launches": {k: launches[k] for k in PATH_KERNELS},
             "runs": {k: runs[k] for k in PATH_KERNELS}}
 
 
-def path_counts(path: str, counts=None, graphs=None) -> dict:
-    """The PATH_KERNELS' counts on `path` (path_now(), or a rank's),
-    added up in PATH_COUNTS.  Fails if a kernel was never launched there
-    or never ran on the device, or if the device counted other runs than
-    the launches plus the replays of the launches recorded into the path's
-    captured LIO graphs (`graphs`, lio/captured.py's _Graph; () where the
-    path captures none; None where it is not at hand, and then the runs
-    must be at least the launches)."""
+def pipe_graphs(p) -> list:
+    """The captured graphs (utils/graphs.py's Graph) of a JointPipeline's
+    or an ImMeshRuntime's LIO and mesh steps."""
+    graphs = list(p.lio.captured.graphs)
+    if p.mesh is not None and p.mesh.captured is not None:
+        graphs += p.mesh.captured.graphs
+    return graphs
+
+
+def path_counts(path: str, counts=None, graphs=None,
+                kernels=PATH_KERNELS) -> dict:
+    """The counts of `kernels` on `path` (path_now(), or a rank's), added
+    up in PATH_COUNTS.  Fails if a kernel was never launched there or
+    never ran on the device, or if the device counted other runs than the
+    launches plus the replays of the launches recorded into the path's
+    captured graphs (`graphs`, utils/graphs.py's Graph: the LIO and mesh
+    steps'; () where the path captures none; None where they are not at
+    hand, and then the runs must be at least the launches)."""
     n = path_now() if counts is None else counts
-    for k in PATH_KERNELS:
+    n = {part: {k: n[part][k] for k in kernels}
+         for part in ("launches", "runs")}
+    for k in kernels:
         launched, ran = n["launches"][k], n["runs"][k]
         want = (launched if graphs is None else launched + sum(
-            g.replays * g.captured[k] for g in graphs))
+            g.replays * g.captured.get(k, 0) for g in graphs))
         if launched == 0 or ran == 0 or ran < want or (
                 graphs is not None and ran != want):
             raise AssertionError(
@@ -1182,11 +1221,11 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
     reset_counts()
     ms, launches, errs, actives = [], [], [], []
-    diags, positions, scans = [], [], []
+    diags, positions, scans, worlds = [], [], [], []
     probes = {}  # the probe calls of each compacting frame and of the last
     scatters = {}  # and their set_drop / add_drop calls
     for k, (f, b) in enumerate(zip(gt, frames)):
-        before = pk.launches
+        before = pk.runs()
         comp_before = pipe.mesh.n_compactions + pipe.lio.n_compactions
         t1 = time.perf_counter()
         ((world, diag), calls), scat = record_scatters(
@@ -1208,10 +1247,10 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
             raise AssertionError(f"frame {k}: world scan shape {world.shape}")
         err = float(np.linalg.norm(R0 @ pos + p0 - f.gt_pos))
         n_act = int(diag["n_active_voxels"])
-        fired = pk.launches - before
+        fired = pk.runs() - before  # the kernel's runs on the device
         if n_act > 0 and fired == 0:
             raise AssertionError(
-                f"frame {k}: {n_act} active voxels but no pairs_argmin launch")
+                f"frame {k}: {n_act} active voxels but no pairs_argmin run")
         if err > POSE_TOL_M:
             raise AssertionError(
                 f"frame {k}: pose {err:.3f} m from ground truth "
@@ -1220,6 +1259,8 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         actives.append(n_act)
         launches.append(fired)
         positions.append(pos)
+        # the mesh step's inputs, for its eager run (eager_mesh_calls)
+        worlds.append((world.clone(), b.mask, pipe.state.pos.clone()))
         if k < DIST_EXACT_FRAMES:  # phase 13b meshes these scans again
             scans.append((world.cpu().numpy(), b.mask.cpu().numpy(),
                           pipe.state.pos.cpu().numpy()))
@@ -1227,12 +1268,11 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
             ms.append(dt)
             diags.append({key: int(val) for key, val in diag.items()})
         log(f"[main] frame {k:2d}: {dt:8.1f} ms, pose err {err:.3f} m, "
-            f"{n_act} active voxels, {fired} kernel launches, backlog "
+            f"{n_act} active voxels, {fired} pairs_argmin runs, backlog "
             f"{int(diag['drop_deferred'])}")
-    total_launches = pk.launches
-    graph = pipe.lio.captured.graphs
-    hashes = path_counts("main", graphs=graph)
-    nodes = graph[0].nodes()
+    (graph,), (mgraph,) = pipe.lio.captured.graphs, pipe.mesh.captured.graphs
+    hashes = path_counts("main", graphs=pipe_graphs(pipe))
+    nodes, mnodes = graph.nodes(), mgraph.nodes()
 
     n_tris = int(pipe.store.n_triangles())
     n_pts = int(pipe.mesh.gm.n_points())
@@ -1241,8 +1281,6 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         raise AssertionError("no live triangles after the run")
     if n_comp < 1:
         raise AssertionError("no compaction fired during the run")
-    if total_launches == 0:
-        raise AssertionError("pairs_argmin was never launched on the main path")
     ids = pipe.store.tri_ids.reshape(-1, 3)
     ids = ids[(ids >= 0).all(-1)]
     if int(ids.max()) >= n_pts:
@@ -1260,30 +1298,66 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     timed_launches = sum(launches[warmup:])
     share = kernel_ms * timed_launches / sum(ms)
     log(f"[main] {n_frames} timed frames: {med:.1f} ms/frame median, "
-        f"{p90:.1f} ms p90; pairs_argmin {timed_launches} launches "
+        f"{p90:.1f} ms p90; pairs_argmin {timed_launches} runs "
         f"(~{100 * share:.2f} % of frame time at the phase-2 kernel time); "
         f"pose err max {max(errs):.3f} m, last {errs[-1]:.3f} m")
     log("[main] over all " + str(len(gt)) + " frames: " + ", ".join(
         f"{k} {n} wrapper launches and {hashes['runs'][k]} runs on the "
         f"device ({hashes['runs'][k] / len(gt):.1f} a frame, "
-        f"{graph[0].captured[k]} in each replay)"
+        f"{graph.captured.get(k, 0)} in each replay of the LIO graph, "
+        f"{mgraph.captured.get(k, 0)} in each of the mesh graph)"
         for k, n in hashes["launches"].items()))
     log(f"[main] live triangles {n_tris}, map points {n_pts}, mesh voxels "
         f"{int(pipe.mesh.gm.vox.occupancy())}, LIO voxels "
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
         f"(mesh {pipe.mesh.n_compactions}, lio {pipe.lio.n_compactions}, "
         f"{pipe.mesh.compact_ms + pipe.lio.compact_ms:.1f} ms), drops {drops}")
-    log(f"[main] the LIO step ran as one captured CUDA graph: "
-        f"{pipe.lio.captured.replays} replays of {len(gt)} frames (frame 0 "
-        f"eager, the warm-up), the graph's nodes {nodes}; probe, set_drop "
-        f"and add_drop calls outside it recorded (copies of the tables and "
-        f"targets they found, taken in every frame's time, none inside the "
-        f"capture) and kept for phases 4b and 16: frames {sorted(probes)}, "
+    log(f"[main] the LIO step and the mesh step each ran as one captured "
+        f"CUDA graph: {pipe.lio.captured.replays} and "
+        f"{pipe.mesh.captured.replays} replays of {len(gt)} frames (frame 0 "
+        f"eager, the warm-up), the graphs' nodes {nodes} and {mnodes}; "
+        f"probe, set_drop and add_drop calls outside them recorded (copies "
+        f"of the tables and targets they found, taken in every frame's "
+        f"time, none inside a capture)")
+    mesh_probes, mesh_scatters = eager_mesh_calls(
+        cfg, dev, worlds, sorted(probes), pipe.mesh)
+    for k in probes:
+        probes[k] += mesh_probes[k]
+        scatters[k] += mesh_scatters[k]
+    log(f"[main] kept for phases 4b and 16: frames {sorted(probes)}, "
+        f"{sum(map(len, probes.values()))} probes and "
         f"{sum(map(len, scatters.values()))} scatters")
-    return total_launches, {"gt": gt, "pos": positions, "scans": scans,
-                            "R0": R0, "p0": p0, "graph_nodes": nodes,
-                            "graph_captured": graph[0].captured}, \
-        probes, scatters
+    return {"gt": gt, "pos": positions, "scans": scans, "R0": R0, "p0": p0,
+            "graph_nodes": nodes, "graph_captured": graph.captured,
+            "mesh_graph_nodes": mnodes,
+            "mesh_graph_captured": mgraph.captured}, probes, scatters
+
+
+def eager_mesh_calls(cfg, dev, worlds, at, mesh_ref):
+    """Phase 4's mesh steps again, eagerly (a MeshPipeline with
+    graph=False fed phase 4's world scans, masks and positions, its
+    compactions included), with every probe and scatter call of the steps
+    of the frames in `at` recorded: a replay of phase 4's captured mesh
+    step calls no wrapper to record.  Its map and store must end bit for
+    bit as phase 4's (`mesh_ref`).  Returns the calls by frame, (probes,
+    scatters)."""
+    from immesh_tpu_torch.mesh.pipeline import MeshPipeline
+    mesh = MeshPipeline(cfg, device=dev, graph=False)
+    probes, scatters = {}, {}
+    for k, (w, m, p) in enumerate(worlds):
+        if k in at:
+            (_, probes[k]), scatters[k] = record_scatters(
+                lambda: record_probes(lambda: mesh.advance(w, m, p)))
+        else:
+            mesh.advance(w, m, p)
+        mesh.maybe_compact(p)
+    bad = mesh_differs(mesh, mesh_ref)
+    if bad or mesh.n_compactions != mesh_ref.n_compactions:
+        raise AssertionError(f"main: the eager mesh run parts from phase "
+                             f"4's captured one in {bad} (compactions "
+                             f"{mesh.n_compactions}, "
+                             f"{mesh_ref.n_compactions})")
+    return probes, scatters
 
 
 # ---------------------------------------------------------------------------
@@ -1409,7 +1483,6 @@ def phase_runtime(dev, n_frames: int, warmup: int):
     from immesh_tpu_torch.eval.ate import evaluate_ate, from_rows, load_tum
     from immesh_tpu_torch.eval.mesh_quality import vertex_surface_distance
     from immesh_tpu_torch.kernels import incircle as ik
-    from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
     from immesh_tpu_torch.runtime.export import _leaves, load_ply
 
@@ -1455,8 +1528,9 @@ def phase_runtime(dev, n_frames: int, warmup: int):
             f"mesh {st['mesh_ms']:6.1f}), pose err {err:.4f} m, "
             f"{int(st['n_active_voxels'])} active voxels, "
             f"{int(st['n_effective'])} matches")
-    launches = pk.launches
-    path_counts("runtime", graphs=rt.lio.captured.graphs)
+    # pairs_argmin's runs on the device: the mesh step is a captured graph
+    launches = path_counts("runtime", graphs=pipe_graphs(rt))["runs"][
+        "pairs_argmin"]
     if launches == 0:
         raise AssertionError("pairs_argmin was never launched by the runtime")
     if ik.launches != 0:
@@ -1512,7 +1586,7 @@ def phase_runtime(dev, n_frames: int, warmup: int):
     log(f"[runtime] {n_frames} timed frames: {med:.1f} ms/frame median, "
         f"{p90:.1f} ms p90 (lio {statistics.median(lio_ms):.1f} ms, mesh "
         f"{statistics.median(mesh_ms):.1f} ms median, runtime Timer); "
-        f"pairs_argmin {launches} launches; pose err max {max(errs):.4f} m, "
+        f"pairs_argmin {launches} runs; pose err max {max(errs):.4f} m, "
         f"last {errs[-1]:.4f} m; ATE {ate['ate_rmse']:.4f} m RMSE over "
         f"{ate['n_pairs']} frames")
     log(f"[runtime] live triangles {n_tris}, mesh vertices {len(verts)}, "
@@ -1653,7 +1727,6 @@ def phase_ba(dev, n_frames: int, warmup: int):
     problem on the CPU, the card's solution and the solve's arguments)."""
     from immesh_tpu_torch.dist import window_ba
     from immesh_tpu_torch.eval.ate import evaluate_ate, from_rows
-    from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.lio import window
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
 
@@ -1722,8 +1795,9 @@ def phase_ba(dev, n_frames: int, warmup: int):
                if st["ba_cost"] is not None else ""))
     window.solve_window = solve_on_card
     rt.ba.refine = refine
-    launches = pk.launches
-    path_counts("ba", graphs=rt.lio.captured.graphs)
+    # pairs_argmin's runs on the device: the mesh step is a captured graph
+    launches = path_counts("ba", graphs=pipe_graphs(rt))["runs"][
+        "pairs_argmin"]
     if rt.ba.n_refinements < 3:
         raise AssertionError(f"{rt.ba.n_refinements} window refinements "
                              "(at least 3 expected)")
@@ -1759,7 +1833,7 @@ def phase_ba(dev, n_frames: int, warmup: int):
         f"{[k for k, _ in costs]}; pose err max {max(errs):.4f} m (frame "
         f"{int(np.argmax(errs))}; the JAX reference {BA_REF_POSE_M} m), "
         f"last {errs[-1]:.4f} m; ATE "
-        f"{ate['ate_rmse']:.4f} m RMSE; pairs_argmin {launches} launches; "
+        f"{ate['ate_rmse']:.4f} m RMSE; pairs_argmin {launches} runs; "
         f"live triangles {int(rt.mesh.store.n_triangles())}")
     return rt, sim, n_all, frames[n_all:], launches, (prob.to("cpu"), sol, kw)
 
@@ -2112,7 +2186,6 @@ def phase_replay_kitti(dev, n_frames: int, warmup: int):
     from immesh_tpu_torch.frontend.preprocess import (
         Preprocessor, kitti_sequence, read_kitti_bin)
     from immesh_tpu_torch.frontend.sync import PacketSynchronizer
-    from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
 
     base = kitti_config()
@@ -2162,8 +2235,9 @@ def phase_replay_kitti(dev, n_frames: int, warmup: int):
 
     reset_counts()
     outs = rt.run(bundles())
-    launches = pk.launches
-    path_counts("kitti_replay", graphs=rt.lio.captured.graphs)
+    # pairs_argmin's runs on the device: the mesh step is a captured graph
+    launches = path_counts("kitti_replay", graphs=pipe_graphs(rt))["runs"][
+        "pairs_argmin"]
     rt.close()
     R0, p0 = sim.traj.pose(0.0)
     errs = [float(np.linalg.norm(R0 @ o["pos"].astype(np.float64) + p0 - g))
@@ -2217,7 +2291,7 @@ def phase_replay_kitti(dev, n_frames: int, warmup: int):
         f"ms/frame median ({min(host[warmup:]):.1f}-"
         f"{max(host[warmup:]):.1f}), the runtime's frame {med:.1f} ms "
         f"median, p90 {np.percentile(frame_ms[warmup:], 90):.1f} ms; "
-        f"pairs_argmin {launches} launches; pose err max {max(errs):.3f} m, "
+        f"pairs_argmin {launches} runs; pose err max {max(errs):.3f} m, "
         f"last {errs[-1]:.3f} m; ATE {ate['ate_rmse']:.4f} m RMSE over "
         f"{ate['n_pairs']} frames; live triangles "
         f"{int(rt.mesh.store.n_triangles())}, map points "
@@ -2243,7 +2317,6 @@ def phase_replay_avia(dev, n_frames: int, warmup: int, on_frame=None):
     from immesh_tpu_torch import interop
     from immesh_tpu_torch.frontend.preprocess import decode_raw_buffer
     from immesh_tpu_torch.frontend.sync import PacketSynchronizer
-    from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
 
     cfg = avia_config()
@@ -2320,8 +2393,9 @@ def phase_replay_avia(dev, n_frames: int, warmup: int, on_frame=None):
         stamp += period
         if on_frame is not None:
             on_frame(k, rt)
-    launches = pk.launches
-    path_counts("avia_wire", graphs=rt.lio.captured.graphs)
+    # pairs_argmin's runs on the device: the mesh step is a captured graph
+    launches = path_counts("avia_wire", graphs=pipe_graphs(rt))["runs"][
+        "pairs_argmin"]
     if launches == 0:
         raise AssertionError("pairs_argmin was never launched on the Avia "
                              "wire path")
@@ -2388,7 +2462,7 @@ def phase_replay_avia(dev, n_frames: int, warmup: int, on_frame=None):
         f" ms/frame median ({min(host[warmup:]):.1f}-"
         f"{max(host[warmup:]):.1f}), the runtime's frame {med:.1f} ms "
         f"median, p90 {np.percentile(frame_ms[warmup:], 90):.1f} ms; "
-        f"pairs_argmin {launches} launches; pose err max {max(errs):.4f} m, "
+        f"pairs_argmin {launches} runs; pose err max {max(errs):.4f} m, "
         f"last {errs[-1]:.4f} m; live triangles "
         f"{int(rt.mesh.store.n_triangles())}")
     log("[replay] Avia host ms per frame by stage (median of 5): "
@@ -3357,6 +3431,29 @@ def lio_differs(a_state, b_state, a_vm, b_vm, extra=()) -> list:
     return [n for n, x, y in [*pairs, *extra] if not same_bits(x, y)]
 
 
+def mesh_differs(a, b, extra=()) -> list:
+    """Names of the point-map and store tensors of MeshPipelines a and b
+    (utils/graphs.py's named_tensors: the hash tables' keys and fp
+    included), and of the extra (name, x, y) pairs, whose bits differ."""
+    from immesh_tpu_torch.utils.graphs import named_tensors
+    pairs = [(n, x, y) for (n, x), (_, y) in zip(
+        named_tensors({"gm": a.gm, "store": a.store}),
+        named_tensors({"gm": b.gm, "store": b.store}))]
+    return [n for n, x, y in [*pairs, *extra] if not same_bits(x, y)]
+
+
+def compact_mesh_half(mesh, pos) -> None:
+    """Compact a MeshPipeline's point map to half its points and voxels
+    around pos and remap its store, as MeshPipeline.maybe_compact does past
+    its high-water mark."""
+    from immesh_tpu_torch.mesh.pipeline import _compact_mesh, _keep_radius_mesh
+    gm = mesh.gm
+    low_p = max(1, int(gm.n_points()) // 2)
+    low_v = max(1, int(gm.vox.occupancy()) // 2)
+    _compact_mesh(gm, mesh.store, pos, _keep_radius_mesh(
+        gm, pos, low_p, low_v, gm.cfg.local_map_radius))
+
+
 def compact_half(vm, pos) -> None:
     """Compact the plane map to half its live voxels around pos, as
     LioPipeline.maybe_compact does past its high-water mark."""
@@ -3686,7 +3783,7 @@ def phase_graph(dev, main_info, scatters) -> dict:
         dev, cfg, frames, 3, GRAPH_COMPACT_AT,
         record_at=(*GRAPH_COMPACT_AT, last))
     (graph,) = cap.captured.graphs
-    path_counts("graph_kitti", counts, graphs=[graph])
+    path_counts("graph_kitti", counts, graphs=[graph], kernels=LIO_KERNELS)
     nodes = graph.nodes()
     # launches and copies: a recorder's copy inside phase 4's capture would
     # add memcpy (or copy-kernel) nodes.  Other node types are left out: a
@@ -3742,7 +3839,7 @@ def phase_graph(dev, main_info, scatters) -> dict:
     arows, acounts, (aeager, acap), _ = run_lio_pair(
         dev, acfg, aframes, 3, (GRAPH_AVIA_COMPACT_AT,), static=static,
         runtime=True)
-    path_counts("graph_avia", acounts, graphs=acap.lio.captured.graphs)
+    path_counts("graph_avia", acounts, graphs=pipe_graphs(acap))
     avia = graph_summary("Avia ImMeshRuntime (LIO and mesh)", arows, 3, acfg)
     _, aprof = profile_counts(lambda: acap.lio.advance(aframes[-1]))
     if aprof["syncs"] != 0:
@@ -3773,6 +3870,258 @@ def phase_graph(dev, main_info, scatters) -> dict:
             "graph": {"kitti": kitti, "avia": avia,
                       "kitti_profiled": prof, "avia_profiled": aprof,
                       "dead_kitti": dead, "dead_avia": adead}}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the captured mesh step against the eager one
+# ---------------------------------------------------------------------------
+def dead_chunks(smask, chunk: int) -> int:
+    """Chunks of the work list with no active voxel: the chunks the eager
+    step skips and the captured step runs (an active voxel always pulls
+    its own points)."""
+    return sum(not bool(smask[c:c + chunk].any())
+               for c in range(0, smask.numel(), chunk))
+
+
+def empty_chunk_ms(mesh, pos) -> float:
+    """Device busy ms of one chunk body of the mesh step whose voxels have
+    no active point (the masked form's dead work a chunk), on the map as
+    it is, under torch.profiler, least of 3; its result must be the empty
+    one, bit for bit."""
+    from immesh_tpu_torch.mesh import triangles as tri
+    from immesh_tpu_torch.utils.timers import profile_counts
+    mc = mesh.gm.cfg
+    slots = mesh.last_active[0][:mc.mesh_chunk]
+    pull = mesh.gm.pull_neighborhood(
+        slots, torch.zeros(slots.shape, dtype=torch.bool, device=pos.device))
+    key = mesh.gm.vox.keys[slots.clamp(min=0).long(), :3]
+    args = (pull["pts"], pull["pts_sm"], pull["mask"], pull["idx"], key,
+            pos, mc)
+    got = tri._chunk_impl(*args)
+    want = tri._empty(slots.shape[0], mc.tris_per_voxel, pos.device)
+    if not all(same_bits(a, b) for a, b in zip(got, want)):
+        raise AssertionError("mesh graph: an empty chunk's body did not give "
+                             "the empty result")
+    return min(profile_counts(lambda: tri._chunk_impl(*args))[1]["busy_ms"]
+               for _ in range(3))
+
+
+def run_mesh_pair(dev, make, frames, compact_at, mesh_compact_at):
+    """Two pipelines from make() (JointPipelines or ImMeshRuntimes, the
+    LIO step captured in both), the first given an eager mesh step (a
+    MeshPipeline with graph=False in place of its own, before any step),
+    stepped in turns over `frames`.  Every frame: the point map, the store,
+    the work list, the active count and every drop counter, the filter
+    state and the plane map bit for bit, both maps' compaction counts and
+    (JointPipeline) the hi/lo budget equal; a JointPipeline is primed for
+    the hi budget after frame 0, as phase 4's.  After the frames in
+    `compact_at` both compact their plane map to half, after those in
+    `mesh_compact_at` their mesh map.  Returns per-frame rows,
+    the captured pipeline's counts (path_now, its steps only) and the two
+    pipelines."""
+    import immesh_tpu_torch.runtime.joint as joint
+    from immesh_tpu_torch.mesh.pipeline import MeshPipeline
+    eager, cap = make(), make()
+    eager.mesh = MeshPipeline(eager.cfg, device=dev, graph=False)
+    runtime = not isinstance(cap, joint.JointPipeline)
+    chunk = cap.cfg.mesh.mesh_chunk
+    counts = {part: dict.fromkeys(PATH_KERNELS, 0)
+              for part in ("launches", "runs")}
+    budgets, half = [], joint._mesh_half
+
+    def recorded(*args):
+        budgets.append(args[-1].mesh.active_voxels_per_frame)
+        return half(*args)
+
+    def run(p, k, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if runtime:
+            n = p.process_frame(b, t=0.1 * k)["n_active_voxels"]
+            diag = dict(p.mesh.last_drops, n_active_voxels=n)
+        else:
+            _, diag = p.step(b)
+        torch.cuda.synchronize()
+        return diag, 1e3 * (time.perf_counter() - t0)
+
+    def differs(what):
+        slots = [(n, x, y) for n, x, y in zip(
+            ("slots", "smask"), eager.mesh.last_active, cap.mesh.last_active)]
+        bad = mesh_differs(eager.mesh, cap.mesh, slots) + lio_differs(
+            eager.lio.state, cap.lio.state, eager.lio.vm, cap.lio.vm)
+        comp = [(p.lio.n_compactions, p.mesh.n_compactions)
+                for p in (eager, cap)]
+        if bad or comp[0] != comp[1]:
+            raise AssertionError(f"mesh graph: frame {k}: {what} the "
+                                 f"captured and the eager pipeline differ "
+                                 f"in {bad}, compactions {comp}")
+        return comp[1]
+
+    rows = []
+    joint._mesh_half = recorded
+    try:
+        for k, b in enumerate(frames):
+            de, ms_e = run(eager, k, b)
+            before = path_now()
+            dc, ms_c = run(cap, k, b)
+            after = path_now()
+            for part, n in counts.items():
+                for name in n:
+                    n[name] += after[part][name] - before[part][name]
+            bad = [n for n in de if not same_bits(de[n], dc[n])]
+            if bad:
+                raise AssertionError(f"mesh graph: frame {k}: diag {bad}")
+            comp = differs("after the step,")
+            if k == 0 and not runtime:
+                for p in (eager, cap):
+                    p.prime_adaptive()
+            if k in compact_at or k in mesh_compact_at:
+                for p in (eager, cap):
+                    if k in compact_at:
+                        compact_half(p.lio.vm, p.lio.state.pos)
+                    if k in mesh_compact_at:
+                        compact_mesh_half(p.mesh, p.lio.state.pos)
+                differs("after the forced compaction,")
+            rows.append({"ms_eager": ms_e, "ms_graph": ms_c,
+                         "compactions": comp,
+                         "dead_chunks": dead_chunks(cap.mesh.last_active[1],
+                                                    chunk)})
+    finally:
+        joint._mesh_half = half
+    if budgets[0::2] != budgets[1::2]:
+        raise AssertionError(f"mesh graph: hi/lo budgets differ: eager "
+                             f"{budgets[0::2]}, captured {budgets[1::2]}")
+    for r, n in zip(rows, budgets[1::2]):
+        r["budget"] = n
+    if cap.mesh.captured.replays != len(frames) - 1:
+        raise AssertionError(f"mesh graph: {cap.mesh.captured.replays} "
+                             f"replays of {len(frames)} frames")
+    return rows, counts, (eager, cap)
+
+
+def mesh_graph_summary(name, rows, warmup, eager, cap, frame) -> dict:
+    """Median and p90 ms a frame with the mesh eager and captured over the
+    timed frames; the frames where a map compacted and where the budget
+    went hi; the dead chunks; one mesh step of each pipeline again on
+    `frame`'s inputs (world scan, mask, position) under torch.profiler (0
+    syncs in the captured one); the graph's nodes."""
+    from immesh_tpu_torch.utils.timers import profile_counts
+    t = rows[warmup:]
+    out = {f"frame_{k}_{q}": (statistics.median if q == "median" else
+                              lambda v: float(np.percentile(v, 90)))(
+                                  [r[f"ms_{k}"] for r in t])
+           for k in ("eager", "graph") for q in ("median", "p90")}
+    comp = [r["compactions"] for r in rows]
+    out["lio_compaction_frames"] = [
+        k for k in range(1, len(rows)) if comp[k][0] > comp[k - 1][0]]
+    out["mesh_compaction_frames"] = [
+        k for k in range(1, len(rows)) if comp[k][1] > comp[k - 1][1]]
+    out["hi_budget_frames"] = [k for k, r in enumerate(rows)
+                               if r.get("budget", 0)
+                               > cap.cfg.mesh.active_voxels_per_frame]
+    out["dead_chunks"] = sum(r["dead_chunks"] for r in rows)
+    (g,) = cap.mesh.captured.graphs
+    out["nodes"], out["captured"] = g.nodes(), g.captured
+    prof = {}
+    for what, p in (("eager", eager), ("captured", cap)):
+        _, prof[what] = profile_counts(lambda: p.mesh.advance(*frame))
+    if prof["captured"]["syncs"] != 0:
+        raise AssertionError(f"mesh graph: {name}: the captured mesh step "
+                             f"waited on the card: {prof['captured']}")
+    out["profiled"] = prof
+    log(f"[mesh graph] {name}: {len(rows)} frames ({warmup} warm-up), eager "
+        f"and captured mesh step bit-identical every frame; ms a frame with "
+        f"the mesh eager {out['frame_eager_median']:.2f} median / "
+        f"{out['frame_eager_p90']:.2f} p90, captured "
+        f"{out['frame_graph_median']:.2f} / {out['frame_graph_p90']:.2f}; "
+        f"compactions (plane map / mesh map) after frames "
+        f"{out['lio_compaction_frames']} / {out['mesh_compaction_frames']}, "
+        f"hi budget on frames {out['hi_budget_frames']}; {out['dead_chunks']} "
+        f"dead chunks run; the graph's nodes {out['nodes']}, its kernel "
+        f"launches {g.captured}; one mesh step under torch.profiler: eager "
+        f"{prof['eager']}, captured {prof['captured']}")
+    return out
+
+
+def phase_mesh_graph(dev, main_info) -> dict:
+    """Phase 17.  The KITTI JointPipeline (phase 4's 3 + 40 scans, its
+    adaptive budget) and the Avia ImMeshRuntime (3 + 30 frames), each with
+    the mesh step eager and captured from the same start, in turns
+    (run_mesh_pair), the plane maps compacted to half after
+    GRAPH_COMPACT_AT and the KITTI mesh maps on their own (Avia: both maps
+    forced after GRAPH_AVIA_COMPACT_AT); the KITTI mesh graph's
+    kernel, memcpy and memset nodes and recorded launches equal to phase
+    4's; 0 syncs in a captured mesh step; the dead chunks the captured
+    step ran and the device ms of one."""
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
+    from immesh_tpu_torch.runtime.joint import JointPipeline
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    cfg = kitti_config()
+    gt = main_info["gt"]
+    frames = [bundle(f, cfg, dev) for f in gt]
+
+    def make_joint():
+        return JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
+
+    reset_counts()
+    # the plane map compacted by force (it stays below its high-water
+    # mark), the mesh map on its own (twice in phase 4)
+    rows, counts, (eager, cap) = run_mesh_pair(dev, make_joint, frames,
+                                               GRAPH_COMPACT_AT, ())
+    path_counts("mesh_graph_kitti", counts, graphs=pipe_graphs(cap))
+    (g,) = cap.mesh.captured.graphs
+    same = ("kernel", "memcpy", "memset")
+    nodes = g.nodes()
+    if [nodes[k] for k in same] != [main_info["mesh_graph_nodes"][k]
+                                    for k in same] \
+            or g.captured != main_info["mesh_graph_captured"]:
+        raise AssertionError(
+            f"mesh graph: the KITTI mesh graph holds {nodes} nodes and "
+            f"{g.captured} kernel launches, phase 4's "
+            f"{main_info['mesh_graph_nodes']} and "
+            f"{main_info['mesh_graph_captured']}")
+    last = (frames[-1].mask, cap.lio.state.pos)
+    world = cap.lio.state.transform_points(frames[-1].pts)
+    kitti = mesh_graph_summary("KITTI JointPipeline", rows, 3, eager, cap,
+                               (world, *last))
+    if not kitti["mesh_compaction_frames"]:
+        raise AssertionError("mesh graph: the KITTI mesh map never "
+                             "compacted on its own")
+    kitti["empty_chunk_ms"] = empty_chunk_ms(cap.mesh, cap.lio.state.pos)
+    R0, p0 = main_info["R0"], main_info["p0"]
+    err = float(np.linalg.norm(R0 @ cap.lio.state.pos.cpu().numpy() + p0
+                               - gt[-1].gt_pos))
+    if err > POSE_TOL_M:
+        raise AssertionError(f"mesh graph: KITTI pose {err:.3f} m from "
+                             f"ground truth (limit {POSE_TOL_M} m)")
+    log(f"[mesh graph] KITTI: {smi}; one empty chunk "
+        f"{kitti['empty_chunk_ms']:.3f} ms busy; pose err {err:.3f} m")
+    del eager, cap
+
+    acfg = avia_config()
+    sim = make_avia_sim(acfg)
+    static = sim.static_imu(100)  # drawn first, as the demo does
+    aframes = [bundle(sim.frame(k), acfg, dev)
+               for k in range(3 + GRAPH_AVIA_FRAMES)]
+
+    def make_runtime():
+        rt = ImMeshRuntime(acfg, device=dev)
+        rt.static_init(*static)
+        return rt
+
+    reset_counts()
+    arows, acounts, (aeager, acap) = run_mesh_pair(
+        dev, make_runtime, aframes, (GRAPH_AVIA_COMPACT_AT,),
+        (GRAPH_AVIA_COMPACT_AT,))
+    path_counts("mesh_graph_avia", acounts, graphs=pipe_graphs(acap))
+    world = acap.lio.state.transform_points(aframes[-1].pts)
+    avia = mesh_graph_summary("Avia ImMeshRuntime", arows, 3, aeager, acap,
+                              (world, aframes[-1].mask, acap.lio.state.pos))
+    avia["empty_chunk_ms"] = empty_chunk_ms(acap.mesh, acap.lio.state.pos)
+    log(f"[mesh graph] Avia: one empty chunk {avia['empty_chunk_ms']:.3f} ms "
+        f"busy; phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return {"kitti": kitti, "avia": avia}
 
 
 def main() -> int:
@@ -3808,45 +4157,41 @@ def main() -> int:
     phase_ints(dev)
     sim, gt = kitti_scans(3 + args.frames)
     hash_err = phase_hash(dev, gt)
-    pairs["launches"], main_info, probes, scatters = phase_main(
-        dev, sim, gt, 3, pairs["ms"])
+    main_info, probes, scatters = phase_main(dev, sim, gt, 3, pairs["ms"])
     hashes = phase_hash_path(dev, probes, hash_err)
     del probes
     phase_parity(dev)
     rt = phase_runtime(dev, AVIA_FRAMES, 3)
-    from immesh_tpu_torch.kernels import pairs_argmin as pk
-    pairs["launches_runtime"] = pk.launches  # counted from 0 by phase 6
     incircle["launches"] = phase_audit(dev, rt)
     del rt
-    rt, sim, n_before, frames, pairs["launches_ba"], window = phase_ba(
-        dev, BA_FRAMES, 3)
+    rt, sim, n_before, frames, _, window = phase_ba(dev, BA_FRAMES, 3)
     phase_ba_ab(dev)
     phase_render(dev, rt, sim, n_before, frames)
     del rt
     phase_frontend()
-    pairs["launches_kitti_replay"] = phase_replay_kitti(
-        dev, REPLAY_FRAMES, 3)["launches"]
+    phase_replay_kitti(dev, REPLAY_FRAMES, 3)
     tex = TexturePhase(dev, AVIA_FRAMES + 3)
-    rt, _, R_align, p0, avia = phase_replay_avia(dev, AVIA_FRAMES, 3,
+    rt, _, R_align, p0, _ = phase_replay_avia(dev, AVIA_FRAMES, 3,
                                                  on_frame=tex.on_frame)
-    pairs["launches_avia_wire"] = avia["launches"]
     tex.finish(rt, R_align, p0)
     del rt
-    pairs["launches_dist"] = phase_dist(dev, main_info, window)
-    pairs["launches_ablate"] = phase_ablate(dev, main_info)
-    pairs["launches_profile"] = phase_profile(dev, main_info)
+    phase_dist(dev, main_info, window)
+    phase_ablate(dev, main_info)
+    phase_profile(dev, main_info)
     scatter = phase_graph(dev, main_info, scatters)
     del scatters
+    pairs["mesh_graph"] = phase_mesh_graph(dev, main_info)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for e in (*hashes, scatter):  # the main path's, then each other path's
+    for e in (pairs, *hashes, scatter):  # the main path's, then each other's
         # launches: by the wrapper (eager); device_runs: the kernel's own
-        # device counter, eager and replayed in the captured LIO graph
+        # device counter, eager and replayed in the captured LIO and mesh
+        # graphs
         e["launches"] = PATH_COUNTS["main"]["launches"][e["name"]]
         e["device_runs"] = PATH_COUNTS["main"]["runs"][e["name"]]
         for path, n in PATH_COUNTS.items():
-            if path != "main":
+            if path != "main" and e["name"] in n["runs"]:
                 e[f"launches_{path}"] = n["launches"][e["name"]]
                 e[f"device_runs_{path}"] = n["runs"][e["name"]]
     print(smi_line())

@@ -53,6 +53,10 @@
 //    pre-filled with -1 (invalid rows and columns), and written to device
 //    memory contiguously, 16 bytes a thread where the slice is aligned.
 //
+// Counts: block (0, 0) adds one to the device counter g_runs, the kernel's
+// runs on the device, eager or replayed in a CUDA graph, read back by
+// pairs_argmin_runs.  The arithmetic above does not read it.
+//
 // Built with -DPAIRS_ARGMIN_BRANCH_COUNTS, the library also counts the k
 // that sweep_certified resolves exactly and the ties it settles by the
 // smaller k, and exports pairs_argmin_branch_counts to read them; the card
@@ -69,6 +73,10 @@ __device__ unsigned long long g_branch_counts[2];
 #else
 #define COUNT_BRANCH(x) ((void)0)
 #endif
+
+// runs of the kernel on the current device since the last
+// pairs_argmin_reset_runs
+__device__ unsigned long long g_runs;
 
 namespace {
 
@@ -278,6 +286,7 @@ pairs_argmin_kernel(const float* __restrict__ u, const float* __restrict__ v,
   const int rows = min(R, K - i0);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const size_t base = static_cast<size_t>(a) * K;
+  if (a == 0 && blockIdx.y == 0 && t == 0) atomicAdd(&g_runs, 1ULL);
 
   // one round of loads, then an order-preserving compaction of the valid
   // points and the voxel's largest |u|, |v|, |L|
@@ -369,6 +378,18 @@ extern "C" int pairs_argmin_launch(const float* u, const float* v,
   pairs_argmin_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       u, v, lift, valid, d_eps, K, R, W);
   return static_cast<int>(cudaGetLastError());
+}
+
+// *out: the kernel's runs on the current device since the last reset.
+// Synchronises.
+extern "C" int pairs_argmin_runs(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs)));
+}
+
+// Zeroes the run counter on the current device.  Synchronises.
+extern "C" int pairs_argmin_reset_runs() {
+  const unsigned long long zero = 0;
+  return static_cast<int>(cudaMemcpyToSymbol(g_runs, &zero, sizeof(zero)));
 }
 
 #ifdef PAIRS_ARGMIN_BRANCH_COUNTS

@@ -16,7 +16,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -96,6 +96,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _libs[name] = lib
     return lib
+
+
+# each counted kernel module's reader of its launches recorded under stream
+# capture, {kernel: count} (register_captured)
+_CAPTURED: List[Callable[[], Dict[str, int]]] = []
+
+
+def register_captured(read: Callable[[], Dict[str, int]]) -> None:
+    """Register a kernel module's reader of the launches its wrappers
+    recorded under stream capture, by kernel (its `captured`)."""
+    _CAPTURED.append(read)
+
+
+def captured_launches() -> Dict[str, int]:
+    """The launches recorded under stream capture, by kernel, of every
+    kernel module imported so far (a kernel not imported launched none)."""
+    return {k: n for read in _CAPTURED for k, n in read().items()}
 
 
 def bind_runs(lib: ctypes.CDLL, prefix: str) -> None:

@@ -49,6 +49,7 @@ _NOWIN = 0x3FFFFFFF  # the plain insert's claim scratch when no lane claims
 # recorded into a CUDA graph since then
 launches = {"hash_lookup": 0, "hash_insert": 0}
 captured = {"hash_lookup": 0, "hash_insert": 0}
+_build.register_captured(lambda: dict(captured))
 _devices = set()  # the CUDA devices the kernels were launched on
 
 

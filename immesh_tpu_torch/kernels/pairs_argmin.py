@@ -13,6 +13,11 @@ NaN ratio anywhere in a row's k-sweep gives −1 (jnp.min propagates NaN).
 
 Dispatch: a CPU tensor takes `pairs_argmin_plain`; a CUDA tensor launches
 the kernel in csrc/pairs_argmin.cu or raises — there is no fallback.
+
+Counts: `launches` the kernel launches the wrapper made, `captured` those it
+recorded into a CUDA graph under stream capture (they run at each replay,
+not then), and `runs()` the kernel's runs on the device, eager and replayed,
+from a counter the kernel itself adds to.
 """
 
 from __future__ import annotations
@@ -28,11 +33,24 @@ MAX_K = 128
 _BIG = 3.4e38
 
 launches = 0  # kernel launches since the last reset_launches()
+captured = 0  # launches recorded into a CUDA graph since then
+_build.register_captured(lambda: {"pairs_argmin": captured})
+_devices = set()  # the CUDA devices the kernel was launched on
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    """launches, captured and the device's run counter to 0."""
+    global launches, captured
+    launches = captured = 0
+    if _lib is not None:
+        _build.reset_runs(_lib, NAME, _devices)
+
+
+def runs() -> int:
+    """The kernel's runs on the device since reset_launches(), eager and
+    replayed in CUDA graphs (synchronises the devices it ran on)."""
+    return 0 if _lib is None else _build.read_runs(_lib, NAME, 1,
+                                                   _devices)[0]
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -42,6 +60,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    _build.bind_runs(lib, NAME)
     return lib
 
 
@@ -57,20 +76,26 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(lib: ctypes.CDLL, u, v, lift, valid, d_eps, W) -> None:
-    """One counted launch on the current stream into the preallocated W,
-    without checks: pairs_argmin_cuda's last step, and what timing code
-    calls with `_library()`."""
-    global launches
+    """One counted launch on the current stream into the preallocated W
+    (in `captured` under stream capture, else in `launches`), without
+    checks: pairs_argmin_cuda's last step, and what timing code calls with
+    `_library()`."""
+    global launches, captured
     A, K = u.shape
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pairs_argmin_launch(
             u.data_ptr(), v.data_ptr(), lift.data_ptr(), valid.data_ptr(),
             d_eps.data_ptr(), A, K, W.data_ptr(), stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(
             f"pairs_argmin kernel launch failed: CUDA error {err}")
-    launches += 1
+    _devices.add(u.device.index)
+    if capturing:
+        captured += 1
+    else:
+        launches += 1
 
 
 def pairs_argmin_cuda(u, v, lift, valid, d_eps) -> torch.Tensor:

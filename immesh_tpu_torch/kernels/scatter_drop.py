@@ -40,6 +40,7 @@ _BLOCK = 256
 
 launches = 0  # kernel launches since the last reset_launches()
 captured = 0  # launches recorded into a CUDA graph since then
+_build.register_captured(lambda: {"scatter_drop": captured})
 _devices = set()  # the CUDA devices the kernel was launched on
 
 

@@ -22,7 +22,7 @@ import torch
 from immesh_tpu_torch.config import ImMeshConfig
 from immesh_tpu_torch.core.geometry import lidar_point_cov_body
 from immesh_tpu_torch.core.state import EsikfState
-from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.device import HostCopy, resolve_device
 from immesh_tpu_torch.frontend.types import ScanBundle
 from immesh_tpu_torch.lio import imu as imu_mod
 from immesh_tpu_torch.lio.captured import CapturedLioStep
@@ -152,7 +152,7 @@ class LioPipeline:
         self.frame_idx = 0
         self.n_compactions = 0
         self.compact_ms = 0.0   # wall time spent inside compaction events
-        self._occ_pending = None  # previous frame's occupancy (device scalar)
+        self._occ_pending = None  # previous frame's occupancy (HostCopy)
 
     def static_init(self, acc, gyr) -> None:
         """IMU static initialization (reference IMU_init)."""
@@ -204,15 +204,17 @@ class LioPipeline:
         laser_map_fov_segment, voxel_mapping_common.cpp:214-288).
 
         The decision reads the PREVIOUS frame's occupancy, as the reference's
-        one-frame-delayed async poll does, so compactions fall on the same
-        frames in both."""
+        one-frame-delayed async poll does: copied to the host asynchronously
+        after each frame and read on the next (device.HostCopy), so no frame
+        waits on its own work and compactions fall on the same frames in
+        both."""
         mc = self.cfg.voxel_map
         if mc.compact_check_every <= 0:
             return False
         high = mc.compact_high_water * mc.capacity
         pending = self._occ_pending
-        self._occ_pending = self.vm.n_voxels()
-        if pending is None or int(pending) <= high:
+        self._occ_pending = HostCopy(self.vm.n_voxels())
+        if pending is None or pending.value() <= high:
             return False
         self._occ_pending = None
         self.n_compactions += 1

@@ -10,7 +10,9 @@ rank-ordered filing into per-voxel slots.
 
 The JAX reference updates the map functionally inside a donated program;
 here `append_frame`, `smooth_active`, `mark_meshed` and `compact` modify the
-tensors of this object in place.
+tensors of this object in place, and never rebind them: the captured mesh
+step (mesh/captured.py) replays at the addresses it was captured with.
+The mesh step reads no device value on the host.
 
 MeshConfig.ablate's append cuts ("app_cell0", "app_insert0", "app_alloc0",
 "app_file0", "app_active0") stop `append_frame` after the named stage and
@@ -23,7 +25,7 @@ frame first copies the map and puts the copy back at the cut.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,8 +43,18 @@ _OFFS = np.stack(np.meshgrid(
 _OWN_OFFSET_IDX = int(np.where((_OFFS == 0).all(axis=1))[0][0])
 
 
+_OFFS_ON: Dict[torch.device, torch.Tensor] = {}
+
+
 def _neighbor_offsets(device) -> torch.Tensor:
-    return torch.from_numpy(_OFFS).to(device)
+    """_OFFS on `device`, copied there once (a copy from the host's pageable
+    memory is refused under stream capture, so the mesh step's first,
+    eager frame makes it)."""
+    dev = torch.device(device)
+    offs = _OFFS_ON.get(dev)
+    if offs is None:
+        offs = _OFFS_ON[dev] = torch.from_numpy(_OFFS).to(dev)
+    return offs
 
 
 def _grid_coords(pts: torch.Tensor, size: float, tag: int) -> torch.Tensor:
@@ -140,14 +152,24 @@ class GlobalPointMap:
         return replace(self, **{f.name: copy(getattr(self, f.name))
                                 for f in fields(self)})
 
+    def copy_(self, src: "GlobalPointMap") -> "GlobalPointMap":
+        """Copy src's tensors into this map's, in place (same shapes)."""
+        for f in fields(self):
+            dst = getattr(self, f.name)
+            if isinstance(dst, HashTable):
+                dst.keys.copy_(getattr(src, f.name).keys)
+                dst.fp.copy_(getattr(src, f.name).fp)
+            elif torch.is_tensor(dst):
+                dst.copy_(getattr(src, f.name))
+        return self
+
     def _trunc(self, before: "GlobalPointMap"):
         """MeshConfig.ablate app_*: end the append here, as the reference's
         `_trunc` does.  The map goes back to `before`, its copy from the
-        start of the frame, with frame_no + 1; the work list is empty and
-        every drop counter 0."""
-        for f in fields(self):
-            setattr(self, f.name, getattr(before, f.name))
-        self.frame_no = before.frame_no + 1
+        start of the frame, with frame_no + 1 (copied back in place); the
+        work list is empty and every drop counter 0."""
+        self.copy_(before)
+        self.frame_no.add_(1)
         A = self.cfg.active_voxels_per_frame
         dev = self.pts.device
         zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -225,8 +247,8 @@ class GlobalPointMap:
         set_drop(self.pts, new_ids, p_ci, fresh)
         # fresh points start unsmoothed; their voxel is active this frame
         set_drop(self.pts_smooth, new_ids, p_ci, fresh)
-        self.pt_count = torch.clamp(self.pt_count + n_new,
-                                    max=cfg.points_capacity)
+        self.pt_count.copy_(torch.clamp(self.pt_count + n_new,
+                                        max=cfg.points_capacity))
         if cut == "app_alloc0":
             return self._trunc(before)
 
@@ -253,9 +275,11 @@ class GlobalPointMap:
         set_drop(self.vox_pts.view(-1, 3), flat, p_ci, write_ok)
         set_drop(self.vox_pts_sm.view(-1, 3), flat, p_ci, write_ok)
 
-        # per-voxel added counts
-        addc = torch.bincount(torch.where(write_ok, vseg, F).long(),
-                              minlength=F + 1)[:F].to(i32)
+        # per-voxel added counts (a scatter-add of ones: torch.bincount
+        # would read its input's range back on the host)
+        addc = torch.zeros(F + 1, dtype=i32, device=dev).scatter_add_(
+            0, torch.where(write_ok, vseg, F).long(),
+            torch.ones_like(vseg))[:F]
         vadd = vok & (vslots >= 0)
         set_drop(self.vox_n, vslots, self.vox_n[vslots.clamp(min=0).long()]
                  + addc, vadd)
@@ -276,7 +300,7 @@ class GlobalPointMap:
         psl_rot = compact_indices(pending[((ar_v + off) % V).long()], A)
         pmask = psl_rot < V
         psl = torch.where(pmask, (psl_rot + off) % V, V)
-        self.frame_no = self.frame_no + 1
+        self.frame_no.add_(1)
         active_slots, active_mask, drop_dilate = self._dilate_active(
             psl.clamp(max=V - 1), pmask)
         if cut == "app_active0":
@@ -443,7 +467,8 @@ class GlobalPointMap:
                 ) -> Tuple["GlobalPointMap", dict]:
         """Drop every meshing voxel (and its member points) outside a
         Chebyshev `keep_radius` cube around `center`; rebuild both hash
-        tables and compact the point store, in place.  Returns (self, maps)
+        tables and compact the point store, then copy the result back into
+        this map's tensors, in place.  Returns (self, maps)
         with maps = {"idmap": (P,) old→new point id or -1, "slot_map": (V,)
         old→new voxel slot or -1} for remap_store."""
         cfg = self.cfg
@@ -494,13 +519,12 @@ class GlobalPointMap:
             set_drop(out, vslots, src, vok)
             return out
 
-        self.vox_pt_idx = move_rows(row_new, -1)
-        self.vox_n = move_rows(self.vox_n, 0)
-        self.vox_new = move_rows(self.vox_new, 0)
-        self.vox_meshed = move_rows(self.vox_meshed, False)
-        self.vox_pts = move_rows(self.vox_pts, 0)
-        self.vox_pts_sm = move_rows(self.vox_pts_sm, 0)
-        self.pts, self.pts_smooth = pts, pts_smooth
-        self.pt_count = torch.sum(pkeep.to(torch.int32))
-        self.dedup, self.vox = dedup, vox
+        self.copy_(replace(
+            self, pts=pts, pts_smooth=pts_smooth,
+            pt_count=torch.sum(pkeep.to(torch.int32)), dedup=dedup, vox=vox,
+            vox_pt_idx=move_rows(row_new, -1),
+            vox_pts=move_rows(self.vox_pts, 0),
+            vox_pts_sm=move_rows(self.vox_pts_sm, 0),
+            vox_n=move_rows(self.vox_n, 0), vox_new=move_rows(self.vox_new, 0),
+            vox_meshed=move_rows(self.vox_meshed, False)))
         return self, {"idmap": idmap, "slot_map": slot_map}

@@ -3,7 +3,9 @@
 Port of immesh_tpu/mesh/pipeline.py (reference
 `incremental_mesh_reconstruction`, ImMesh_mesh_reconstruction.cpp:92-267:
 append → per-voxel pull/commit/push).  The map and store are updated in
-place.
+place.  On a CUDA device `MeshPipeline` runs the step as one captured CUDA
+graph, replayed every frame (mesh/captured.py); `graph=False` and the CPU
+run `mesh_step` eagerly, with the host-side skip of empty chunks.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import torch
 
 from immesh_tpu_torch.config import ImMeshConfig
 from immesh_tpu_torch.core.ops import div
-from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.device import HostCopy, resolve_device
 from immesh_tpu_torch.map.hash import EMPTY
+from immesh_tpu_torch.mesh.captured import CapturedMeshStep
 from immesh_tpu_torch.mesh.global_map import GlobalPointMap
 from immesh_tpu_torch.mesh.triangles import (
     TriangleStore, mesh_voxels, remap_store)
@@ -25,16 +28,21 @@ from immesh_tpu_torch.mesh.triangles import (
 
 def mesh_step(gm: GlobalPointMap, store: TriangleStore,
               pts_world: torch.Tensor, mask: torch.Tensor,
-              sensor_pos: torch.Tensor, chunk: int = 16):
+              sensor_pos: torch.Tensor, chunk: int = 16,
+              skip_empty: bool = True):
     """Append one world-frame scan and re-mesh the active voxels.  Returns
-    (gm, store, n_active, slots, smask, diag) like the reference."""
+    (gm, store, n_active, slots, smask, diag) like the reference.
+
+    With `skip_empty` a chunk of voxels with no active point is skipped
+    after a host read of its mask; the captured step passes False and runs
+    every chunk, with the same result (triangles.triangulate_voxels)."""
     gm, slots, smask, drops = gm.append_frame(pts_world, mask)
     if gm.cfg.pull_smooth_lam > 0:
         # refresh the stored smoothed positions of the active voxels' own
         # points BEFORE triangulation (mesh_rec_geometry.cpp:333-369)
         gm.smooth_active(slots, smask)
     store, n_emitted, tri_drop = mesh_voxels(
-        gm, store, slots, smask, sensor_pos, chunk)
+        gm, store, slots, smask, sensor_pos, chunk, skip_empty)
     gm.mark_meshed(slots, smask)
     diag = {f"drop_{k}": v for k, v in drops.items()}
     diag["drop_tris"] = tri_drop
@@ -43,52 +51,79 @@ def mesh_step(gm: GlobalPointMap, store: TriangleStore,
 
 
 class MeshPipeline:
-    """Host-side wrapper holding the global map + triangle store."""
+    """Host-side wrapper holding the global map + triangle store.
 
-    def __init__(self, cfg: ImMeshConfig, device="cuda"):
+    On a CUDA device the step is one captured CUDA graph (`graph=True`,
+    mesh/captured.py); `graph=False` runs mesh_step eagerly there, as the
+    CPU always does."""
+
+    def __init__(self, cfg: ImMeshConfig, device="cuda", graph: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.gm = GlobalPointMap.create(cfg.mesh, device=self.device)
         self.store = TriangleStore.create(cfg.mesh, device=self.device)
+        self.captured = (CapturedMeshStep(self.device)
+                         if graph and self.device.type == "cuda" else None)
         self.frame_idx = 0
         self.last_active = None   # (slots, smask) of the most recent step
         self.last_drops = None    # drop counters of the most recent step
         self.n_compactions = 0
         self.compact_ms = 0.0     # wall time spent inside compaction events
-        self._occ_pending = None  # previous frame's occupancy (device scalars)
+        self._occ_pending = None  # previous frame's occupancy (HostCopy)
 
     def step(self, pts_world, mask, sensor_pos):
         """Returns the active-voxel count as a device scalar."""
         if pts_world.shape[0] == 0:  # static shapes need ≥1 row; mask it out
             pts_world = torch.zeros((1, 3), dtype=torch.float32)
             mask = torch.zeros(1, dtype=torch.bool)
-        (self.gm, self.store, n_active, slots, smask,
-         self.last_drops) = mesh_step(
-            self.gm, self.store, torch.as_tensor(pts_world, device=self.device),
+        n_active = self.advance(
+            torch.as_tensor(pts_world, device=self.device),
             torch.as_tensor(mask, device=self.device),
-            torch.as_tensor(sensor_pos, device=self.device),
-            self.cfg.mesh.mesh_chunk)
+            torch.as_tensor(sensor_pos, device=self.device))
+        self.maybe_compact(sensor_pos)
+        return n_active
+
+    def advance(self, pts_world: torch.Tensor, mask: torch.Tensor,
+                sensor_pos: torch.Tensor) -> torch.Tensor:
+        """The mesh step on this pipeline's map and store, without the
+        compaction trigger: the captured graph, or mesh_step eagerly, at
+        the map's mesh_chunk.  Sets last_active and last_drops; returns the
+        active-voxel count (a device scalar)."""
+        if self.captured is None:
+            (self.gm, self.store, n_active, slots, smask,
+             self.last_drops) = mesh_step(self.gm, self.store, pts_world,
+                                          mask, sensor_pos,
+                                          self.gm.cfg.mesh_chunk)
+        else:
+            n_active, slots, smask, self.last_drops = self.captured(
+                self.gm, self.store, pts_world, mask, sensor_pos)
         self.last_active = (slots, smask)
         self.frame_idx += 1
-        self.maybe_compact(sensor_pos)
         return n_active
 
     def maybe_compact(self, sensor_pos) -> bool:
         """Occupancy-triggered lifetime management (reference
         pointcloud_rgbd.cpp:278-294,425-455): when the point store or voxel
-        table crossed the high-water mark on the PREVIOUS frame (the
-        reference's one-frame-delayed async poll), evict outside the
-        local-map radius and remap the triangle store."""
+        table crossed the high-water mark on the PREVIOUS frame, evict
+        outside the local-map radius and remap the triangle store.
+
+        As the reference's one-frame-delayed poll, the occupancy is copied
+        to the host asynchronously after each frame and read on the next
+        (device.HostCopy), so no frame waits on its own work and the
+        compactions fall on the same frames in both."""
         mc = self.cfg.mesh
         if mc.compact_check_every <= 0:
             return False
         high_p = mc.compact_high_water * mc.points_capacity
         high_v = mc.compact_high_water * mc.voxel_capacity
         pending = self._occ_pending
-        self._occ_pending = (self.gm.n_points(), self.gm.vox.occupancy())
+        # a copy of pt_count's value now: the next frame writes it in place
+        self._occ_pending = HostCopy(torch.stack([
+            self.gm.n_points().to(torch.int64), self.gm.vox.occupancy()]))
         if pending is None:
             return False
-        if int(pending[0]) <= high_p and int(pending[1]) <= high_v:
+        n_p, n_v = pending.value()
+        if n_p <= high_p and n_v <= high_v:
             return False
         self._occ_pending = None  # state changes below invalidate the poll
         self.n_compactions += 1

@@ -9,7 +9,8 @@ wholesale, so no global hash, lock or diff is needed.  Winding mirrors
 
 The reference's exact-f32 one-hot contractions and top-k payload keys were
 TPU gather workarounds; here they are integer gathers with the same
-outputs.  The store is updated in place.
+outputs.  The store is updated in place and never rebound (the captured
+mesh step replays at the addresses it was captured with).
 
 MeshConfig.ablate's triangulation cuts ("skip_tri", "pull0", "argmin0",
 "pairs0", "compact0", "fake_tri3", "tri30", "gather0", "sort30") stop a
@@ -89,24 +90,25 @@ def remap_store(store: TriangleStore, slot_map: torch.Tensor,
     counts = torch.sum(vmask, dim=-1).to(torch.int32)
 
     keep = slot_map >= 0
-    tri_ids = torch.full_like(store.tri_ids, -1)
-    set_drop(tri_ids, slot_map, packed, keep)
-    tri_n = torch.zeros_like(store.tri_n)
-    set_drop(tri_n, slot_map, counts, keep)
+    store.tri_ids.fill_(-1)
+    set_drop(store.tri_ids, slot_map, packed, keep)
+    store.tri_n.zero_()
+    set_drop(store.tri_n, slot_map, counts, keep)
     # everything moved: let the viewer resync every surviving region
-    dirty = torch.zeros_like(store.dirty)
-    set_drop(dirty, slot_map, True, keep)
-    store.tri_ids, store.tri_n, store.dirty = tri_ids, tri_n, dirty
+    store.dirty.zero_()
+    set_drop(store.dirty, slot_map, True, keep)
     return store
 
 
 def mesh_voxels(gm: GlobalPointMap, store: TriangleStore,
                 slots: torch.Tensor, smask: torch.Tensor,
-                sensor_pos: torch.Tensor, chunk: int = 16):
+                sensor_pos: torch.Tensor, chunk: int = 16,
+                skip_empty: bool = True):
     """Re-triangulate the active voxels and replace their triangle lists.
-    Returns (store, n_emitted, n_dropped)."""
+    Returns (store, n_emitted, n_dropped); `skip_empty` as in
+    triangulate_voxels."""
     ids, counts, dropped = triangulate_voxels(
-        gm, slots, smask, sensor_pos, store.cfg, chunk)
+        gm, slots, smask, sensor_pos, store.cfg, chunk, skip_empty)
     n_emitted = torch.sum(torch.where(smask, counts, 0))
     return apply_triangles(store, slots, smask, ids, counts), n_emitted, dropped
 
@@ -226,21 +228,27 @@ def _chunk_impl(pts_c, sm_c, pmask_c, gidx_c, key_c, sensor_pos,
     nrm = cross(w1 - w0, w2 - w0)
     cen3 = ((w0 + w1) + w2) * (1.0 / 3.0)
     flip = torch.sum(nrm * (sensor_pos - cen3), dim=-1) < 0
-    ids = torch.where(flip[..., None], ids[..., [0, 2, 1]], ids)
+    ids = torch.where(flip[..., None], torch.stack(
+        [ids[..., 0], ids[..., 2], ids[..., 1]], dim=-1), ids)
     ids = torch.where(rmask2[..., None], ids, -1)
-    return ids, rmask2.sum(dim=-1).to(torch.int32), drop1 + drop2
+    return (ids, rmask2.sum(dim=-1).to(torch.int32),
+            (drop1 + drop2).to(torch.int32))
 
 
 def triangulate_voxels(gm: GlobalPointMap, slots: torch.Tensor,
                        smask: torch.Tensor, sensor_pos: torch.Tensor,
-                       cfg: MeshConfig, chunk: int = 16):
+                       cfg: MeshConfig, chunk: int = 16,
+                       skip_empty: bool = True):
     """Pure compute: active voxels → (ids (A, C, 3) global point ids,
     counts (A,), dropped ()) — pull → PCA project → Delaunay → filters →
     ownership → winding (reference ImMesh_mesh_reconstruction.cpp:92-267).
 
-    Chunks of `chunk` voxels are triangulated one launch each; a chunk with
-    no active point is skipped — its result is the empty one, so the skip is
-    exact (the reference's lax.cond)."""
+    Chunks of `chunk` voxels are triangulated one launch each.  With
+    `skip_empty`, a chunk with no active point is skipped, as the
+    reference's lax.cond skips it; that reads the chunk's mask back on the
+    host.  Without it (the captured mesh step, which may read nothing on
+    the host) every chunk runs: an empty chunk's body gives exactly the
+    empty result, so both forms return the same bits."""
     A = slots.shape[0]
     C = cfg.tris_per_voxel
     dev = slots.device
@@ -254,7 +262,7 @@ def triangulate_voxels(gm: GlobalPointMap, slots: torch.Tensor,
     ids, counts, dropped = _empty(A, C, dev)
     for c0 in range(0, A, chunk):
         sl = slice(c0, c0 + chunk)
-        if not bool(pmask[sl].any()):
+        if skip_empty and not bool(pmask[sl].any()):
             continue
         i_c, n_c, d_c = _chunk_impl(pts[sl], pts_sm[sl], pmask[sl], gidx[sl],
                                     vox_key[sl], sensor_pos, cfg)

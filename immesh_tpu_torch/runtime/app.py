@@ -55,9 +55,10 @@ class ImMeshRuntime:
                  mesh_enabled: bool = True, device="cuda", graph: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
-        # graph: the LIO step as one captured CUDA graph on the card
+        # graph: the LIO step and the mesh step each as one captured CUDA
+        # graph on the card
         self.lio = LioPipeline(cfg, device=self.device, graph=graph)
-        self.mesh = (MeshPipeline(cfg, device=self.device)
+        self.mesh = (MeshPipeline(cfg, device=self.device, graph=graph)
                      if mesh_enabled else None)
         self.ba = WindowBA(cfg) if cfg.ba.enabled else None
         self.timer = Timer()

@@ -3,43 +3,36 @@
 Port of immesh_tpu/runtime/joint.py: lio_step then mesh_step on the same
 frame, with both pipelines' occupancy-triggered compaction after it.  The
 JAX reference donates the four persistent states (filter state, plane voxel
-map, global point map, triangle store) into one jitted program; here the
-map and store are updated in place and the small filter state is replaced.
+map, global point map, triangle store) into one jitted program, joint_step;
+here `JointPipeline.step` composes the LioPipeline's and the
+MeshPipeline's steps, the maps and store are updated in place and the
+small filter state is replaced.  On a CUDA device the LIO step and the
+mesh step each run as one captured CUDA graph (lio/captured.py,
+mesh/captured.py), with the compactions between frames.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from immesh_tpu_torch.config import ImMeshConfig
-from immesh_tpu_torch.core.state import EsikfState
-from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.device import HostCopy, resolve_device
 from immesh_tpu_torch.frontend.types import ScanBundle
-from immesh_tpu_torch.lio.pipeline import LioPipeline, lio_step
-from immesh_tpu_torch.map.voxel_map import VoxelMap
-from immesh_tpu_torch.mesh.global_map import GlobalPointMap
-from immesh_tpu_torch.mesh.pipeline import MeshPipeline, mesh_step
-from immesh_tpu_torch.mesh.triangles import TriangleStore
+from immesh_tpu_torch.lio.pipeline import LioPipeline
+from immesh_tpu_torch.mesh.pipeline import MeshPipeline
 
 
-def joint_step(state: EsikfState, vm: VoxelMap, gm: GlobalPointMap,
-               store: TriangleStore, bundle: ScanBundle, cfg: ImMeshConfig,
-               ext):
-    """propagate → deskew → ESIKF → map grow → append → re-mesh: lio_step
-    (`ext` its extrinsics), then _mesh_half.  Returns (state, vm, gm,
-    store, world_scan, slots, smask, diag)."""
-    state, vm, world_scan, diag = lio_step(state, vm, bundle, cfg, ext)
-    return (state, vm) + _mesh_half(gm, store, world_scan, bundle, state,
-                                    diag, cfg)
-
-
-def _mesh_half(gm, store, world_scan, bundle, state, diag, cfg):
-    """joint_step after the LIO step: (gm, store, world_scan, slots, smask,
-    diag)."""
-    gm, store, n_active, slots, smask, mdiag = mesh_step(
-        gm, store, world_scan, bundle.mask, state.pos, cfg.mesh.mesh_chunk)
-    diag = dict(diag, n_active_voxels=n_active, **mdiag)
-    return gm, store, world_scan, slots, smask, diag
+def _mesh_half(mesh: MeshPipeline, world_scan, bundle, state, diag, cfg):
+    """JointPipeline.step after the LIO step: the MeshPipeline's step
+    without its compaction trigger (MeshPipeline.advance).  Returns the
+    frame's diag with the mesh step's.  `cfg` is the frame's config (the
+    hi-budget one on hi frames); the step does not read it, since it sizes
+    its work from the point map's own config (reference behaviour 7), and
+    the tests' budget recorders log it here."""
+    n_active = mesh.advance(world_scan, bundle.mask, state.pos)
+    return dict(diag, n_active_voxels=n_active, **mesh.last_drops)
 
 
 class JointPipeline:
@@ -48,18 +41,20 @@ class JointPipeline:
     adaptive_mesh_budget > cfg.mesh.active_voxels_per_frame enables the
     hi-budget variant: on frames where the re-mesh backlog of TWO frames
     before exceeded `adaptive_threshold` (default 2× the base budget),
-    joint_step gets the config with the larger budget.  The reference polls
-    the backlog two frames deep so its read never waits on an in-flight
-    program; the port keeps the same two-deep queue (and reads it
-    synchronously), so the hi/lo decision falls on the same frames in both.
-    As in the reference, mesh_step sizes its work list from the point map's
-    own config (gm.cfg), not from the config joint_step is given.
+    the frame's step gets the config with the larger budget.  As the
+    reference, the backlog is copied to the host asynchronously after each
+    frame (device.HostCopy) and read two frames later, so the read never
+    waits on a frame in flight and the hi/lo decision falls on the same
+    frames in both.  As in the reference, mesh_step sizes its work list
+    from the point map's own config (gm.cfg), not from the config the frame
+    is given.
 
-    A step is joint_step's composition: the LioPipeline's step without its
-    compaction trigger (LioPipeline.advance: on a CUDA device its captured
-    graph, which reads no mesh setting and so serves both budgets; eager
-    with `graph=False` and on the CPU), then _mesh_half with the frame's
-    config, eagerly."""
+    A step is the reference joint_step's composition: the LioPipeline's
+    step without its compaction trigger (LioPipeline.advance), then the
+    MeshPipeline's (_mesh_half).  On a CUDA device each is its captured
+    graph; neither reads a mesh budget from the frame's config, so one
+    graph of each serves both budgets.  `graph=False`, and the CPU, run
+    both eagerly."""
 
     def __init__(self, cfg: ImMeshConfig, adaptive_mesh_budget: int = 0,
                  adaptive_threshold: int = 0, device="cuda",
@@ -68,7 +63,8 @@ class JointPipeline:
         self.device = resolve_device(device)
         self.lio = LioPipeline(cfg, device=self.device,  # state + voxel map
                                graph=graph)
-        self.mesh = MeshPipeline(cfg, device=self.device)  # point map + store
+        self.mesh = MeshPipeline(cfg, device=self.device,  # point map + store
+                                 graph=graph)
         self.frame_idx = 0
         self._cfg_hi = None
         if adaptive_mesh_budget > cfg.mesh.active_voxels_per_frame:
@@ -76,7 +72,7 @@ class JointPipeline:
                 cfg.mesh, active_voxels_per_frame=adaptive_mesh_budget))
         self.adaptive_threshold = (adaptive_threshold or
                                    2 * cfg.mesh.active_voxels_per_frame)
-        self._backlog_q = []  # drop_deferred of the last two frames
+        self._backlog_q = []  # drop_deferred of the last two frames (HostCopy)
 
     def static_init(self, acc, gyr) -> None:
         """IMU static initialization of the filter (reference IMU_init)."""
@@ -86,20 +82,19 @@ class JointPipeline:
         """Force the next steps onto the hi-budget variant (benches call this
         during warm-up)."""
         if self._cfg_hi is not None:
-            self._backlog_q = [1 << 30, 1 << 30]
+            self._backlog_q = [HostCopy(torch.tensor(1 << 30))] * 2
 
     def step(self, bundle: ScanBundle):
         cfg = self.cfg
         if self._cfg_hi is not None and len(self._backlog_q) >= 2 \
-                and int(self._backlog_q[0]) > self.adaptive_threshold:
+                and self._backlog_q[0].value() > self.adaptive_threshold:
             cfg = self._cfg_hi
         world_scan, diag = self.lio.advance(bundle)
-        (self.mesh.gm, self.mesh.store, world_scan, slots, smask,
-         diag) = _mesh_half(self.mesh.gm, self.mesh.store, world_scan,
-                            bundle, self.lio.state, diag, cfg)
+        diag = _mesh_half(self.mesh, world_scan, bundle, self.lio.state, diag,
+                          cfg)
         if self._cfg_hi is not None:
-            self._backlog_q = (self._backlog_q + [diag["drop_deferred"]])[-2:]
-        self.mesh.last_active = (slots, smask)
+            self._backlog_q = (self._backlog_q
+                               + [HostCopy(diag["drop_deferred"])])[-2:]
         self.frame_idx += 1
         self.lio.frame_idx = self.mesh.frame_idx = self.frame_idx
         self.lio.maybe_compact()

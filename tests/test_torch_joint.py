@@ -136,8 +136,9 @@ def runs():
                 split=split,
                 pos=(np.asarray(jp.state.pos), tp.state.pos.numpy()),
                 n_pts=(n_j, int(tp.mesh.gm.pt_count)),
+                # a copy: the port's map is updated in place, compaction too
                 pts=(np.asarray(jp.mesh.gm.pts)[:n_j],
-                     tp.mesh.gm.pts[:n_j].numpy()),
+                     tp.mesh.gm.pts[:n_j].numpy().copy()),
                 tris=(int(jp.store.n_triangles()), int(tp.store.n_triangles())),
                 comp=((jp.mesh.n_compactions, jp.lio.n_compactions),
                       (tp.mesh.n_compactions, tp.lio.n_compactions)),

@@ -321,7 +321,11 @@ def test_captured_step_equals_the_eager_step_on_the_card():
     (g,) = pipes[1].captured.graphs
     launches = {**hp.launches, "scatter_drop": sd.launches}
     runs = {**hp.runs(), "scatter_drop": sd.runs()}
-    assert g.captured == {**hp.captured, "scatter_drop": sd.captured}
-    assert all(n > 0 for n in g.captured.values())
+    # the graph's counts cover every counted kernel imported so far; the
+    # LIO runs no pairs_argmin
+    captured = dict(g.captured)
+    assert captured.pop("pairs_argmin", 0) == 0
+    assert captured == {**hp.captured, "scatter_drop": sd.captured}
+    assert all(n > 0 for n in captured.values())
     assert runs == {k: launches[k] + 7 * g.captured[k] for k in runs}
     assert g.nodes()["kernel"] > sum(g.captured.values())

@@ -11,7 +11,10 @@ the device after every frame and around the frame's mesh step, and prints
 one JSON line per variant: ms per frame and ms of its mesh step (median and
 p90 over the timed frames), pairs_argmin launches per frame, live
 triangles and map points at the end.  The mesh step's time leaves the LIO
-step's jitter out of the difference between two cuts.  Chaining the
+step's jitter out of the difference between two cuts.  The LIO step runs as
+the pipeline runs it on the card (one captured CUDA graph); the mesh step
+runs eagerly (a MeshPipeline with graph=False), so the host timer around it
+splits it from the frame.  Chaining the
 MeshConfig.ablate cuts (app_cell0 … app_active0, skip_tri … sort30) gives
 each stage of the mesh step its cost as the difference between two lines.
 `--device cuda` (the default) raises without a card.
@@ -78,7 +81,8 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
     Returns the summary the tool prints, plus "frames": per timed and
     warm-up frame its ms, its mesh step's ms, pairs_argmin launches, active
     voxels and position.  The mesh step is timed through a wrapper put in
-    place of runtime/joint.py's mesh_step for the run."""
+    place of mesh/pipeline.py's mesh_step for the run."""
+    import immesh_tpu_torch.mesh.pipeline as mesh_pipeline
     import immesh_tpu_torch.runtime.joint as joint
     from immesh_tpu_torch.device import resolve_device, synchronize
     from immesh_tpu_torch.kernels import pairs_argmin as pk
@@ -91,7 +95,7 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
         scans = [sim.frame(k) for k in range(warmup + frames)]
     bundles = [chip_smoke.bundle(f, cfg, dev) for f in scans[:warmup + frames]]
 
-    mesh_step, mesh_ms = joint.mesh_step, []
+    mesh_step, mesh_ms = mesh_pipeline.mesh_step, []
 
     def timed_mesh_step(*args):
         synchronize(dev)
@@ -102,11 +106,14 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
         return out
 
     lio_only = kv.get("_lio_only", False)
-    pipe = (LioPipeline(cfg, device=dev) if lio_only
-            else joint.JointPipeline(cfg, device=dev))
+    if lio_only:
+        pipe = LioPipeline(cfg, device=dev)
+    else:
+        pipe = joint.JointPipeline(cfg, device=dev)
+        pipe.mesh = mesh_pipeline.MeshPipeline(cfg, device=dev, graph=False)
     synchronize(dev)
     per_frame = []
-    joint.mesh_step = timed_mesh_step
+    mesh_pipeline.mesh_step = timed_mesh_step
     try:
         for b in bundles:
             before, n_mesh = pk.launches, len(mesh_ms)
@@ -120,7 +127,7 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
                 "active": 0 if lio_only else int(diag["n_active_voxels"]),
                 "pos": pipe.state.pos.cpu().numpy().astype(np.float64)})
     finally:
-        joint.mesh_step = mesh_step
+        mesh_pipeline.mesh_step = mesh_step
     timed = per_frame[warmup:]
     ms = [f["ms"] for f in timed]
     mms = [f["mesh_ms"] for f in timed]

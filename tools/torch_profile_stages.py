@@ -91,8 +91,9 @@ def run_stages(cfg, scans, device="cuda", warmup: int = 3) -> dict:
     output plus "frames" (per frame the position and each stage's ms and
     pairs_argmin launches) and "pipes" (the LioPipeline and MeshPipeline)."""
     dev = resolve_device(device)
-    lio = LioPipeline(cfg, device=dev, graph=False)  # stages split eagerly
-    mesh = MeshPipeline(cfg, device=dev)
+    # both eager (graph=False), so the stages split them
+    lio = LioPipeline(cfg, device=dev, graph=False)
+    mesh = MeshPipeline(cfg, device=dev, graph=False)
     frames, profiled = [], {}
     for k, f in enumerate(scans):
         b = chip_smoke.bundle(f, cfg, dev)

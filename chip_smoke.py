@@ -30,12 +30,14 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 recorded (the map update's unique keys, lookup_planes_stack's
                 L·P·N keys) and replayed through both on copies of the table
                 it found (slots, new, keys, fp bit for bit), also at
-                HASH_SHORT_PROBE where lanes exhaust; an insert of more
-                lanes than the card holds threads (the kernel's grid-stride
-                path); 0 host syncs a call under torch.profiler; the LIO's
-                costliest lookup and insert timed (device time, one wrapper
-                call, the plain version) beside a bound of bytes over the
-                memory rate;
+                HASH_SHORT_PROBE where lanes exhaust, each insert on every
+                form of the kernel that takes its lanes (the cluster form
+                up to CLUSTER_MAX_LANES, the cooperative grid always); an
+                insert of more lanes than the card holds threads (the
+                grid form's grid-stride path); 0 host syncs a call under
+                torch.profiler; the LIO's costliest lookup and insert timed
+                (device time on each form, one wrapper call, the plain
+                version) beside a bound of bytes over the memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
                 for warm-up plus N timed frames, its LIO step and its mesh
@@ -62,8 +64,11 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 27-neighbour lookups, the compaction's rebuild inserts) and
                 of its last frame, recorded during phase 4, replayed as in
                 3b; the last frame's costliest lookup and insert timed for
-                the `kernels` line, each compacting frame's costliest
-                insert timed too;
+                the `kernels` line, its costliest insert of every other
+                lane count (the LIO's 1,024, the mesh dedup's 10,000, the
+                voxel insert) and each compacting frame's costliest insert
+                (a rebuild, 131,072 lanes) timed too, each on every form
+                that takes it;
   5. parity   — two small scan sequences, IMU-less KITTI-shaped and IMU-on
                 Avia-shaped, run on the card and on the CPU (the path the
                 tests hold against the JAX reference) agree;
@@ -179,12 +184,18 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 torch.profiler (0 syncs); the masked form's dead work in
                 device ms (an ESIKF body after convergence, an empty
                 refinement level);
+                the inserts recorded into the graphs all of the cluster
+                form; scatter_drop and hash_insert runs a frame;
                 then scatter_drop against its plain version on every
-                set_drop/add_drop call recorded in phase 4's compacting and
-                last frames and in the eager KITTI LIO's compacting and
-                last frames, and on random calls of every dtype and width
-                at twice the threads the card holds; 0 syncs a call; the
-                last frame's costliest call timed for the `kernels` line;
+                set_drop/add_drop call and set_drop_group/add_drop_group
+                group recorded in phase 4's compacting and last frames and
+                in the eager KITTI LIO's compacting and last frames, and on
+                random calls and groups of every dtype and width at 1,024
+                lanes and at twice the threads the card holds; 0 syncs a
+                call; the last frame's costliest call timed for the
+                `kernels` line, its costliest single call (a 768-byte
+                slot-row set) and the LIO's costliest group (the plane
+                refit's 8 fields, also timed as 8 single launches) too;
  17. mesh graph — the captured mesh step: the KITTI JointPipeline (phase
                 4's 3 + 40 scans, adaptive budget) and the Avia
                 ImMeshRuntime (3 + 30 frames), each run with the mesh step
@@ -196,8 +207,10 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 (Avia: both maps forced after GRAPH_AVIA_COMPACT_AT); the
                 compaction and hi/lo budget frames equal; the KITTI mesh
                 graph's kernel, memcpy and memset nodes and recorded
-                launches equal to phase 4's; one mesh step of each under
-                torch.profiler (0 syncs captured); the dead chunks the
+                launches equal to phase 4's, its inserts of the cluster
+                form, scatter_drop and hash_insert runs a frame; one mesh
+                step of each under torch.profiler (0 syncs captured); the
+                dead chunks the
                 captured step ran (chunks with no active voxel, which the
                 eager step skips) and the device ms of one; ms a frame with
                 the mesh eager against captured.
@@ -865,6 +878,21 @@ def path_counts(path: str, counts=None, graphs=None,
     return n
 
 
+def captured_forms(graphs, what: str) -> dict:
+    """The hash_insert launches recorded into the CUDA graphs captured since
+    reset_counts(), by the kernel's form: every one must be the cluster
+    form (each per-frame insert fits one cluster), and they must be all the
+    graphs' recorded inserts."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    forms = dict(hp.captured_paths)
+    want = sum(g.captured.get("hash_insert", 0) for g in graphs)
+    if forms != {"grid": 0, "cluster": want}:
+        raise AssertionError(f"{what}: the graphs recorded hash_insert "
+                             f"launches {forms} by form, expected {want} "
+                             f"of the cluster form")
+    return forms
+
+
 def kitti_scans(n: int):
     """Phase 4's simulator and its first n scans at the KITTI point."""
     t0 = time.perf_counter()
@@ -903,34 +931,52 @@ def record_probes(fn):
     return out, calls
 
 
+class Scatter:
+    """A recorded set_drop/add_drop call or group: the kind ("set" or
+    "add"), whether it was a group, the dsts as the call found them (copies),
+    idx, the srcs (copies, or the scalars) and ok."""
+
+    def __init__(self, kind, group, dsts, idx, srcs, ok):
+        self.kind, self.group = kind, group
+        self.dsts, self.idx, self.srcs, self.ok = dsts, idx, srcs, ok
+
+    def label(self) -> str:
+        fields = "+".join(f"{str(d.dtype)[6:]}{list(d.shape[1:])}"
+                          for d in self.dsts)
+        return f"{self.kind}{' group' if self.group else ''} {fields}"
+
+
 def record_scatters(fn):
-    """Run fn() with every set_drop and add_drop on the card recorded: the
-    kind, dst as the call found it, idx, src (a copy, or the scalar) and
-    ok.  Returns (fn's result, the calls).  A replay of the captured LIO
-    step calls no wrapper, so its scatters are not among them, and a call
-    under capture is not recorded (record_probes)."""
+    """Run fn() with every set_drop/add_drop and set_drop_group/
+    add_drop_group on the card recorded as a Scatter.  Returns (fn's
+    result, the calls).  A replay of the captured LIO step calls no
+    wrapper, so its scatters are not among them, and a call under capture
+    is not recorded (record_probes)."""
     from immesh_tpu_torch.kernels import scatter_drop as sd
-    calls, set_cuda, add_cuda = [], sd.set_cuda, sd.add_cuda
+    calls, names = [], ("set_cuda", "add_cuda", "set_group_cuda",
+                        "add_group_cuda")
+    saved = {n: getattr(sd, n) for n in names}
 
-    def keep(kind, dst, idx, src, ok):
-        if not torch.cuda.is_current_stream_capturing():
-            calls.append((kind, dst.clone(), idx.clone(),
-                          src.clone() if torch.is_tensor(src) else src,
-                          ok.clone()))
+    def recorder(name):
+        inner, group = saved[name], "group" in name
 
-    def rec_set(dst, idx, src, ok):
-        keep("set", dst, idx, src, ok)
-        return set_cuda(dst, idx, src, ok)
+        def rec(dsts, idx, srcs, ok):
+            if not torch.cuda.is_current_stream_capturing():
+                ds, ss = (dsts, srcs) if group else ((dsts,), (srcs,))
+                calls.append(Scatter(
+                    name[:3], group, tuple(d.clone() for d in ds),
+                    idx.clone(), tuple(x.clone() if torch.is_tensor(x)
+                                       else x for x in ss), ok.clone()))
+            return inner(dsts, idx, srcs, ok)
+        return rec
 
-    def rec_add(dst, idx, src, ok):
-        keep("add", dst, idx, src, ok)
-        return add_cuda(dst, idx, src, ok)
-
-    sd.set_cuda, sd.add_cuda = rec_set, rec_add
+    for n in names:
+        setattr(sd, n, recorder(n))
     try:
         out = fn()
     finally:
-        sd.set_cuda, sd.add_cuda = set_cuda, add_cuda
+        for n, f in saved.items():
+            setattr(sd, n, f)
     return out, calls
 
 
@@ -972,6 +1018,13 @@ def histogram(rounds) -> str:
     return ", ".join(f"{r}: {int(c)}" for r, c in enumerate(h) if c)
 
 
+def insert_paths(u: int) -> tuple:
+    """The insert kernel's forms that take u lanes: the one insert_path
+    gives (the wrapper's), then the cooperative grid if that is another."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    return tuple(dict.fromkeys((hp.insert_path(u), "grid")))
+
+
 def replay_probes(calls, what: str):
     """Every recorded call again through each kernel and its plain version,
     on copies of the table it found, at the call's max_probe and at
@@ -981,7 +1034,7 @@ def replay_probes(calls, what: str):
     outputs, and each call's probe rounds per lane at its own max_probe."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     err = {"hash_lookup": 0, "hash_insert": 0}
-    exhausted, rounds = 0, []
+    exhausted, rounds, n_paths = 0, [], {}
     for c in calls:
         for mp in (c[-1], HASH_SHORT_PROBE):
             if c[0] == "lookup":
@@ -994,10 +1047,14 @@ def replay_probes(calls, what: str):
                                                fp=fp))
             else:
                 name, (_, coords, valid, keys, fp, _) = "hash_insert", c
-                tk, tp = (keys.clone(), fp.clone()), (keys.clone(), fp.clone())
-                ks, kn = hp.insert_cuda(coords, valid, *tk, mp)
+                tp = (keys.clone(), fp.clone())
                 ps, pn = hp.insert_plain(coords, valid, *tp, mp)
-                outs = [(ks, ps), (kn, pn), *zip(tk, tp)]
+                outs = []
+                for path in insert_paths(coords.shape[0]):
+                    tk = (keys.clone(), fp.clone())
+                    ks, kn = hp.insert_cuda(coords, valid, *tk, mp, path)
+                    outs += [(ks, ps), (kn, pn), *zip(tk, tp)]
+                    n_paths[path] = n_paths.get(path, 0) + 1
                 if mp == c[-1]:
                     rounds.append(probe_rounds(coords, ps, fp.shape[0], mp,
                                                valid))
@@ -1021,7 +1078,9 @@ def replay_probes(calls, what: str):
                        for c in calls)
     log(f"[hash] {what}: {len(calls)} probe calls ({shapes}), each kernel "
         f"bit-identical to its plain version (slots, new, keys, fp) at the "
-        f"call's max_probe and at {HASH_SHORT_PROBE}, where {exhausted} "
+        f"call's max_probe and at {HASH_SHORT_PROBE}, each insert on every "
+        f"form that takes its lanes ({n_paths} insert runs), where "
+        f"{exhausted} "
         f"insert lanes exhaust; probe rounds per lane " + "; ".join(
             f"{k} {{{histogram(torch.cat(r))}}}" for k, r in by_kind.items()))
     return err, rounds
@@ -1104,22 +1163,29 @@ def time_probe(lib, c, rounds, what: str) -> dict:
 
         slot = torch.empty(n, dtype=torch.int32, device=dev)
         new = torch.empty(n, dtype=torch.bool, device=dev)
-        flags = torch.empty(mp, dtype=torch.int32, device=dev)
+        flags = torch.empty(mp, dtype=torch.int32, device=dev)  # grid form
         restore()
         _, counts = profile_counts(lambda: hp.insert_cuda(cc, v, keys, fp, mp))
         restore()
         _, pn = hp.insert_plain(cc, v, keys, fp, mp)
         restore_ms = device_ms(restore)
-        ms = device_ms(lambda: (restore(), hp._launch_insert(
-            lib, cc, v, keys, fp, mp, slot, new, flags))) - restore_ms
+        forms = {}
+        for path in insert_paths(n):
+            forms[path] = device_ms(lambda: (restore(), hp._launch_insert(
+                lib, cc, v, keys, fp, mp, slot, new, flags, path))) \
+                - restore_ms
+        path = hp.insert_path(n)
+        ms = forms[path]
         wrapper_ms = event_ms(lambda: (restore(), hp.insert_cuda(
             cc, v, keys, fp, mp)), 50) - event_ms(restore, 50)
         plain_ms = event_ms(lambda: (restore(), hp.insert_plain(
             cc, v, keys, fp, mp)), 5) - event_ms(restore, 5)
         bound_ms, bound_by = hash_bound_ms(n, 17, 5, rounds, int(pn.sum()))
-        note = (f"{int(v.sum())} valid, {int(pn.sum())} new; each launch "
-                f"behind a {1e3 * restore_ms:.2f} us copy of the table, "
-                f"which is subtracted")
+        note = (f"{int(v.sum())} valid, {int(pn.sum())} new; the wrapper's "
+                f"form {path}; device us by form " + ", ".join(
+                    f"{k} {1e3 * t:.2f}" for k, t in forms.items())
+                + f"; each launch behind a {1e3 * restore_ms:.2f} us copy "
+                f"of the table, which is subtracted")
     log(f"[hash] {what}: hash_{c[0]} at ({n}, 4) into {c[-2].shape[0]} "
         f"slots, max_probe {mp} ({note}): kernel {1e3 * ms:.2f} us (device "
         f"time, median of 5 x 50 launches), wrapper call "
@@ -1130,10 +1196,13 @@ def time_probe(lib, c, rounds, what: str) -> dict:
         f"rounds per lane {{{histogram(rounds)}}}")
     if counts["syncs"] != 0:
         raise AssertionError(f"{what}: hash_{c[0]} waited on the card")
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n,
-            "slots": c[-2].shape[0], "syncs_per_call": counts["syncs"],
-            "profiled_launches_per_call": counts["launches"]}
+    out = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n,
+           "slots": c[-2].shape[0], "syncs_per_call": counts["syncs"],
+           "profiled_launches_per_call": counts["launches"]}
+    if c[0] == "insert":
+        out.update(path=path, **{f"ms_{k}": t for k, t in forms.items()})
+    return out
 
 
 def costliest(calls, rounds, kind: str):
@@ -1196,6 +1265,16 @@ def phase_hash_path(dev, frames, err) -> list:
                            f"frame {k}'s costliest {kind}")
             if k == max(frames):
                 entries[kind] = t
+        if k == max(frames):  # each insert shape of a frame, on every form
+            last = entries["insert"]["lanes"]
+            entries["insert"]["by_lanes"] = {last: dict(entries["insert"])}
+            for u in sorted({c[1].shape[0] for c in calls
+                             if c[0] == "insert"} - {last}):
+                cr = [(c, r) for c, r in zip(calls, rounds)
+                      if c[0] == "insert" and c[1].shape[0] == u]
+                entries["insert"]["by_lanes"][u] = time_probe(
+                    lib, *costliest(*zip(*cr), "insert"),
+                    f"frame {k}'s costliest insert of {u} lanes")
     log(f"[hash] phase 4b took {time.perf_counter() - t_phase:.1f} s")
     return [{"name": f"hash_{kind}", "route": "cuda",
              "source": "immesh_tpu_torch/csrc/hash_probe.cu",
@@ -1272,6 +1351,7 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
             f"{int(diag['drop_deferred'])}")
     (graph,), (mgraph,) = pipe.lio.captured.graphs, pipe.mesh.captured.graphs
     hashes = path_counts("main", graphs=pipe_graphs(pipe))
+    forms = captured_forms(pipe_graphs(pipe), "main")
     nodes, mnodes = graph.nodes(), mgraph.nodes()
 
     n_tris = int(pipe.store.n_triangles())
@@ -1306,7 +1386,8 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"device ({hashes['runs'][k] / len(gt):.1f} a frame, "
         f"{graph.captured.get(k, 0)} in each replay of the LIO graph, "
         f"{mgraph.captured.get(k, 0)} in each of the mesh graph)"
-        for k, n in hashes["launches"].items()))
+        for k, n in hashes["launches"].items())
+        + f"; hash_insert launches recorded into the graphs by form {forms}")
     log(f"[main] live triangles {n_tris}, map points {n_pts}, mesh voxels "
         f"{int(pipe.mesh.gm.vox.occupancy())}, LIO voxels "
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
@@ -3601,165 +3682,232 @@ def graph_summary(name, rows, warmup, cfg) -> dict:
     return out
 
 
-def scatter_bound_ms(kind, dst, idx, src, ok) -> tuple:
+def scatter_bound_ms(c: Scatter) -> tuple:
     """Least time for this call, by bytes over the memory rate: every ok
-    flag read once; for each selected lane its target and its src row
-    read, and its dst row written (and read, for an add)."""
-    sel = int(ok.sum())
-    row = dst[0].numel() * dst.element_size() if dst.shape[0] else 0
-    src_row = row if torch.is_tensor(src) else 0
-    nbytes = (ok.numel() + sel * (idx.element_size() + src_row + row
-                                  + (row if kind == "add" else 0)))
+    flag read once; for each selected lane its target read once and, for
+    every field, its src row read and its dst row written (and read, for an
+    add)."""
+    sel = int(c.ok.sum())
+    nbytes = c.ok.numel() + sel * c.idx.element_size()
+    for d, x in zip(c.dsts, c.srcs):
+        row = d[0].numel() * d.element_size() if d.shape[0] else 0
+        nbytes += sel * ((row if torch.is_tensor(x) else 0) + row
+                         + (row if c.kind == "add" else 0))
     return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
 
 
-def scatter_versions(kind):
+def scatter_versions(c: Scatter):
+    """(kernel, plain version) of the call's kind, both taking (dsts, idx,
+    srcs, ok)."""
     from immesh_tpu_torch.kernels import scatter_drop as sd
-    return ((sd.set_cuda, sd.set_plain) if kind == "set"
-            else (sd.add_cuda, sd.add_plain))
+    if c.group:
+        return ((sd.set_group_cuda, sd.set_group_plain) if c.kind == "set"
+                else (sd.add_group_cuda, sd.add_group_plain))
+    kern, plain = ((sd.set_cuda, sd.set_plain) if c.kind == "set"
+                   else (sd.add_cuda, sd.add_plain))
+    return (lambda d, i, s, o: kern(d[0], i, s[0], o),
+            lambda d, i, s, o: plain(d[0], i, s[0], o))
+
+
+def check_scatter(c: Scatter, what: str) -> float:
+    """The call again through the kernel and its plain version on copies of
+    the dsts it found: bit for bit on every field.  Returns the largest
+    absolute difference (0)."""
+    kern, plain = scatter_versions(c)
+    a = [d.clone() for d in c.dsts]
+    b = [d.clone() for d in c.dsts]
+    kern(a, c.idx, c.srcs, c.ok)
+    plain(b, c.idx, c.srcs, c.ok)
+    e = max(abs_err(x, y) for x, y in zip(a, b))
+    if e:
+        raise AssertionError(
+            f"{what}: scatter_drop {c.label()} and its plain version differ "
+            f"by {e} ({c.ok.numel()} lanes)")
+    return e
 
 
 def replay_scatters(calls, what: str) -> float:
-    """Every recorded call again through the kernel and its plain version,
-    on copies of the dst it found: bit for bit.  Returns the largest
-    absolute difference (0)."""
-    err = 0.0
-    for kind, dst, idx, src, ok in calls:
-        kern, plain = scatter_versions(kind)
-        a, b = dst.clone(), dst.clone()
-        kern(a, idx, src, ok)
-        plain(b, idx, src, ok)
-        e = abs_err(a, b)
-        err = max(err, e)
-        if e:
-            raise AssertionError(
-                f"{what}: scatter_drop {kind} and its plain version differ "
-                f"by {e} on a recorded call (dst {tuple(dst.shape)} "
-                f"{dst.dtype}, {ok.numel()} lanes)")
+    """Every recorded call and group again through the kernel and its
+    plain version (check_scatter).  Returns the largest absolute
+    difference (0)."""
+    err = max((check_scatter(c, what) for c in calls), default=0.0)
     kinds = {}
     for c in calls:
-        key = f"{c[0]} {str(c[1].dtype)[6:]}{list(c[1].shape[1:])}"
-        kinds[key] = kinds.get(key, 0) + 1
-    log(f"[graph] scatter_drop on {what}: {len(calls)} recorded calls, "
-        f"each bit-identical to its plain version ({kinds})")
+        kinds[c.label()] = kinds.get(c.label(), 0) + 1
+    groups = sum(c.group for c in calls)
+    log(f"[graph] scatter_drop on {what}: {len(calls)} recorded calls "
+        f"({groups} groups), each bit-identical to its plain version "
+        f"({kinds})")
     return err
 
 
-def scatter_random(dev) -> float:
-    """scatter_drop against its plain version on random calls of every
-    dtype and row width the port uses, idx int32 and int64, scalar src,
-    strided src, 2-D lanes, no lane and every lane selected, at twice the
-    threads the card holds (each thread takes several elements)."""
-    props = torch.cuda.get_device_properties(dev)
-    lanes = 2 * props.multi_processor_count * \
-        props.max_threads_per_multi_processor
-    g = torch.Generator(device=dev).manual_seed(16)
-    cases = [("set", torch.float32, (), torch.int32, "tensor"),
-             ("set", torch.float32, (3,), torch.int64, "tensor"),
-             ("set", torch.float32, (6,), torch.int32, "strided"),
-             ("set", torch.int32, (), torch.int64, "tensor"),
-             ("set", torch.int32, (3,), torch.int32, "tensor"),
-             ("set", torch.bool, (), torch.int32, "tensor"),
-             ("set", torch.bool, (), torch.int32, True),
-             ("set", torch.int32, (), torch.int32, 0),
-             ("set", torch.int64, (), torch.int32, "tensor"),
-             ("set", torch.float32, (3,), torch.int32, "lanes2d"),
-             ("set", torch.float32, (48, 3), torch.int32, "tensor"),
-             ("add", torch.float32, (), torch.int32, "strided"),
-             ("add", torch.float32, (3,), torch.int32, "tensor"),
-             ("add", torch.float32, (6,), torch.int64, "tensor"),
-             ("set", torch.float32, (3,), torch.int32, "none"),
-             ("add", torch.float32, (6,), torch.int32, "all"),
-             ("set", torch.int32, (3,), torch.int64, "out_of_range"),
-             ("add", torch.float32, (3,), torch.int32, "out_of_range")]
-    err = 0.0
-    for kind, dtype, row, idx_dtype, src_kind in cases:
-        n = lanes if row != (48, 3) else lanes // 48
-        rows = 2 * n
+# random groups: (kind, idx dtype, [(dst dtype, row, src)]) with src
+# "tensor", "strided" (a column block of a wider tensor), "agg" (a column
+# slice of one (lanes, 11) aggregate, as the moments' add) or a scalar
+_F32, _I32, _I64, _B8 = torch.float32, torch.int32, torch.int64, torch.bool
+RANDOM_GROUPS = {
+    "refit": ("set", _I32, [(_F32, (3,), "tensor"), (_F32, (), "tensor"),
+                            (_F32, (3,), "tensor"), (_F32, (6,), "tensor"),
+                            (_F32, (), "tensor"), (_F32, (3,), "tensor"),
+                            (_B8, (), "tensor"), (_B8, (), "tensor")]),
+    "moments": ("add", _I32, [(_F32, (3,), "agg"), (_F32, (6,), "agg"),
+                              (_F32, (), "agg"), (_F32, (), "agg")]),
+    "mixed": ("set", _I64, [(_F32, (3,), "strided"), (_I32, (), 0),
+                            (_B8, (), True), (_I64, (2,), "tensor"),
+                            (_I32, (3,), "strided")]),
+    "slot_rows": ("set", _I32, [(_I32, (64, 3), "tensor"),
+                                (_I32, (), "tensor"), (_B8, (), True)]),
+    "pieces": ("set", _I32, [(_F32, (4,), "tensor"), (_F32, (8,), "strided"),
+                             (_I64, (2,), "tensor"),
+                             (_F32, (48, 4), "tensor")]),
+    "single_f32": ("set", _I32, [(_F32, (), "tensor")]),
+    "single_f32x3": ("set", _I64, [(_F32, (3,), "tensor")]),
+    "single_strided": ("set", _I32, [(_F32, (6,), "strided")]),
+    "single_int32": ("set", _I64, [(_I32, (), "tensor")]),
+    "single_int32x3": ("set", _I32, [(_I32, (3,), "tensor")]),
+    "single_bool": ("set", _I32, [(_B8, (), "tensor")]),
+    "single_true": ("set", _I32, [(_B8, (), True)]),
+    "single_zero": ("set", _I32, [(_I32, (), 0)]),
+    "single_int64": ("set", _I32, [(_I64, (), "tensor")]),
+    "single_slot_row": ("set", _I32, [(_F32, (48, 3), "tensor")]),
+    "single_add": ("add", _I32, [(_F32, (), "strided")]),
+    "single_add_x3": ("add", _I32, [(_F32, (3,), "tensor")]),
+    "single_add_x6": ("add", _I64, [(_F32, (6,), "tensor")]),
+}
+# how each random call selects and targets its lanes
+RANDOM_MODES = ("some", "lanes2d", "none", "all", "out_of_range")
 
-        def rand(shape):
-            if dtype == torch.bool:
-                return torch.rand(shape, generator=g, device=dev) < 0.5
-            if dtype.is_floating_point:
-                return torch.randn(shape, generator=g, device=dev)
-            return torch.randint(-2 ** 30, 2 ** 30, shape, generator=g,
-                                 device=dev).to(dtype)
 
-        dst = rand((rows,) + row)
-        idx = torch.randperm(rows, generator=g, device=dev)[:n].to(idx_dtype)
-        ok = torch.rand(n, generator=g, device=dev) < 0.7
-        if src_kind == "none":
-            ok = torch.zeros_like(ok)
-        elif src_kind == "all":
-            ok = torch.ones_like(ok)
-        if src_kind in (True, 0):
-            src = src_kind
-        elif src_kind == "strided":  # a column block of a wider tensor
+def random_scatter(name, mode, g, lanes) -> Scatter:
+    """A random call (one field) or group of RANDOM_GROUPS[name] of
+    `lanes` lanes into 2 × lanes rows, made with g on its device."""
+    kind, idx_dtype, fields = RANDOM_GROUPS[name]
+    dev, rows = g.device, 2 * lanes
+
+    def rand(dtype, shape):
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=g, device=dev) < 0.5
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=g, device=dev)
+        return torch.randint(-2 ** 30, 2 ** 30, shape, generator=g,
+                             device=dev).to(dtype)
+
+    idx = torch.randperm(rows, generator=g, device=dev)[:lanes].to(idx_dtype)
+    ok = torch.rand(lanes, generator=g, device=dev) < 0.7
+    if mode == "none":
+        ok = torch.zeros_like(ok)
+    elif mode == "all":
+        ok = torch.ones_like(ok)
+    elif mode == "out_of_range":
+        # every third target from the end, every fifth outside [-rows,
+        # rows): read as the reference's mode="drop" does
+        lane = torch.arange(lanes, device=dev)
+        far = torch.where(lane % 2 == 0, rows + lane, -rows - 1 - lane)
+        idx = torch.where(lane % 3 == 0, idx - rows, idx)
+        idx = torch.where(lane % 5 == 0, far, idx).to(idx_dtype)
+    agg = rand(_F32, (lanes, 11))
+    cols = iter([agg[:, 0:3], agg[:, 3:9], agg[:, 9], agg[:, 10]])
+    dsts, srcs = [], []
+    for dtype, row, src in fields:
+        dsts.append(rand(dtype, (rows,) + row))
+        if src == "agg":
+            srcs.append(next(cols))
+        elif src == "strided":
             w = max(1, math.prod(row))
-            src = rand((n, w + 5))[:, 2:2 + w].reshape((n,) + row)
+            srcs.append(rand(dtype, (lanes, w + 5))[:, 2:2 + w]
+                        .reshape((lanes,) + row))
+        elif src == "tensor":
+            srcs.append(rand(dtype, (lanes,) + row))
         else:
-            src = rand((n,) + row)
-        if src_kind == "out_of_range":
-            # every third target from the end, every fifth outside
-            # [-rows, rows): read as the reference's mode="drop" does
-            lane = torch.arange(n, device=dev)
-            far = torch.where(lane % 2 == 0, rows + lane, -rows - 1 - lane)
-            idx = torch.where(lane % 3 == 0, idx - rows, idx)
-            idx = torch.where(lane % 5 == 0, far, idx).to(idx_dtype)
-        if src_kind == "lanes2d":
-            idx, ok = idx.reshape(n // 8, 8), ok.reshape(n // 8, 8)
-            src = src.reshape((n // 8, 8) + row)
-        kern, plain = scatter_versions(kind)
-        a, b = dst.clone(), dst.clone()
-        kern(a, idx, src, ok)
-        plain(b, idx, src, ok)
-        e = abs_err(a, b)
-        err = max(err, e)
-        if e:
-            raise AssertionError(f"scatter_drop {kind} {dtype} row {row} "
-                                 f"idx {idx_dtype} src {src_kind}: differs "
-                                 f"from its plain version by {e}")
-    log(f"[graph] scatter_drop on {len(cases)} random calls ({lanes} lanes, "
-        f"twice the threads {props.multi_processor_count} SMs hold; f32 "
-        f"rows of 1, 3, 6 and 144, int32, int64 and bool, scalar, strided "
-        f"and 2-D-lane src, no lane and every lane selected, targets from "
-        f"the end and out of range, set and add): "
+            srcs.append(src)
+    if mode == "lanes2d":
+        shape = (lanes // 8, 8)
+        idx, ok = idx.reshape(shape), ok.reshape(shape)
+        srcs = [x.reshape(shape + x.shape[1:]) if torch.is_tensor(x) else x
+                for x in srcs]
+    return Scatter(kind, len(fields) > 1, tuple(dsts), idx, tuple(srcs), ok)
+
+
+def scatter_random(dev) -> float:
+    """scatter_drop against its plain version on random calls and groups
+    of every dtype and row width the port uses (RANDOM_GROUPS), idx int32
+    and int64, scalar, strided and column-slice srcs, 16-byte pieces and
+    elements, each selecting its lanes in every RANDOM_MODES way, at the
+    path's 1,024 lanes and at twice the threads the card holds (each
+    thread takes several lanes; a 48th of that for slot-wide rows)."""
+    props = torch.cuda.get_device_properties(dev)
+    big = 2 * props.multi_processor_count * \
+        props.max_threads_per_multi_processor
+    err, n = 0.0, 0
+    for lanes in (1024, big):
+        g = torch.Generator(device=dev).manual_seed(16 + lanes)
+        for name, (_, _, fields) in RANDOM_GROUPS.items():
+            # rows of a slot's 144-192 words: a 48th of the lanes
+            wide = max(math.prod(row) for _, row, _ in fields) > 16
+            n_lanes = max(1024, lanes // 48) if wide else lanes
+            for mode in RANDOM_MODES:
+                c = random_scatter(name, mode, g, n_lanes)
+                err = max(err, check_scatter(
+                    c, f"random {name} ({mode}, {n_lanes} lanes)"))
+                n += 1
+    log(f"[graph] scatter_drop on {n} random calls and groups "
+        f"({len(RANDOM_GROUPS)} field sets x {len(RANDOM_MODES)} lane "
+        f"selections {RANDOM_MODES} at 1,024 lanes and at {big}, twice the "
+        f"threads {props.multi_processor_count} SMs hold; f32 rows of 1, 3, "
+        f"4, 6, 8 and 144-192 words, int32, int64 and bool, scalar, strided "
+        f"and column-slice srcs, groups of 2 to 8 fields, set and add): "
         f"each bit-identical to its plain version")
     return err
 
 
-def time_scatter(call, what: str) -> dict:
+def time_scatter(c: Scatter, what: str) -> dict:
     """Device µs of one launch, one wrapper call and the plain version on a
-    recorded call, beside its bound; 0 host syncs a call."""
+    recorded call or group, beside its bound; for a group also its fields
+    as single launches, one after the other; 0 host syncs a call."""
     from immesh_tpu_torch.kernels import scatter_drop as sd
     from immesh_tpu_torch.utils.timers import profile_counts
-    kind, dst0, idx, src, ok = call
-    kern, plain = scatter_versions(kind)
-    dst = dst0.clone()
+    kern, plain = scatter_versions(c)
+    dsts = [d.clone() for d in c.dsts]
     lib = sd._library()
-    _, counts = profile_counts(lambda: kern(dst, idx, src, ok))
-    ms = device_ms(lambda: sd.launch(lib, dst, idx, src, ok, kind == "add"))
-    wrapper_ms = event_ms(lambda: kern(dst, idx, src, ok), 50)
-    plain_ms = event_ms(lambda: plain(dst, idx, src, ok), 20)
-    bound_ms, bound_by = scatter_bound_ms(kind, dst, idx, src, ok)
-    log(f"[graph] {what}: scatter_drop {kind} of {ok.numel()} lanes "
-        f"({int(ok.sum())} selected) into {tuple(dst.shape)} {dst.dtype}: "
-        f"kernel {1e3 * ms:.2f} us (device time, median of 5 x 50 "
-        f"launches), wrapper call {1e3 * wrapper_ms:.2f} us (median of 50), "
-        f"plain version {1e3 * plain_ms:.1f} us, bound "
-        f"{1e3 * bound_ms:.4f} us ({bound_by}); one call under "
-        f"torch.profiler: {counts['launches']} launches, {counts['syncs']} "
-        f"syncs, {counts['copies']} copies")
+    add = c.kind == "add"
+    args = (dsts, c.idx, c.srcs, c.ok)
+    _, counts = profile_counts(lambda: kern(*args))
+    ms = device_ms(lambda: sd.launch_group(lib, *args, add))
+    wrapper_ms = event_ms(lambda: kern(*args), 50)
+    plain_ms = event_ms(lambda: plain(*args), 20)
+    bound_ms, bound_by = scatter_bound_ms(c)
+    out = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "lanes": c.ok.numel(), "fields": len(dsts),
+           "syncs_per_call": counts["syncs"]}
+    # a launch that selects no lane: the kernel's floor on this card
+    none = torch.zeros_like(c.ok)
+    out["no_lane_ms"] = device_ms(lambda: sd.launch_group(
+        lib, dsts, c.idx, c.srcs, none, add))
+    note = f"; with no lane selected {1e3 * out['no_lane_ms']:.2f} us"
+    if len(dsts) > 1:
+        out["singles_ms"] = sum(
+            device_ms(lambda: sd.launch(lib, d, c.idx, x, c.ok, add))
+            for d, x in zip(dsts, c.srcs))
+        note += (f"; its {len(dsts)} fields as single launches, the sum of "
+                 f"their times, {1e3 * out['singles_ms']:.2f} us")
+    log(f"[graph] {what}: scatter_drop {c.label()}, {c.ok.numel()} lanes "
+        f"({int(c.ok.sum())} selected) into {dsts[0].shape[0]} rows: kernel "
+        f"{1e3 * ms:.2f} us (device time, median of 5 x 50 launches){note}, "
+        f"wrapper call {1e3 * wrapper_ms:.2f} us (median of 50), plain "
+        f"version {1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.4f} us "
+        f"({bound_by}); one call under torch.profiler: {counts['launches']} "
+        f"launches, {counts['syncs']} syncs, {counts['copies']} copies")
     if counts["syncs"] != 0:
         raise AssertionError(f"{what}: scatter_drop waited on the card")
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": ok.numel(),
-            "syncs_per_call": counts["syncs"]}
+    return out
 
 
-def costliest_scatter(calls):
-    """The recorded call that moves the most bytes (its bound)."""
-    return max(calls, key=lambda c: scatter_bound_ms(*c)[0])
+def costliest_scatter(calls, group=None):
+    """The recorded call that moves the most bytes (its bound); only
+    groups, or only single calls, where `group` says so."""
+    return max((c for c in calls if group is None or c.group == group),
+               key=lambda c: scatter_bound_ms(c)[0])
 
 
 def phase_graph(dev, main_info, scatters) -> dict:
@@ -3784,6 +3932,7 @@ def phase_graph(dev, main_info, scatters) -> dict:
         record_at=(*GRAPH_COMPACT_AT, last))
     (graph,) = cap.captured.graphs
     path_counts("graph_kitti", counts, graphs=[graph], kernels=LIO_KERNELS)
+    forms = captured_forms([graph], "graph")
     nodes = graph.nodes()
     # launches and copies: a recorder's copy inside phase 4's capture would
     # add memcpy (or copy-kernel) nodes.  Other node types are left out: a
@@ -3821,8 +3970,10 @@ def phase_graph(dev, main_info, scatters) -> dict:
         f"frame again): eager {prof['eager']}, captured {prof['captured']}; "
         f"the graph's nodes {nodes}, its kernels, copies and sets as "
         f"phase 4's {main_info['graph_nodes']}; per frame "
-        f"{counts['runs']['scatter_drop'] / len(frames):.1f} scatter_drop "
-        f"runs on the device on the captured path ({counts}); the masked "
+        f"{counts['runs']['scatter_drop'] / len(frames):.2f} scatter_drop "
+        f"and {counts['runs']['hash_insert'] / len(frames):.2f} hash_insert "
+        f"runs on the device on the captured path ({counts}; the inserts "
+        f"recorded into the graph by form {forms}); the masked "
         f"form's dead work "
         f"over the {len(frames)} frames: {n_body} ESIKF bodies after "
         f"convergence x {dead['body_ms']:.3f} ms busy and {n_level} empty "
@@ -3840,6 +3991,7 @@ def phase_graph(dev, main_info, scatters) -> dict:
         dev, acfg, aframes, 3, (GRAPH_AVIA_COMPACT_AT,), static=static,
         runtime=True)
     path_counts("graph_avia", acounts, graphs=pipe_graphs(acap))
+    captured_forms(pipe_graphs(acap), "graph: Avia")
     avia = graph_summary("Avia ImMeshRuntime (LIO and mesh)", arows, 3, acfg)
     _, aprof = profile_counts(lambda: acap.lio.advance(aframes[-1]))
     if aprof["syncs"] != 0:
@@ -3860,8 +4012,12 @@ def phase_graph(dev, main_info, scatters) -> dict:
     err = max(err, scatter_random(dev))
     entry = time_scatter(costliest_scatter(scatters[max(scatters)]),
                          f"phase 4's last frame's costliest call")
-    time_scatter(costliest_scatter(lio_calls[last]),
-                 "the KITTI LIO's costliest call (its last frame)")
+    entry["slot_row_set"] = time_scatter(
+        costliest_scatter(scatters[max(scatters)], group=False),
+        "phase 4's last frame's costliest single call (a slot-row set)")
+    entry["lio_group"] = time_scatter(
+        costliest_scatter(lio_calls[last], group=True),
+        "the KITTI LIO's costliest group (its last frame)")
     log(f"[graph] phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return {"name": "scatter_drop", "route": "cuda",
             "source": "immesh_tpu_torch/csrc/scatter_drop.cu",
@@ -4070,6 +4226,13 @@ def phase_mesh_graph(dev, main_info) -> dict:
     rows, counts, (eager, cap) = run_mesh_pair(dev, make_joint, frames,
                                                GRAPH_COMPACT_AT, ())
     path_counts("mesh_graph_kitti", counts, graphs=pipe_graphs(cap))
+    forms = captured_forms(pipe_graphs(eager) + pipe_graphs(cap),
+                           "mesh graph")
+    log(f"[mesh graph] KITTI: per frame (the captured pipeline) "
+        + ", ".join(f"{counts['runs'][k] / len(frames):.2f} {k}"
+                    for k in ("scatter_drop", "hash_insert"))
+        + f" runs on the device ({counts}); the inserts recorded into the "
+        f"three graphs by form {forms}")
     (g,) = cap.mesh.captured.graphs
     same = ("kernel", "memcpy", "memset")
     nodes = g.nodes()
@@ -4115,6 +4278,7 @@ def phase_mesh_graph(dev, main_info) -> dict:
         dev, make_runtime, aframes, (GRAPH_AVIA_COMPACT_AT,),
         (GRAPH_AVIA_COMPACT_AT,))
     path_counts("mesh_graph_avia", acounts, graphs=pipe_graphs(acap))
+    captured_forms(pipe_graphs(aeager) + pipe_graphs(acap), "mesh graph: Avia")
     world = acap.lio.state.transform_points(aframes[-1].pts)
     avia = mesh_graph_summary("Avia ImMeshRuntime", arows, 3, aeager, acap,
                               (world, aframes[-1].mask, acap.lio.state.pos))

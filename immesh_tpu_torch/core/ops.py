@@ -3,7 +3,9 @@
 JAX's `mode="drop"` scatters skip out-of-bounds targets silently; torch
 raises on them, so every such scatter here takes an explicit lane mask.
 The scatters are kernels/scatter_drop.py's: its plain version for CPU
-tensors, one launch of its CUDA kernel for CUDA tensors, with no host read.
+tensors, one launch of its CUDA kernel for CUDA tensors, with no host read;
+the _group forms write several fields that share one (idx, ok) in one
+launch.
 Segment sums are taken without atomics (a stable sort by segment, then a
 segmented reduction), so the f32 result is the same on every run instead of
 depending on the order in which CUDA atomics land.
@@ -47,6 +49,25 @@ def add_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
         scatter_drop.add_plain(dst, idx, src, ok)
     else:
         scatter_drop.add_cuda(dst, idx, src, ok)
+
+
+def set_drop_group(dsts, idx: torch.Tensor, srcs, ok: torch.Tensor) -> None:
+    """set_drop(dsts[f], idx, srcs[f], ok) for every field f, in one kernel
+    launch on the card: up to 8 dsts of one row count, no src sharing
+    memory with a dst (kernels/scatter_drop.py::check_group)."""
+    if ok.device.type == "cpu":
+        scatter_drop.set_group_plain(dsts, idx, srcs, ok)
+    else:
+        scatter_drop.set_group_cuda(dsts, idx, srcs, ok)
+
+
+def add_drop_group(dsts, idx: torch.Tensor, srcs, ok: torch.Tensor) -> None:
+    """add_drop(dsts[f], idx, srcs[f], ok) for every field f, in one kernel
+    launch on the card (f32; as set_drop_group)."""
+    if ok.device.type == "cpu":
+        scatter_drop.add_group_plain(dsts, idx, srcs, ok)
+    else:
+        scatter_drop.add_group_cuda(dsts, idx, srcs, ok)
 
 
 def nan_where_failed(x: torch.Tensor, info: torch.Tensor) -> torch.Tensor:

@@ -21,21 +21,36 @@
 // is exactly the batched loop's result.  Fingerprints only, as in the
 // reference: a collision inside a chain aliases the lookup.
 //
-// hash_insert_kernel: the reference's round-synchronous find-or-insert of
-// unique keys.  In round r every unresolved lane reads `keys` as round r - 1
-// left them; a full-key match takes that slot; among the lanes that attempt
-// one empty slot the lowest lane id wins and writes keys and fp in place; the
+// The insert: the reference's round-synchronous find-or-insert of unique
+// keys.  In round r every unresolved lane reads `keys` as round r - 1 left
+// them; a full-key match takes that slot; among the lanes that attempt one
+// empty slot the lowest lane id wins and writes keys and fp in place; the
 // loop ends when no lane is unresolved or after max_probe rounds.  A per-lane
 // atomicCAS loop (first to arrive wins) would give another slot layout, so
-// the rounds are kept, as
-//   * one cooperative launch (cudaLaunchCooperativeKernel), lanes taken
-//     grid-stride by a grid of as many blocks as can be resident at once,
-//     two grid.sync() a round: (A) read keys and claim, | (B) winner check
-//     and key write, count unresolved lanes, | exit test.  One launch a call
-//     and no host read at all; the alternative, up to max_probe launches of
-//     a round kernel that each return at once when a device counter reads
-//     zero, pays a launch and its host time for every round up to max_probe
-//     instead of one grid barrier for every round actually run.
+// the rounds are kept, in one launch a call with no host read, each round
+// two barriers: (A) read keys and claim, | (B) winner check and key write,
+// gather the open flag, | exit test.  The result is defined by the rounds,
+// not by the thread mapping, so both forms below give the same bits:
+//   * hash_insert_cluster_kernel, for u <= kClusterMaxLanes (16,384, every
+//     per-frame insert of the LIO and mesh steps): one thread block of up to
+//     1,024 threads, or one thread-block cluster of 2, 4 or 8 such blocks
+//     (cudaLaunchKernelEx with a cluster dimension), each thread owning up
+//     to two lanes for the whole call; the barriers are __syncthreads() and
+//     cluster.sync(), never a grid barrier.  A lane's key, slot and state
+//     stay in the registers of the one thread that owns it in every phase.
+//     The round's open flag is __syncthreads_or in the one-block form; in
+//     a cluster every warp with an open lane raises it in each block's
+//     shared memory over distributed shared memory (two words used by
+//     parity, each cleared a round before its next use), so each block
+//     reads its own copy after the barrier.  A thread issues the loads of
+//     its lanes together and reads a key row as one 16-byte load.
+//   * hash_insert_kernel, for larger u (a compaction's rebuild, 131,072
+//     lanes): one cooperative launch (cudaLaunchCooperativeKernel), lanes
+//     taken grid-stride by a grid of as many blocks as can be resident at
+//     once, two grid.sync() a round.  Its per-lane state lives in the `new`
+//     output's bytes until the last pass turns it into the flag, and the
+//     round flags in a (max_probe,) scratch.
+// Both:
 //   * The claim tournament runs on fp itself, with no scratch to allocate or
 //     restore: an attempted slot is empty (keys[s][0] == EMPTY and fp[s] == 0,
 //     as every insert writes both), so each attempting lane i does
@@ -43,12 +58,13 @@
 //     reads its own value back is the lowest and writes keys[s]; its
 //     fingerprint goes into fp[s] in the next round's phase A (or after the
 //     loop), when no lane reads fp and none claims s, because s no longer
-//     reads as empty.
-//   * Per-lane state lives in the `new` output's bytes until the last pass
-//     turns it into the flag; slots start at -1 (invalid lanes, exhaustion).
+//     reads as empty.  Slots start at -1 (invalid lanes, exhaustion).
 //   * Data written by other blocks during the launch (keys, fp, the round
 //     flags) is read with ld.global.cg, from L2, never from a stale L1 line.
-//
+//   * The host-side queries a launch needs (cooperative launch support, the
+//     resident blocks, the clusters that fit) are made once per device and
+//     cached.
+
 // Thread 0 of block 0 of either kernel adds one to its device counter,
 // g_runs[0] (lookup) or g_runs[1] (insert): the kernels' runs on the device,
 // eager or replayed in a CUDA graph, read back by hash_probe_runs.
@@ -56,8 +72,9 @@
 // Cost: both are bound by memory latency, not by bytes or operations: every
 // probe round is one dependent random 32-byte sector per lane (fp for a
 // lookup, the 16-byte key row for an insert), and the insert adds an atomic
-// per attempt and two grid barriers a round.  At the plane map's ~10 % load
-// nearly every lane resolves in one or two rounds.
+// per attempt and two barriers a round: a block's or a cluster's at the
+// step's sizes, where a grid barrier cost more than the work.  At the plane
+// map's ~10 % load nearly every lane resolves in one or two rounds.
 
 #include <climits>
 #include <cstdint>
@@ -71,6 +88,14 @@ namespace {
 
 constexpr int32_t kEmpty = 0x7FFFFFFF;
 constexpr int kThreads = 256;
+// the cluster form: blocks of up to kClusterThreads threads, each thread up
+// to kLanesPerThread lanes, clusters of up to kMaxCluster blocks
+constexpr int kClusterThreads = 1024;
+constexpr int kLanesPerThread = 2;
+constexpr int kLanesPerBlock = kClusterThreads * kLanesPerThread;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kClusterMaxLanes = kMaxCluster * kLanesPerBlock;
+constexpr int kMaxDevices = 64;
 
 // runs of the lookup (0) and insert (1) kernels on the current device since
 // the last hash_probe_reset_runs
@@ -210,13 +235,150 @@ hash_insert_kernel(const int32_t* __restrict__ coords,
   }
 }
 
-// blocks of hash_insert_kernel that can be resident on the current device
-// at once (host-side queries, a few microseconds)
-int resident_blocks(int* out) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+// One block (kCluster false) or one cluster of gridDim.x blocks: lanes
+// [b * per_block, (b + 1) * per_block) to block b, lane lo + t + j * blockDim
+// to thread t (j < kLanesPerThread).  The same rounds as hash_insert_kernel;
+// a thread issues the loads of all its lanes before it uses any, and reads
+// a key row as one 16-byte load (rows are only written in phase B).
+template <bool kCluster>
+__global__ void __launch_bounds__(kClusterThreads)
+hash_insert_cluster_kernel(const int32_t* __restrict__ coords,
+                           const uint8_t* __restrict__ valid, int u,
+                           int32_t* keys, int32_t* fp, uint32_t mask,
+                           int max_probe, int per_block,
+                           int32_t* __restrict__ slot_out,
+                           uint8_t* __restrict__ new_out) {
+  // this block's copy of a round's open flag, by parity (cluster form)
+  __shared__ int s_open[2];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[1], 1ULL);
+  const int lo = blockIdx.x * per_block;
+  const int hi = min(u, lo + per_block);
+  Key key[kLanesPerThread];
+  uint32_t h0[kLanesPerThread], fq[kLanesPerThread], cand[kLanesPerThread];
+  int32_t slot[kLanesPerThread];
+  uint8_t st[kLanesPerThread];
+  bool has[kLanesPerThread];
+#pragma unroll
+  for (int j = 0; j < kLanesPerThread; ++j) {
+    const int i = lo + threadIdx.x + j * blockDim.x;
+    has[j] = i < hi;
+    slot[j] = -1;
+    cand[j] = 0;
+    st[j] = kDone;
+    if (has[j]) {
+      key[j] = load_key(coords, i);
+      h0[j] = slot_hash(key[j]) & mask;
+      fq[j] = fingerprint(key[j]);
+      st[j] = valid[i] ? kOpen : kDone;
+    }
+  }
+  if constexpr (kCluster) {
+    if (threadIdx.x < 2) s_open[threadIdx.x] = 0;
+    cg::this_cluster().sync();  // every block started, the flags cleared
+  }
+
+  for (int r = 0; r < max_probe; ++r) {
+    // (A) read keys as the last round left them; match, or claim an empty slot
+    int4 row[kLanesPerThread];
+#pragma unroll
+    for (int j = 0; j < kLanesPerThread; ++j) {
+      if (st[j] == kOpen) {
+        cand[j] = (h0[j] + static_cast<uint32_t>(r) * fq[j]) & mask;
+        row[j] = __ldcg(reinterpret_cast<const int4*>(keys) + cand[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLanesPerThread; ++j) {
+      const int i = lo + threadIdx.x + j * blockDim.x;
+      if (st[j] == kWonPending) {  // last round's winner: its fingerprint now
+        fp[slot[j]] = static_cast<int32_t>(fq[j]);
+        st[j] = kWon;
+      } else if (st[j] == kOpen) {
+        if (row[j].x == key[j].c0 && row[j].y == key[j].c1 &&
+            row[j].z == key[j].c2 && row[j].w == key[j].c3) {
+          slot[j] = static_cast<int32_t>(cand[j]);
+          st[j] = kDone;
+        } else if (row[j].x == kEmpty) {
+          atomicMin(fp + cand[j], INT_MIN + i);
+          st[j] = kAttempt;
+        }
+      }
+    }
+    if constexpr (kCluster) cg::this_cluster().sync(); else __syncthreads();
+    // (B) the lowest claimant of each slot writes its key; gather the open
+    int32_t claim[kLanesPerThread];
+#pragma unroll
+    for (int j = 0; j < kLanesPerThread; ++j)
+      if (st[j] == kAttempt) claim[j] = __ldcg(fp + cand[j]);
+    bool open = false;
+#pragma unroll
+    for (int j = 0; j < kLanesPerThread; ++j) {
+      const int i = lo + threadIdx.x + j * blockDim.x;
+      if (st[j] == kAttempt) {
+        if (claim[j] == INT_MIN + i) {
+          *reinterpret_cast<int4*>(keys + 4 * static_cast<int64_t>(cand[j])) =
+              make_int4(key[j].c0, key[j].c1, key[j].c2, key[j].c3);
+          slot[j] = static_cast<int32_t>(cand[j]);
+          st[j] = kWonPending;
+        } else {
+          st[j] = kOpen;
+          open = true;
+        }
+      } else if (st[j] == kOpen) {
+        open = true;
+      }
+    }
+    if constexpr (kCluster) {
+      // a warp with an open lane raises the flag in every block's shared
+      // memory; each block clears its flag of round r + 1, last read before
+      // this round's first barrier and next raised after its second
+      cg::cluster_group cluster = cg::this_cluster();
+      const int lane = threadIdx.x & 31;
+      if (threadIdx.x == 0) s_open[(r + 1) & 1] = 0;
+      if (__any_sync(0xffffffffu, open) &&
+          lane < static_cast<int>(cluster.num_blocks()))
+        cluster.map_shared_rank(s_open, lane)[r & 1] = 1;
+      cluster.sync();
+      if (*reinterpret_cast<volatile int*>(s_open + (r & 1)) == 0) break;
+    } else {
+      if (!__syncthreads_or(open)) break;  // every thread gets the same value
+    }
+  }
+  // the last winners' fingerprints, and the outputs
+#pragma unroll
+  for (int j = 0; j < kLanesPerThread; ++j) {
+    if (!has[j]) continue;
+    const int i = lo + threadIdx.x + j * blockDim.x;
+    if (st[j] == kWonPending) fp[slot[j]] = static_cast<int32_t>(fq[j]);
+    slot_out[i] = slot[j];
+    new_out[i] = (st[j] == kWonPending || st[j] == kWon) ? 1 : 0;
+  }
+  // every write into another block's shared memory was made before the
+  // last cluster barrier, so a block may leave now
+}
+
+// per device, cached at first use: blocks of hash_insert_kernel resident at
+// once (0: not yet known), and whether a cluster of 2^k blocks of
+// hash_insert_cluster_kernel fits (0 unknown, 1 yes)
+int g_resident[kMaxDevices];
+int g_cluster_fits[kMaxDevices][4];
+
+int current_device(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err == cudaSuccess && (*dev < 0 || *dev >= kMaxDevices))
+    err = cudaErrorInvalidDevice;
+  return static_cast<int>(err);
+}
+
+// blocks of hash_insert_kernel that can be resident on device dev at once
+int resident_blocks(int dev, int* out) {
+  if (g_resident[dev] > 0) {
+    *out = g_resident[dev];
+    return 0;
+  }
+  int coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -224,8 +386,43 @@ int resident_blocks(int* out) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, hash_insert_kernel, kThreads, 0);
   if (err == cudaSuccess && per_sm * sms <= 0) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess) g_resident[dev] = per_sm * sms;
   *out = per_sm * sms;
   return static_cast<int>(err);
+}
+
+// one cluster of `blocks` blocks: refused unless the device can hold one
+int launch_cluster(int dev, int blocks, int per_block, const int32_t* coords,
+                   const uint8_t* valid, int u, int32_t* keys, int32_t* fp,
+                   uint32_t mask, int max_probe, int32_t* slot,
+                   uint8_t* new_flag, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int k = 0;
+  while ((2 << k) <= blocks) ++k;  // blocks = 2^k
+  if (!g_cluster_fits[dev][k]) {
+    int clusters = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(
+        &clusters, hash_insert_cluster_kernel<true>, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    g_cluster_fits[dev][k] = 1;
+  }
+  cudaError_t e = cudaLaunchKernelEx(&cfg, hash_insert_cluster_kernel<true>,
+                                     coords, valid, u, keys, fp, mask,
+                                     max_probe, per_block, slot, new_flag);
+  cudaError_t last = cudaGetLastError();  // clears the launch's error, if any
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 }  // namespace
@@ -243,28 +440,56 @@ extern "C" int hash_lookup_launch(const int32_t* coords, const int32_t* fp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The largest u the cluster form takes (path 1); larger inserts take the
+// cooperative form (path 0).
+extern "C" int hash_insert_cluster_max_lanes() { return kClusterMaxLanes; }
+
 // coords (u, 4) int32, valid (u,) bool, keys (capacity, 4) and fp
-// (capacity,) int32 updated in place -> slot (u,) int32, new (u,) bool;
-// open_flag is (max_probe,) int32 scratch.
+// (capacity,) int32 updated in place -> slot (u,) int32, new (u,) bool.
+// path 1: one block (u <= kLanesPerBlock) or one cluster of 2, 4 or 8
+// blocks (u <= kClusterMaxLanes, else cudaErrorInvalidValue); path 0: the
+// cooperative grid, with open_flag a (max_probe,) int32 scratch.
 extern "C" int hash_insert_launch(const int32_t* coords, const uint8_t* valid,
                                   int u, int32_t* keys, int32_t* fp,
                                   int capacity, int max_probe, int32_t* slot,
                                   uint8_t* new_flag, int32_t* open_flag,
-                                  void* stream) {
-  if (u < 0 || capacity <= 0 || (capacity & (capacity - 1)) != 0 || max_probe < 0)
+                                  int path, void* stream) {
+  if (u < 0 || capacity <= 0 || (capacity & (capacity - 1)) != 0 ||
+      max_probe < 0 || (path != 0 && path != 1) ||
+      (path == 1 && u > kClusterMaxLanes) ||
+      (path == 0 && max_probe > 0 && open_flag == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (u == 0) return 0;
+  int dev = 0;
+  int err = current_device(&dev);
+  if (err != 0) return err;
+  uint32_t mask = static_cast<uint32_t>(capacity - 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    int blocks = 1;
+    while (blocks * kLanesPerBlock < u) blocks *= 2;
+    if (blocks == 1) {
+      const int per_thread = (u + kClusterThreads - 1) / kClusterThreads;
+      int threads = (u + per_thread - 1) / per_thread;
+      threads = (threads + 31) / 32 * 32;
+      hash_insert_cluster_kernel<false><<<1, threads, 0, s>>>(
+          coords, valid, u, keys, fp, mask, max_probe, u, slot, new_flag);
+      return static_cast<int>(cudaGetLastError());
+    }
+    return launch_cluster(dev, blocks, (u + blocks - 1) / blocks, coords,
+                          valid, u, keys, fp, mask, max_probe, slot, new_flag,
+                          s);
+  }
   int resident = 0;
-  int err = resident_blocks(&resident);
+  err = resident_blocks(dev, &resident);
   if (err != 0) return err;
   int blocks = (u + kThreads - 1) / kThreads;
   if (blocks > resident) blocks = resident;
-  uint32_t mask = static_cast<uint32_t>(capacity - 1);
   void* args[] = {&coords, &valid, &u, &keys, &fp, &mask, &max_probe,
                   &slot, &new_flag, &open_flag};
   cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(hash_insert_kernel), dim3(blocks),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+      dim3(kThreads), args, 0, s);
   cudaError_t last = cudaGetLastError();  // clears the launch's error, if any
   return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -17,7 +17,12 @@ immesh_tpu/map/hash.py's HashTable.lookup (:127) and HashTable.insert
     slot the lowest lane id wins and writes keys and fp in place.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel in csrc/hash_probe.cu or raises — there is no fallback.
+kernel in csrc/hash_probe.cu or raises — there is no fallback.  An insert
+of u lanes takes one of the kernel's two forms by u alone (insert_path):
+up to CLUSTER_MAX_LANES one thread block or one thread-block cluster with
+block and cluster barriers ("cluster"; every per-frame insert), above it
+one cooperative launch with grid barriers ("grid"; a compaction's
+rebuild).  Both give the same bits; a refused launch raises.
 
 Counts, by kernel: `launches` the launches the wrappers made, `captured`
 those they recorded into a CUDA graph under stream capture (they run at
@@ -43,12 +48,18 @@ _P3 = 83492791
 _P4 = 3145739
 
 EMPTY = 0x7FFFFFFF  # sentinel coordinate for unoccupied slots
+# the largest insert the cluster form takes: a cluster of 8 blocks of 1,024
+# threads, two lanes a thread (csrc/hash_probe.cu's kClusterMaxLanes)
+CLUSTER_MAX_LANES = 16384
+INSERT_PATHS = {"grid": 0, "cluster": 1}  # the C entry point's `path`
 _NOWIN = 0x3FFFFFFF  # the plain insert's claim scratch when no lane claims
 
 # kernel launches by kernel since the last reset_launches(), and those
 # recorded into a CUDA graph since then
 launches = {"hash_lookup": 0, "hash_insert": 0}
 captured = {"hash_lookup": 0, "hash_insert": 0}
+# the insert launches recorded into a CUDA graph since then, by form
+captured_paths = {"grid": 0, "cluster": 0}
 _build.register_captured(lambda: dict(captured))
 _devices = set()  # the CUDA devices the kernels were launched on
 
@@ -57,6 +68,8 @@ def reset_launches() -> None:
     """launches, captured and the device's run counters to 0."""
     for name in launches:
         launches[name] = captured[name] = 0
+    for path in captured_paths:
+        captured_paths[path] = 0
     if _lib is not None:
         _build.reset_runs(_lib, NAME, _devices)
 
@@ -169,9 +182,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     csrc/hash_probe.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hash_lookup_launch.argtypes = [p, p, i, i, i, p, p]
-    lib.hash_insert_launch.argtypes = [p, p, i, p, p, i, i, p, p, p, p]
+    lib.hash_insert_launch.argtypes = [p, p, i, p, p, i, i, p, p, p, i, p]
     lib.hash_lookup_launch.restype = i
     lib.hash_insert_launch.restype = i
+    lib.hash_insert_cluster_max_lanes.argtypes = []
+    lib.hash_insert_cluster_max_lanes.restype = i
+    if lib.hash_insert_cluster_max_lanes() != CLUSTER_MAX_LANES:
+        raise RuntimeError(f"{NAME}: the library's cluster form takes "
+                           f"{lib.hash_insert_cluster_max_lanes()} lanes, "
+                           f"CLUSTER_MAX_LANES says {CLUSTER_MAX_LANES}")
     _build.bind_runs(lib, NAME)
     return lib
 
@@ -209,18 +228,31 @@ def _launch_lookup(lib, coords, fp, max_probe: int, slot) -> None:
     _check(err, "hash_lookup", coords.device, capturing)
 
 
+def insert_path(u: int) -> str:
+    """The insert kernel's form for u lanes: "cluster" (one block, or one
+    cluster of 2, 4 or 8 blocks) up to CLUSTER_MAX_LANES, else "grid" (the
+    cooperative launch)."""
+    return "cluster" if u <= CLUSTER_MAX_LANES else "grid"
+
+
 def _launch_insert(lib, coords, valid, keys, fp, max_probe: int, slot, new,
-                   flags) -> None:
-    """One counted insert launch on the current stream (flags: (max_probe,)
-    int32 scratch), without checks."""
+                   flags, path: str = None) -> None:
+    """One counted insert launch on the current stream, without checks, in
+    the form `path` (insert_path's by default; flags: (max_probe,) int32
+    scratch of the "grid" form, None for the other)."""
+    path = insert_path(coords.shape[0]) if path is None else path
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.hash_insert_launch(
             coords.data_ptr(), valid.data_ptr(), coords.shape[0],
             keys.data_ptr(), fp.data_ptr(), fp.shape[0], max_probe,
-            slot.data_ptr(), new.data_ptr(), flags.data_ptr(), stream)
+            slot.data_ptr(), new.data_ptr(),
+            None if flags is None else flags.data_ptr(), INSERT_PATHS[path],
+            stream)
         capturing = torch.cuda.is_current_stream_capturing()
     _check(err, "hash_insert", coords.device, capturing)
+    if capturing:
+        captured_paths[path] += 1
 
 
 def _check_inputs(dev, specs) -> None:
@@ -261,23 +293,30 @@ def lookup_cuda(coords: torch.Tensor, fp: torch.Tensor,
 
 
 def insert_cuda(coords: torch.Tensor, valid: torch.Tensor, keys: torch.Tensor,
-                fp: torch.Tensor, max_probe: int):
+                fp: torch.Tensor, max_probe: int, path: str = None):
     """Launch the insert kernel: same arguments, in-place updates and result
-    as insert_plain, on one CUDA device."""
+    as insert_plain, on one CUDA device; in insert_path's form, or in
+    `path` (the "cluster" form refuses more than CLUSTER_MAX_LANES)."""
     cap = _check_table(fp, max_probe)
     u = coords.shape[0]
     _check_inputs(coords.device, (("coords", coords, torch.int32, (u, 4)),
                                   ("valid", valid, torch.bool, (u,)),
                                   ("keys", keys, torch.int32, (cap, 4)),
                                   ("fp", fp, torch.int32, (cap,))))
+    if keys.data_ptr() % 16:
+        raise ValueError("keys must be 16-byte aligned (one row a load)")
     dev = coords.device
     slot = torch.empty(u, dtype=torch.int32, device=dev)
     new = torch.empty(u, dtype=torch.bool, device=dev)
     if u == 0:
         return slot, new
-    flags = torch.empty(max_probe, dtype=torch.int32, device=dev)
+    path = insert_path(u) if path is None else path
+    if path not in INSERT_PATHS:
+        raise ValueError(f"path {path!r} is none of {sorted(INSERT_PATHS)}")
+    flags = (torch.empty(max_probe, dtype=torch.int32, device=dev)
+             if path == "grid" else None)
     _launch_insert(_library(), coords, valid, keys, fp, max_probe, slot, new,
-                   flags)
+                   flags, path)
     return slot, new
 
 

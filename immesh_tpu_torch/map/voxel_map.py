@@ -20,7 +20,8 @@ import torch
 
 from immesh_tpu_torch.config import VoxelMapConfig
 from immesh_tpu_torch.core.geometry import plane_from_moments
-from immesh_tpu_torch.core.ops import add_drop, segment_sum, set_drop
+from immesh_tpu_torch.core.ops import (add_drop_group, segment_sum,
+                                      set_drop_group)
 from immesh_tpu_torch.device import resolve_device
 from immesh_tpu_torch.map.hash import (
     EMPTY, HashTable, frame_unique_coords, voxel_coords)
@@ -177,10 +178,9 @@ class VoxelMap:
         frozen = torch.where(ok, self.count[sl] >= cfg.max_points_per_voxel,
                              True)
         add = ok & ~frozen
-        add_drop(self.sum_p, slots, agg[:, 0:3], add)
-        add_drop(self.sum_ppT, slots, agg[:, 3:9], add)
-        add_drop(self.count, slots, agg[:, 9], add)
-        add_drop(self.sigma2_sum, slots, agg[:, 10], add)
+        add_drop_group([self.sum_p, self.sum_ppT, self.count,
+                        self.sigma2_sum], slots,
+                       [agg[:, 0:3], agg[:, 3:9], agg[:, 9], agg[:, 10]], add)
         return self._refit(slots, ok, level)
 
     def _update_level(self, pts, sigma2, mask, level: int, max_voxels: int
@@ -203,16 +203,15 @@ class VoxelMap:
             min_count=cfg.min_plane_points, anchor=anchor,
         )
         planar = fit["valid"] & (fit["lam"][..., 0] < cfg.planer_threshold)
-        set_drop(self.normal, slots, fit["normal"], ok)
-        set_drop(self.d, slots, fit["d"], ok)
-        set_drop(self.center, slots, fit["center"], ok)
-        set_drop(self.cov_nn, slots, _sym_pack(fit["cov_nn"]), ok)
-        set_drop(self.var_c, slots, fit["var_c"], ok)
-        set_drop(self.lam, slots, fit["lam"], ok)
-        set_drop(self.plane_valid, slots, planar, ok)
+        dsts = [self.normal, self.d, self.center, self.cov_nn, self.var_c,
+                self.lam, self.plane_valid]
+        srcs = [fit["normal"], fit["d"], fit["center"],
+                _sym_pack(fit["cov_nn"]), fit["var_c"], fit["lam"], planar]
         if level < cfg.max_layers - 1:
             # non-finest levels spill to children when the fit is not planar
-            set_drop(self.subdivided, slots, fit["valid"] & ~planar, ok)
+            dsts.append(self.subdivided)
+            srcs.append(fit["valid"] & ~planar)
+        set_drop_group(dsts, slots, srcs, ok)
         return self
 
     # ==================================================================
@@ -298,11 +297,14 @@ class VoxelMap:
                                  device=keys.device)
         slots, _ = fresh.insert(keys, keep)
         ok = keep & (slots >= 0)
-        for name in self._FIELDS:
-            src = getattr(self, name)
-            out = torch.zeros_like(src)
-            set_drop(out, slots, src, ok)
-            src.copy_(out)
+        # one scatter a group of at most 8 fields into zeroed copies, then
+        # the copies back into the same tensors
+        for names in (self._MOMENTS, self._FIELDS[len(self._MOMENTS):]):
+            srcs = [getattr(self, n) for n in names]
+            outs = [torch.zeros_like(x) for x in srcs]
+            set_drop_group(outs, slots, srcs, ok)
+            for x, out in zip(srcs, outs):
+                x.copy_(out)
         self.table.keys.copy_(fresh.keys)
         self.table.fp.copy_(fresh.fp)
         return self

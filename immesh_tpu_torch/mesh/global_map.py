@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from immesh_tpu_torch.config import MeshConfig
-from immesh_tpu_torch.core.ops import compact_indices, div, set_drop
+from immesh_tpu_torch.core.ops import (compact_indices, div, set_drop,
+                                      set_drop_group)
 from immesh_tpu_torch.device import resolve_device
 from immesh_tpu_torch.map.hash import EMPTY, HashTable, frame_unique_coords
 
@@ -244,9 +245,9 @@ class GlobalPointMap:
         cap_ok = new_ids < cfg.points_capacity
         drop_points = torch.sum((fresh & ~cap_ok).to(i32))
         fresh = fresh & cap_ok
-        set_drop(self.pts, new_ids, p_ci, fresh)
         # fresh points start unsmoothed; their voxel is active this frame
-        set_drop(self.pts_smooth, new_ids, p_ci, fresh)
+        set_drop_group([self.pts, self.pts_smooth], new_ids, [p_ci, p_ci],
+                       fresh)
         self.pt_count.copy_(torch.clamp(self.pt_count + n_new,
                                         max=cfg.points_capacity))
         if cut == "app_alloc0":
@@ -270,10 +271,11 @@ class GlobalPointMap:
         drop_slots = torch.sum((write_ok & (pos >= S)).to(i32))
         write_ok = write_ok & (pos < S)
         flat = vsc * S + pos
-        set_drop(self.vox_pt_idx.view(-1), flat, new_ids, write_ok)
-        # duplicate positions into the slot rows (contiguous pulls)
-        set_drop(self.vox_pts.view(-1, 3), flat, p_ci, write_ok)
-        set_drop(self.vox_pts_sm.view(-1, 3), flat, p_ci, write_ok)
+        # member ids, and their positions duplicated into the slot rows
+        # (contiguous pulls)
+        set_drop_group([self.vox_pt_idx.view(-1), self.vox_pts.view(-1, 3),
+                        self.vox_pts_sm.view(-1, 3)], flat,
+                       [new_ids, p_ci, p_ci], write_ok)
 
         # per-voxel added counts (a scatter-add of ones: torch.bincount
         # would read its input's range back on the host)
@@ -281,10 +283,10 @@ class GlobalPointMap:
             0, torch.where(write_ok, vseg, F).long(),
             torch.ones_like(vseg))[:F]
         vadd = vok & (vslots >= 0)
-        set_drop(self.vox_n, vslots, self.vox_n[vslots.clamp(min=0).long()]
-                 + addc, vadd)
-        set_drop(self.vox_new, vslots,
-                 self.vox_new[vslots.clamp(min=0).long()] + addc, vadd)
+        vsl = vslots.clamp(min=0).long()
+        set_drop_group([self.vox_n, self.vox_new], vslots,
+                       [self.vox_n[vsl] + addc, self.vox_new[vsl] + addc],
+                       vadd)
         if cut == "app_file0":
             return self._trunc(before)
 
@@ -453,8 +455,8 @@ class GlobalPointMap:
 
     def mark_meshed(self, slots: torch.Tensor, smask: torch.Tensor
                     ) -> "GlobalPointMap":
-        set_drop(self.vox_new, slots, 0, smask)
-        set_drop(self.vox_meshed, slots, True, smask)
+        set_drop_group([self.vox_new, self.vox_meshed], slots, [0, True],
+                       smask)
         return self
 
     def n_points(self) -> torch.Tensor:
@@ -499,9 +501,9 @@ class GlobalPointMap:
         new_id = torch.cumsum(pkeep.to(torch.int32), 0, dtype=torch.int32) - 1
         idmap = torch.where(pkeep, new_id, -1)
         pts = torch.zeros_like(self.pts)
-        set_drop(pts, new_id, self.pts, pkeep)
         pts_smooth = torch.zeros_like(self.pts_smooth)
-        set_drop(pts_smooth, new_id, self.pts_smooth, pkeep)
+        set_drop_group([pts, pts_smooth], new_id,
+                       [self.pts, self.pts_smooth], pkeep)
 
         # ---- dedup grid rebuild (cells of surviving points) --------------
         dcell = _grid_coords(self.pts, cfg.pts_minimum_scale, tag=0)
@@ -514,17 +516,17 @@ class GlobalPointMap:
         row_new = torch.where(row_ids >= 0,
                               idmap[row_ids.clamp(min=0).long()], -1)
 
-        def move_rows(src, fill):
-            out = torch.full_like(src, fill)
-            set_drop(out, vslots, src, vok)
-            return out
+        rows = {"vox_pt_idx": (row_new, -1), "vox_pts": (self.vox_pts, 0),
+                "vox_pts_sm": (self.vox_pts_sm, 0), "vox_n": (self.vox_n, 0),
+                "vox_new": (self.vox_new, 0),
+                "vox_meshed": (self.vox_meshed, False)}
+        moved = {n: torch.full_like(src, fill)
+                 for n, (src, fill) in rows.items()}
+        set_drop_group(list(moved.values()), vslots,
+                       [src for src, _ in rows.values()], vok)
 
         self.copy_(replace(
             self, pts=pts, pts_smooth=pts_smooth,
             pt_count=torch.sum(pkeep.to(torch.int32)), dedup=dedup, vox=vox,
-            vox_pt_idx=move_rows(row_new, -1),
-            vox_pts=move_rows(self.vox_pts, 0),
-            vox_pts_sm=move_rows(self.vox_pts_sm, 0),
-            vox_n=move_rows(self.vox_n, 0), vox_new=move_rows(self.vox_new, 0),
-            vox_meshed=move_rows(self.vox_meshed, False)))
+            **moved))
         return self, {"idmap": idmap, "slot_map": slot_map}

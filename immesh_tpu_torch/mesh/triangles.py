@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import torch
 
 from immesh_tpu_torch.config import MeshConfig
-from immesh_tpu_torch.core.ops import div, set_drop
+from immesh_tpu_torch.core.ops import div, set_drop_group
 from immesh_tpu_torch.core.so3 import cross
 from immesh_tpu_torch.device import resolve_device
 from immesh_tpu_torch.kernels.pairs_argmin import pairs_argmin
@@ -91,12 +91,11 @@ def remap_store(store: TriangleStore, slot_map: torch.Tensor,
 
     keep = slot_map >= 0
     store.tri_ids.fill_(-1)
-    set_drop(store.tri_ids, slot_map, packed, keep)
     store.tri_n.zero_()
-    set_drop(store.tri_n, slot_map, counts, keep)
-    # everything moved: let the viewer resync every surviving region
     store.dirty.zero_()
-    set_drop(store.dirty, slot_map, True, keep)
+    # everything moved: let the viewer resync every surviving region
+    set_drop_group([store.tri_ids, store.tri_n, store.dirty], slot_map,
+                   [packed, counts, True], keep)
     return store
 
 
@@ -117,9 +116,8 @@ def apply_triangles(store: TriangleStore, slots: torch.Tensor,
                     smask: torch.Tensor, ids: torch.Tensor,
                     counts: torch.Tensor) -> TriangleStore:
     """Replace the owning voxels' triangle lists wholesale, in place."""
-    set_drop(store.tri_ids, slots, ids, smask)
-    set_drop(store.tri_n, slots, counts, smask)
-    set_drop(store.dirty, slots, True, smask)
+    set_drop_group([store.tri_ids, store.tri_n, store.dirty], slots,
+                   [ids, counts, True], smask)
     return store
 
 

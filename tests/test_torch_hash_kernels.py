@@ -303,6 +303,17 @@ def test_a_tensor_off_the_cpu_never_takes_the_plain_loop(monkeypatch):
                   torch.empty((16, 4), **meta), fp, 32)
 
 
+def test_insert_path_follows_the_lane_count():
+    """The cluster form up to CLUSTER_MAX_LANES (every per-frame insert:
+    1,024 LIO lanes, the mesh dedup's 10,000), the cooperative grid
+    above (a compaction's 131,072)."""
+    assert hp.CLUSTER_MAX_LANES == 8 * 1024 * 2
+    for u in (0, 1, 1024, 2048, 2049, 10000, hp.CLUSTER_MAX_LANES):
+        assert hp.insert_path(u) == "cluster"
+    for u in (hp.CLUSTER_MAX_LANES + 1, 131072):
+        assert hp.insert_path(u) == "grid"
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -436,3 +447,63 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
         hp.insert_cuda(c, ok.int(), keys, fp, 32)
     with pytest.raises(ValueError, match="CUDA device"):
         hp.insert_cuda(c, ok.cpu(), keys, fp, 32)
+
+
+# (lanes, path): the one-block form's edges, the cluster's (2, 4 and 8
+# blocks), the threshold and one past it, a compaction's rebuild; the
+# cooperative grid at the path's shapes too
+_PATH_CASES = [(1, "cluster"), (1024, "cluster"), (1024, "grid"),
+               (2048, "cluster"), (2049, "cluster"), (5000, "cluster"),
+               (10000, "cluster"), (10000, "grid"), (16384, "cluster"),
+               (16384, "grid"), (16385, "grid"), (131072, "grid")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u,path", _PATH_CASES)
+def test_insert_paths_equal_the_plain_version_on_the_card(dev, u, path):
+    """Two overlapping batches of u lanes (10 % invalid) into a table at
+    ~30 % load after them, at max_probe 32 and 1 (lanes exhaust): slots,
+    new, keys and fp bit for bit on either form."""
+    rng = np.random.default_rng(u)
+    capacity = 1 << (int(1.5 * u / 0.3) - 1).bit_length()
+    raw = rng.integers(-2 ** 20, 2 ** 20, (2 * u + 64, 4)).astype(np.int32)
+    raw[:, 3] &= 3
+    keys = np.unique(raw, axis=0)[rng.permutation(3 * u // 2)]
+    valid = rng.random(3 * u // 2) < 0.9
+    for max_probe in (32, 1):
+        tk = HashTable.create(capacity, max_probe, device=dev)
+        tp = tk.clone()
+        for lo in (0, u // 2):
+            c = torch.from_numpy(keys[lo:lo + u]).to(dev)
+            v = torch.from_numpy(valid[lo:lo + u]).to(dev)
+            ks, kn = hp.insert_cuda(c, v, tk.keys, tk.fp, max_probe, path)
+            ps, pn = hp.insert_plain(c, v, tp.keys, tp.fp, max_probe)
+            torch.cuda.synchronize()
+            assert torch.equal(ks, ps) and torch.equal(kn, pn)
+            assert torch.equal(tk.keys, tp.keys) and torch.equal(tk.fp, tp.fp)
+        if max_probe == 1 and u > 64:
+            assert bool((v & (ps < 0)).any())  # some lane exhausted
+
+
+@pytest.mark.cuda
+def test_insert_takes_its_form_from_the_lane_count(dev, monkeypatch):
+    """insert_cuda's form is insert_path's; the cluster form refuses more
+    than CLUSTER_MAX_LANES and raises."""
+    paths = []
+    launch = hp._launch_insert
+
+    def spy(*args):
+        paths.append(args[-1])
+        return launch(*args)
+
+    monkeypatch.setattr(hp, "_launch_insert", spy)
+    for u in (1024, hp.CLUSTER_MAX_LANES, hp.CLUSTER_MAX_LANES + 1):
+        table = HashTable.create(1 << 17, 32, device=dev)
+        c = torch.arange(4 * u, dtype=torch.int32, device=dev).reshape(u, 4)
+        table.insert(c, torch.ones(u, dtype=torch.bool, device=dev))
+    assert paths == ["cluster", "cluster", "grid"]
+    u = hp.CLUSTER_MAX_LANES + 1
+    c = torch.arange(4 * u, dtype=torch.int32, device=dev).reshape(u, 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hp.insert_cuda(c, torch.ones(u, dtype=torch.bool, device=dev),
+                       table.keys, table.fp, 32, "cluster")

@@ -390,6 +390,8 @@ def host_reads(monkeypatch):
     for mod, name in ((hash_probe, "lookup_plain"),
                       (hash_probe, "insert_plain"),
                       (scatter_drop, "set_plain"), (scatter_drop, "add_plain"),
+                      (scatter_drop, "set_group_plain"),
+                      (scatter_drop, "add_group_plain"),
                       (pairs_argmin, "pairs_argmin_plain")):
         monkeypatch.setattr(mod, name, untrapped(getattr(mod, name)))
     return trap

@@ -21,23 +21,31 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 card as on the CPU, the hash_probe kernels too (insert and
                 lookup on the card against the plain versions on the
                 CPU), and segment sums are deterministic;
- 3b. hash     — the hash_probe kernels (hash_lookup, hash_insert) against
+ 3b. hash     — the hash_probe kernels (the insert and the lookup's four
+                launch forms: coords, planes, parent, neighbours) against
                 their plain versions on the card at the path's shapes: the
                 KITTI LIO run eagerly (graph=False: a replay of the
                 captured step calls no wrapper to record) over phase 4's
                 scans to the plane-map load phase 4 reaches, every probe
-                call of its last frame
-                recorded (the map update's unique keys, lookup_planes_stack's
-                L·P·N keys) and replayed through both on copies of the table
-                it found (slots, new, keys, fp bit for bit), also at
-                HASH_SHORT_PROBE where lanes exhaust, each insert on every
-                form of the kernel that takes its lanes (the cluster form
-                up to CLUSTER_MAX_LANES, the cooperative grid always); an
-                insert of more lanes than the card holds threads (the
-                grid form's grid-stride path); 0 host syncs a call under
-                torch.profiler; the LIO's costliest lookup and insert timed
-                (device time on each form, one wrapper call, the plain
-                version) beside a bound of bytes over the memory rate;
+                and lookup-form call of its last frame recorded (the map
+                update's unique keys, the association's planes calls, the
+                refinement levels' parent calls) and replayed through both
+                on copies of the table it found (slots, new, keys, fp,
+                found, masks bit for bit), also at HASH_SHORT_PROBE where
+                lanes exhaust, each insert on every form of the kernel that
+                takes its lanes (the cluster form up to CLUSTER_MAX_LANES,
+                the cooperative grid always); random form calls on plane
+                maps of the KITTI shape at 10 % and 90 % load and mesh
+                voxel tables (max_probe exhaustion, NaN, ±inf and
+                out-of-range points, reference behaviours 2 and 4 planted
+                and checked); an insert of more lanes than the card holds
+                threads (the grid form's grid-stride path); 0 host syncs a
+                call under torch.profiler; the LIO's costliest insert and
+                its planes and parent calls timed (device time, one wrapper
+                call, the plain version; for a form also the composition
+                it replaced as one captured graph, with its kernel nodes)
+                beside a bound of the distinct bytes the call must move
+                over the memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
                 for warm-up plus N timed frames, its LIO step and its mesh
@@ -46,8 +54,9 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 ablation's and the stage profilers' mesh step and dist/);
                 checks that pairs_argmin ran on the device (its own device
                 counter) on every frame with active voxels and that every
-                path kernel (pairs_argmin, both hash kernels, scatter_drop)
-                ran (as on every later path): each launched by its wrapper
+                path kernel (pairs_argmin, the planes, parent and
+                neighbours lookups, the insert, scatter_drop) ran (as on
+                every later path): each launched by its wrapper
                 and each run on the device, by the kernel's own device
                 counter, exactly the eager launches plus every replay of
                 the launches recorded into the graphs (path_counts), that
@@ -59,12 +68,14 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 run of the mesh step over phase 4's world scans, which
                 must end bit for bit as phase 4's map (eager_mesh_calls);
                 the graphs' nodes counted by type;
- 4b. hash path — every probe call of phase 4's compacting frames (the
-                mesh dedup and voxel inserts at the tables' fullest, the
-                27-neighbour lookups, the compaction's rebuild inserts) and
-                of its last frame, recorded during phase 4, replayed as in
-                3b; the last frame's costliest lookup and insert timed for
-                the `kernels` line, its costliest insert of every other
+ 4b. hash path — every probe and lookup-form call of phase 4's compacting
+                frames (the mesh dedup and voxel inserts at the tables'
+                fullest, the neighbours calls, the compaction's rebuild
+                inserts) and of its last frame, recorded during phase 4,
+                replayed as in 3b; the last frame's costliest insert and
+                neighbours call timed for the `kernels` line (the latter
+                beside the composition it replaced), its costliest insert
+                of every other
                 lane count (the LIO's 1,024, the mesh dedup's 10,000, the
                 voxel insert) and each compacting frame's costliest insert
                 (a rebuild, 131,072 lanes) timed too, each on every form
@@ -185,7 +196,8 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 device ms (an ESIKF body after convergence, an empty
                 refinement level);
                 the inserts recorded into the graphs all of the cluster
-                form; scatter_drop and hash_insert runs a frame;
+                form; the graph's kernel nodes and one captured step's
+                device-busy ms; each LIO kernel's runs a frame;
                 then scatter_drop against its plain version on every
                 set_drop/add_drop call and set_drop_group/add_drop_group
                 group recorded in phase 4's compacting and last frames and
@@ -208,7 +220,8 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 compaction and hi/lo budget frames equal; the KITTI mesh
                 graph's kernel, memcpy and memset nodes and recorded
                 launches equal to phase 4's, its inserts of the cluster
-                form, scatter_drop and hash_insert runs a frame; one mesh
+                form, each path kernel's runs a frame, its kernel nodes and
+                one captured mesh step's device-busy ms; one mesh
                 step of each under torch.profiler (0 syncs captured); the
                 dead chunks the
                 captured step ran (chunks with no active voxel, which the
@@ -218,13 +231,16 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
 The line before the last is a JSON object describing every kernel (for
 pairs_argmin and the hash and scatter kernels "launches" by the wrapper and
 "device_runs" by the kernel's device counter, on the main path and on each
-other path); the last line is {"ok": true, "device": {...}}.
+other path; for the lookup forms also the composition each replaced, its
+time as one captured graph and its kernel nodes); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -388,10 +404,17 @@ GRAPH_AVIA_FRAMES = 30
 # the path kernels' launches and device runs on each path, by path
 # (path_counts)
 PATH_COUNTS = {}
-# the kernels whose launches every path counts (path_counts); the LIO-only
-# paths count all but pairs_argmin
-PATH_KERNELS = ("pairs_argmin", "hash_lookup", "hash_insert", "scatter_drop")
-LIO_KERNELS = PATH_KERNELS[1:]
+# the kernels whose launches every path counts (path_counts): the LIO's
+# lookups are the planes and parent forms, the mesh's the neighbours form;
+# the LIO-only paths count all but pairs_argmin and the neighbours
+PATH_KERNELS = ("pairs_argmin", "hash_lookup_planes", "hash_lookup_parent",
+                "hash_lookup_neighbors", "hash_insert", "scatter_drop")
+LIO_KERNELS = ("hash_lookup_planes", "hash_lookup_parent", "hash_insert",
+               "scatter_drop")
+# the lookup forms (kernels/hash_probe.py), by the kernel's name
+LOOKUP_FORMS = {"hash_lookup_planes": "planes",
+                "hash_lookup_parent": "parent",
+                "hash_lookup_neighbors": "neighbors"}
 
 
 def log(msg: str) -> None:
@@ -827,9 +850,10 @@ def launch_counts() -> dict:
 
 
 def path_now() -> dict:
-    """The PATH_KERNELS' counts since reset_counts(): "launches" by their
-    wrappers (launch_counts) and "runs" on the device, eager and replayed
-    in CUDA graphs, from the kernels' own device counters (synchronises)."""
+    """The PATH_KERNELS' counts since reset_counts():
+    "launches" by their wrappers (launch_counts) and "runs" on the device,
+    eager and replayed in CUDA graphs, from the kernels' own device
+    counters (synchronises)."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
@@ -903,14 +927,84 @@ def kitti_scans(n: int):
     return sim, gt
 
 
+class FormCall:
+    """A recorded call of a lookup form (kernels/hash_probe.py's
+    lookup_planes, lookup_parent, lookup_neighbors): its kind and its
+    arguments by name, the tensors copied as the call found them."""
+
+    def __init__(self, kind: str, args: dict):
+        self.kind, self.args = kind, args
+
+    @property
+    def name(self) -> str:
+        return f"hash_lookup_{self.kind}"
+
+    @property
+    def lanes(self) -> int:
+        return next(iter(self.args.values())).shape[0]
+
+    @property
+    def fp(self) -> torch.Tensor:
+        return self.args["fp"]
+
+    def label(self) -> str:
+        a = self.args
+        how = {"planes": lambda: (f"{a['levels']} levels"
+                                  + (", near" if a["near"] else "")),
+               "parent": lambda: f"level {a['level']}",
+               "neighbors": lambda: "27 a slot"}[self.kind]()
+        return (f"{self.kind} ({self.lanes} lanes, {how}, "
+                f"{self.fp.shape[0]} slots)")
+
+    def run(self, version: str, **over):
+        """The call again through lookup_<kind>_<version> ("cuda" or
+        "plain"), with the arguments in `over` replaced."""
+        from immesh_tpu_torch.kernels import hash_probe as hp
+        return getattr(hp, f"lookup_{self.kind}_{version}")(
+            **{**self.args, **over})
+
+    def old(self, **over):
+        """The composition the form replaced: its plain version with the
+        coords-form kernel as the probe loop, the path before the forms."""
+        from immesh_tpu_torch.kernels import hash_probe as hp
+        plain, hp.lookup_plain = hp.lookup_plain, hp.lookup_cuda
+        try:
+            return self.run("plain", **over)
+        finally:
+            hp.lookup_plain = plain
+
+    def keys(self):
+        """The (K, 4) keys the plain version probes, and their slots."""
+        from immesh_tpu_torch.kernels import hash_probe as hp
+        seen, plain = [], hp.lookup_plain
+
+        def rec(coords, fp, max_probe):
+            slots = plain(coords, fp, max_probe)
+            seen.append((coords, slots))
+            return slots
+
+        hp.lookup_plain = rec
+        try:
+            self.run("plain")
+        finally:
+            hp.lookup_plain = plain
+        (out,) = seen
+        return out
+
+
+def outputs(x) -> list:
+    return list(x) if isinstance(x, tuple) else [x]
+
+
 def record_probes(fn):
-    """Run fn() with every HashTable lookup and insert recorded: the
-    inputs, and the table as the call found it.  Returns (fn's result,
-    the calls).  A call under CUDA-graph capture is not recorded: its
-    copies would be captured into the graph and repeated at every
-    replay."""
+    """Run fn() with every HashTable lookup and insert recorded as a tuple
+    (the inputs, and the table as the call found it) and every call of a
+    lookup form as a FormCall.  Returns (fn's result, the calls).  A call
+    under CUDA-graph capture is not recorded: its copies would be captured
+    into the graph and repeated at every replay."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     calls, lookup, insert = [], hp.lookup, hp.insert
+    forms = {k: getattr(hp, f"lookup_{k}") for k in LOOKUP_FORMS.values()}
 
     def rec_lookup(coords, fp, max_probe):
         if not torch.cuda.is_current_stream_capturing():
@@ -923,12 +1017,36 @@ def record_probes(fn):
                           keys.clone(), fp.clone(), max_probe))
         return insert(coords, valid, keys, fp, max_probe)
 
+    def recorder(kind):
+        inner = forms[kind]
+        sig = inspect.signature(getattr(hp, f"lookup_{kind}_plain"))
+
+        def rec(*args, **kwargs):
+            if not torch.cuda.is_current_stream_capturing():
+                bound = sig.bind(*args, **kwargs).arguments
+                calls.append(FormCall(kind, {
+                    k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in bound.items()}))
+            return inner(*args, **kwargs)
+        return rec
+
     hp.lookup, hp.insert = rec_lookup, rec_insert
+    for kind in forms:
+        setattr(hp, f"lookup_{kind}", recorder(kind))
     try:
         out = fn()
     finally:
         hp.lookup, hp.insert = lookup, insert
+        for kind, f in forms.items():
+            setattr(hp, f"lookup_{kind}", f)
     return out, calls
+
+
+def split_calls(calls):
+    """(the lookup and insert tuples, the FormCalls) of record_probes'
+    calls."""
+    return ([c for c in calls if not isinstance(c, FormCall)],
+            [c for c in calls if isinstance(c, FormCall)])
 
 
 class Scatter:
@@ -1001,15 +1119,36 @@ def probe_rounds(coords, slots, capacity: int, max_probe: int, valid=None,
     return rounds
 
 
-def hash_bound_ms(n_lanes: int, in_bytes: int, out_bytes: int, rounds,
-                  winners: int = 0) -> tuple:
-    """Least time for this data, by bytes over the memory rate: each lane's
-    input read once and output written once, a 32-byte sector for every
-    probe round the lanes run (a random gather: the fp word of a lookup, the
-    16-byte key row of an insert) and, for an insert, a sector for each
-    winner's key row and one for its fingerprint."""
-    nbytes = (n_lanes * (in_bytes + out_bytes) + 32 * int(rounds.sum())
-              + 64 * winners)
+def probe_slots(coords, rounds, capacity: int):
+    """The slots the lanes' probe rounds read (probe_rounds' `rounds`):
+    round r's slot of every lane that runs more than r rounds."""
+    from immesh_tpu_torch.kernels.hash_probe import _fingerprint, _hash
+    mask = capacity - 1
+    h0, fq = _hash(coords, mask), _fingerprint(coords)
+    most = int(rounds.max()) if rounds.numel() else 0
+    return torch.cat([h0[:0]] + [((h0 + r * fq) & mask)[rounds > r]
+                                 for r in range(most)])
+
+
+def sectors(idx, elem_bytes: int) -> int:
+    """The 32-byte sectors that the elements idx of an array of
+    elem_bytes-wide elements lie in, each counted once: what a gather of
+    them must move from memory at the least (lanes that share a voxel
+    probe the same slots; the tables fit in L2, so more reads cost no
+    more memory traffic)."""
+    return int(torch.unique(idx.long() * elem_bytes // 32).numel())
+
+
+def insert_bound_ms(n_lanes: int, coords, rounds, capacity: int,
+                    won_slots) -> tuple:
+    """Least time of an insert for this data, by bytes over the memory
+    rate: each lane's input read once (16 B key, 1 B valid) and output
+    written once (4 B slot, 1 B new), each distinct 32-byte sector of the
+    key rows its probe rounds read once, and each distinct sector of the
+    winners' key rows and fingerprints written once."""
+    nbytes = n_lanes * 22 + 32 * (
+        sectors(probe_slots(coords, rounds, capacity), 16)
+        + sectors(won_slots, 16) + sectors(won_slots, 4))
     return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
 
 
@@ -1086,6 +1225,321 @@ def replay_probes(calls, what: str):
     return err, rounds
 
 
+def check_form(c: FormCall, what: str, **over) -> None:
+    """A form's kernel against its plain version on one call (its
+    arguments replaced by `over`): every output bit for bit."""
+    k, p = outputs(c.run("cuda", **over)), outputs(c.run("plain", **over))
+    bad = [i for i, (a, b) in enumerate(zip(k, p)) if not same_bits(a, b)]
+    if bad:
+        raise AssertionError(f"{what}: {c.name} and its plain version "
+                             f"differ on output(s) {bad} of a call "
+                             f"{c.label()} {over}")
+
+
+def replay_forms(calls, what: str) -> dict:
+    """Every recorded FormCall again through its kernel and its plain
+    version, at the call's max_probe and at HASH_SHORT_PROBE, bit for bit
+    (check_form).  Logs the calls; returns each form's largest difference
+    (0: any other raises)."""
+    n = {}
+    for c in calls:
+        for mp in dict.fromkeys((c.args["max_probe"], HASH_SHORT_PROBE)):
+            check_form(c, what, max_probe=mp)
+        n[c.name] = n.get(c.name, 0) + 1
+    log(f"[hash] {what}: {len(calls)} lookup-form calls ({n}: "
+        + "; ".join(sorted({c.label() for c in calls})) + f"), each kernel "
+        f"bit-identical to its plain version at the call's max_probe and "
+        f"at {HASH_SHORT_PROBE}")
+    return dict.fromkeys(n, 0)
+
+
+def _colliding_key(k2: list) -> list:
+    """A key k1 != k2 with k2's fingerprint (reference behaviour 2): the
+    second coordinate moved by the inverse of its Weyl constant, so the
+    fingerprint's sum moves by 1 between an even value and the next, which
+    `| 1` erases."""
+    weyl = [x % 2 ** 32 for x in (-1640531527, -1274297907, -1981354251,
+                                  1183186591)]
+    inv = pow(weyl[1], -1, 2 ** 32)
+    even = sum(x % 2 ** 32 * w for x, w in zip(k2, weyl)) % 2 ** 32 % 2 == 0
+    k1 = list(k2)
+    k1[1] = (k2[1] + (inv if even else -inv)) % 2 ** 32
+    k1[1] -= 2 ** 32 * (k1[1] >= 2 ** 31)
+    return k1
+
+
+def random_plane_map(dev, load: float, seed: int):
+    """A plane map of the KITTI point's shape (kitti_config's: 2^18 slots,
+    4 levels of 3 m down to 0.375 m) holding the level keys of random
+    points (a third of `load` of the slots, up to 65,536; 30 % of their
+    keys left out), topped up with keys far from them to `load`, random
+    plane_valid and subdivided flags; and query points: the points, 1,024
+    of them at negative coordinates, 768 on voxel boundaries and quarter
+    marks, NaN, ±inf, out of int32's range."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.map.voxel_map import VoxelMap
+    cfg = kitti_config().voxel_map
+    vm = VoxelMap.create(cfg, device=dev)
+    cap, L, size = cfg.capacity, cfg.max_layers, cfg.voxel_size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pts = min(65536, max(1024, int(load * cap / 3)))
+    pts = torch.randn((n_pts, 3), generator=g, device=dev) * 40.0
+    keys = torch.unique(torch.cat([hp.voxel_coords(pts, size, lvl)
+                                   for lvl in range(L)]), dim=0)
+    keys = keys[torch.randperm(keys.shape[0], generator=g,
+                               device=dev)[:int(0.7 * keys.shape[0])]]
+    n_fill = max(0, int(load * cap) - keys.shape[0])
+    fill = torch.randint(2 ** 12, 2 ** 20, (n_fill + n_fill // 8, 4),
+                         generator=g, device=dev, dtype=torch.int32)
+    fill[:, 3] %= L
+    fill = torch.unique(fill, dim=0)[:n_fill]
+    keys = torch.cat([keys, fill])
+    keys = keys[torch.randperm(keys.shape[0], generator=g, device=dev)]
+    vm.table.insert(keys.contiguous(), torch.ones(keys.shape[0],
+                                                  dtype=torch.bool,
+                                                  device=dev))
+    vm.plane_valid.copy_(torch.rand(cap, generator=g, device=dev) < 0.5)
+    vm.subdivided.copy_(torch.rand(cap, generator=g, device=dev) < 0.6)
+    k = torch.randint(-40, 40, (256, 3), generator=g, device=dev).float()
+    edges = torch.cat([k * size, (k + 0.25) * size, (k + 0.75) * size,
+                       -pts[:1024].abs(), torch.tensor(
+                           [[float("nan"), 0, 0], [float("inf"), 1, 2],
+                            [3e38, -3e38, 1e10], [-0.0, 0.0, -0.0]],
+                           device=dev)])
+    return vm, torch.cat([pts, edges]).contiguous()
+
+
+def plant_cases(vm, q):
+    """Rows that put reference behaviours 2 and 4 in the queries, planted
+    into vm: a query whose level-0 key k2 misses with an empty home slot
+    meets a colliding key k1 there, planar (the own lookup aliases to that
+    slot); and points in the outer quarter of an absent level-0 voxel
+    toward a present planar one (the near probe finds it).  Returns the
+    queries with the behaviour-4 rows appended, the collision's row and
+    slot, and the behaviour-4 rows."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    size, mask = vm.cfg.voxel_size, vm.table.capacity - 1
+    c0 = hp.voxel_coords(q, size, 0)
+    home = hp._hash(c0, mask)
+    free = torch.nonzero(vm.table.fp[home.long()] == 0)[:, 0]
+    row = int(free[0])
+    slot = int(home[row])
+    k1 = torch.tensor(_colliding_key(c0[row].tolist()), dtype=torch.int32,
+                      device=q.device)
+    vm.table.keys[slot] = k1
+    vm.table.fp[slot] = hp._fingerprint(k1)
+    vm.plane_valid[slot] = True
+    keys = vm.table.keys
+    planar = (keys[:, 0] != hp.EMPTY) & (keys[:, 3] == 0) & vm.plane_valid
+    beside = keys[planar][:2048].clone()  # a planar voxel's +x neighbour
+    beside[:, 0] += 1
+    absent = beside[vm.table.lookup(beside.contiguous()) < 0][:256, :3]
+    absent = absent.float()
+    b4 = torch.stack([(absent[:, 0] + 0.1) * size,
+                      (absent[:, 1] + 0.5) * size,
+                      (absent[:, 2] + 0.5) * size], -1)
+    if b4.shape[0] == 0:
+        raise AssertionError("no planar voxel with an absent x-neighbour")
+    return torch.cat([q, b4]).contiguous(), row, slot, b4.shape[0]
+
+
+def random_forms(dev) -> dict:
+    """Each lookup form against its plain version on random calls: the
+    planes form (near and not) and the parent form (each level, a random
+    mask) on random_plane_map at the plane map's load (10 %) and at 90 %,
+    at max_probe 32, 4 and 1 (lanes exhaust: the check counts them), with
+    reference behaviours 2 and 4 planted (plant_cases) and checked; the
+    neighbours form on a mesh voxel table (kitti_config's 2^15 slots) at
+    10 % and 90 %, from occupied, empty and negative slots.  Returns each
+    form's largest difference (0: any other raises)."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.map.hash import HashTable
+    t0 = time.perf_counter()
+    notes = []
+    for seed, load in ((1, 0.1), (2, 0.9)):
+        vm, q = random_plane_map(dev, load, seed)
+        q, row, slot, n4 = plant_cases(vm, q)
+        cfg = vm.cfg
+        g = torch.Generator(device=dev).manual_seed(seed)
+        mask = torch.rand(q.shape[0], generator=g, device=dev) < 0.8
+        base = dict(voxel_size=cfg.voxel_size, fp=vm.table.fp)
+        exhausted = 0
+        for mp in (32, 4, 1):
+            for near in (True, False):
+                c = FormCall("planes", dict(
+                    q=q, levels=cfg.max_layers, plane_valid=vm.plane_valid,
+                    subdivided=vm.subdivided, max_probe=mp, near=near,
+                    **base))
+                check_form(c, f"random planes at {load:.0%} load")
+                if mp == 32 and near:
+                    found, sl = c.run("cuda")
+                    own, _ = c.run("cuda", q=q[-n4:], near=False)
+                    if not (bool(found[row]) and int(sl[row]) == slot
+                            and bool(found[-n4:].all())
+                            and not bool(own.any())):
+                        raise AssertionError(
+                            "random planes: reference behaviour 2 or 4 "
+                            "does not show")
+            for lvl in range(cfg.max_layers):
+                check_form(FormCall("parent", dict(
+                    pts=q, level=lvl, subdivided=vm.subdivided, mask=mask,
+                    max_probe=mp, **base)),
+                    f"random parent at {load:.0%} load")
+            keys, _ = FormCall("planes", dict(
+                q=q, levels=cfg.max_layers, plane_valid=vm.plane_valid,
+                subdivided=vm.subdivided, max_probe=mp, near=True,
+                **base)).keys()
+            exhausted += int(((hp.lookup_plain(keys, vm.table.fp, mp) < 0)
+                              & (hp.lookup_plain(keys, vm.table.fp, 32)
+                                 >= 0)).sum())
+        load_now = float((vm.table.fp != 0).float().mean())
+        notes.append(f"{cfg.capacity} slots at {100 * load_now:.1f} % "
+                     f"load: {exhausted} planes keys exhausted at max_probe "
+                     f"4 and 1")
+        if load > 0.5 and exhausted == 0:
+            raise AssertionError("random planes: no key exhausted")
+        del vm, q, mask
+        # the neighbours form on a mesh voxel table at the same load
+        mcap = kitti_config().mesh.voxel_capacity
+        table = HashTable.create(mcap, 32, device=dev)
+        raw = torch.randint(-40, 40, (int(1.3 * load * mcap), 3),
+                            generator=g, device=dev, dtype=torch.int32)
+        raw = torch.unique(raw, dim=0)[:int(load * mcap)]
+        table.insert(torch.cat([raw, torch.zeros_like(raw[:, :1])],
+                               1).contiguous(),
+                     torch.ones(raw.shape[0], dtype=torch.bool, device=dev))
+        slots = torch.randint(-mcap, mcap, (4096,), generator=g, device=dev,
+                              dtype=torch.int32)
+        for mp in (32, 4, 1):
+            check_form(FormCall("neighbors", dict(
+                slots=slots, keys=table.keys, fp=table.fp, max_probe=mp)),
+                f"random neighbours at {load:.0%} load")
+    log(f"[hash] random lookup-form calls: planes (near and not) and parent "
+        f"(each level) on plane maps of the KITTI point's shape, "
+        + "; ".join(notes) + f", neighbours on {mcap}-slot voxel tables "
+        f"at 10 % and 90 %, max_probe 32, 4 and 1, NaN, ±inf and "
+        f"out-of-range points: each kernel bit-identical to its plain "
+        f"version; reference behaviour 2 (a planted fingerprint collision "
+        f"aliases the lookup) and 4 (an absent own voxel, a present near "
+        f"one) hold; {time.perf_counter() - t0:.1f} s")
+    return dict.fromkeys(LOOKUP_FORMS, 0)
+
+
+def form_bound_ms(c: FormCall) -> tuple:
+    """Least time of a form's call for this data, by bytes over the memory
+    rate: the inputs its lanes read, once (planes: 12 B a point; parent:
+    1 B of mask a lane and 12 B a point in the mask; neighbours: 4 B a slot
+    and each distinct 32-byte sector of the key rows of its slots), its
+    outputs written once (planes 5 B a point, parent 1 B, neighbours 4 B a
+    lane), each distinct 32-byte sector of fp that its probe rounds read
+    (a parent lane out of the mask runs none), and each distinct sector of
+    plane_valid and of subdivided that holds a found slot it reads
+    (parent: subdivided, of the mask's lanes).  Returns (ms, "bytes",
+    rounds)."""
+    keys, slots = c.keys()
+    mp, cap = c.args["max_probe"], c.fp.shape[0]
+    rounds = probe_rounds(keys, slots, cap, mp, fp=c.fp)
+    n = c.lanes
+    if c.kind == "parent":
+        m = c.args["mask"]
+        rounds = torch.where(m, rounds, 0)
+        nbytes = n * 2 + 12 * int(m.sum()) + 32 * sectors(
+            slots[(slots >= 0) & m], 1)
+    elif c.kind == "planes":
+        nbytes = n * 17 + 2 * 32 * sectors(slots[slots >= 0], 1)
+    else:
+        nbytes = n * (4 + 27 * 4) + 32 * sectors(
+            c.args["slots"].long() % cap, 16)
+    nbytes += 32 * sectors(probe_slots(keys, rounds, cap), 4)
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes", rounds
+
+
+def captured_ms(fn, dev) -> tuple:
+    """fn() captured once into a CUDA graph (after a warm-up on the capture
+    stream): the graph's replay in device ms (device_ms) and its nodes by
+    type (utils/graphs.py::graph_nodes)."""
+    from immesh_tpu_torch.utils.graphs import graph_nodes
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    graph.instantiate()
+    return device_ms(graph.replay), graph_nodes(graph)
+
+
+def time_form(lib, c: FormCall, what: str) -> dict:
+    """Time one recorded form call: device time of its launch (the median
+    of 5 batches of 50 behind a spin kernel), one wrapper call, its plain
+    version, the composition it replaced (FormCall.old) as one captured
+    CUDA graph's replay with that graph's kernel nodes, its bound, and the
+    host calls of one wrapper call under torch.profiler (no sync)."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.utils.timers import profile_counts
+    a, dev, n = c.args, c.fp.device, c.lanes
+    if c.kind == "planes":
+        found = torch.empty(n, dtype=torch.bool, device=dev)
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        sizes = hp.level_sizes(a["voxel_size"], a["levels"])
+
+        def launch():
+            hp._launch_planes(lib, a["q"], sizes, a["near"], a["fp"],
+                              a["plane_valid"], a["subdivided"],
+                              a["max_probe"], found, slot)
+    elif c.kind == "parent":
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        size = float(hp.level_sizes(a["voxel_size"], a["level"] + 1)[-1])
+
+        def launch():
+            hp._launch_parent(lib, a["pts"], size, a["level"], a["fp"],
+                              a["subdivided"], a["mask"], a["max_probe"],
+                              out)
+    else:
+        out = torch.empty(27 * n, dtype=torch.int32, device=dev)
+
+        def launch():
+            hp._launch_neighbors(lib, a["slots"], a["keys"], a["fp"],
+                                 a["max_probe"], out)
+    _, counts = profile_counts(lambda: c.run("cuda"))
+    ms = device_ms(launch)
+    wrapper_ms = event_ms(lambda: c.run("cuda"), 50)
+    plain_ms = event_ms(lambda: c.run("plain"), 5)
+    old_ms, old_nodes = captured_ms(c.old, dev)
+    new_ms, new_nodes = captured_ms(lambda: c.run("cuda"), dev)
+    bound_ms, bound_by, rounds = form_bound_ms(c)
+    log(f"[hash] {what}: {c.name}, {c.label()}, max_probe "
+        f"{a['max_probe']}: kernel {1e3 * ms:.2f} us (device time, median "
+        f"of 5 x 50 launches), wrapper call {1e3 * wrapper_ms:.2f} us "
+        f"(median of 50), plain version {1e3 * plain_ms:.1f} us; the "
+        f"composition it replaced, as one captured graph: "
+        f"{1e3 * old_ms:.2f} us a replay, {old_nodes['kernel']} kernel "
+        f"nodes ({old_nodes}); the form as one captured graph "
+        f"{1e3 * new_ms:.2f} us, {new_nodes['kernel']} kernel node(s); bound "
+        f"{1e3 * bound_ms:.3f} us ({bound_by}); one wrapper call under "
+        f"torch.profiler: {counts['launches']} launches, {counts['syncs']} "
+        f"syncs, {counts['copies']} copies; probe rounds per key "
+        f"{{{histogram(rounds)}}}")
+    if counts["syncs"] != 0:
+        raise AssertionError(f"{what}: {c.name} waited on the card")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n,
+            "slots": c.fp.shape[0], "old_composition_ms": old_ms,
+            "old_composition_kernel_nodes": old_nodes["kernel"],
+            "graph_ms": new_ms, "graph_kernel_nodes": new_nodes["kernel"],
+            "syncs_per_call": counts["syncs"],
+            "profiled_launches_per_call": counts["launches"]}
+
+
+def costliest_form(calls, kind: str) -> FormCall:
+    """The recorded call of a form with the most lanes (the last of
+    them)."""
+    return max((c for c in calls if c.kind == kind),
+               key=lambda c: c.lanes)
+
+
 def phase_strided(dev) -> dict:
     """The insert kernel with more lanes than the card holds threads, so
     each thread takes several lanes across the grid barriers: a table of
@@ -1135,57 +1589,46 @@ def phase_strided(dev) -> dict:
 
 
 def time_probe(lib, c, rounds, what: str) -> dict:
-    """Time one recorded call: device time of its launch, one wrapper call,
-    the plain version, its bound, and the host calls of one wrapper call
-    under torch.profiler (which must hold no sync)."""
+    """Time one recorded insert: device time of its launch on each form
+    that takes its lanes, one wrapper call, the plain version, its bound,
+    and the host calls of one wrapper call under torch.profiler (which must
+    hold no sync)."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.utils.timers import profile_counts
 
     dev = c[1].device
-    if c[0] == "lookup":
-        _, q, fp, mp = c
-        n = q.shape[0]
-        slot = torch.empty(n, dtype=torch.int32, device=dev)
-        _, counts = profile_counts(lambda: hp.lookup_cuda(q, fp, mp))
-        ms = device_ms(lambda: hp._launch_lookup(lib, q, fp, mp, slot))
-        wrapper_ms = event_ms(lambda: hp.lookup_cuda(q, fp, mp), 50)
-        plain_ms = event_ms(lambda: hp.lookup_plain(q, fp, mp), 5)
-        bound_ms, bound_by = hash_bound_ms(n, 16, 4, rounds)
-        note = "no copy"
-    else:
-        _, cc, v, keys0, fp0, mp = c
-        n = cc.shape[0]
-        keys, fp = keys0.clone(), fp0.clone()
+    _, cc, v, keys0, fp0, mp = c
+    n = cc.shape[0]
+    keys, fp = keys0.clone(), fp0.clone()
 
-        def restore():
-            keys.copy_(keys0)
-            fp.copy_(fp0)
+    def restore():
+        keys.copy_(keys0)
+        fp.copy_(fp0)
 
-        slot = torch.empty(n, dtype=torch.int32, device=dev)
-        new = torch.empty(n, dtype=torch.bool, device=dev)
-        flags = torch.empty(mp, dtype=torch.int32, device=dev)  # grid form
-        restore()
-        _, counts = profile_counts(lambda: hp.insert_cuda(cc, v, keys, fp, mp))
-        restore()
-        _, pn = hp.insert_plain(cc, v, keys, fp, mp)
-        restore_ms = device_ms(restore)
-        forms = {}
-        for path in insert_paths(n):
-            forms[path] = device_ms(lambda: (restore(), hp._launch_insert(
-                lib, cc, v, keys, fp, mp, slot, new, flags, path))) \
-                - restore_ms
-        path = hp.insert_path(n)
-        ms = forms[path]
-        wrapper_ms = event_ms(lambda: (restore(), hp.insert_cuda(
-            cc, v, keys, fp, mp)), 50) - event_ms(restore, 50)
-        plain_ms = event_ms(lambda: (restore(), hp.insert_plain(
-            cc, v, keys, fp, mp)), 5) - event_ms(restore, 5)
-        bound_ms, bound_by = hash_bound_ms(n, 17, 5, rounds, int(pn.sum()))
-        note = (f"{int(v.sum())} valid, {int(pn.sum())} new; the wrapper's "
-                f"form {path}; device us by form " + ", ".join(
-                    f"{k} {1e3 * t:.2f}" for k, t in forms.items())
-                + f"; each launch behind a {1e3 * restore_ms:.2f} us copy "
-                f"of the table, which is subtracted")
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    new = torch.empty(n, dtype=torch.bool, device=dev)
+    flags = torch.empty(mp, dtype=torch.int32, device=dev)  # grid form
+    restore()
+    _, counts = profile_counts(lambda: hp.insert_cuda(cc, v, keys, fp, mp))
+    restore()
+    ps, pn = hp.insert_plain(cc, v, keys, fp, mp)
+    restore_ms = device_ms(restore)
+    forms = {}
+    for path in insert_paths(n):
+        forms[path] = device_ms(lambda: (restore(), hp._launch_insert(
+            lib, cc, v, keys, fp, mp, slot, new, flags, path))) - restore_ms
+    path = hp.insert_path(n)
+    ms = forms[path]
+    wrapper_ms = event_ms(lambda: (restore(), hp.insert_cuda(
+        cc, v, keys, fp, mp)), 50) - event_ms(restore, 50)
+    plain_ms = event_ms(lambda: (restore(), hp.insert_plain(
+        cc, v, keys, fp, mp)), 5) - event_ms(restore, 5)
+    bound_ms, bound_by = insert_bound_ms(n, cc, rounds, fp.shape[0], ps[pn])
+    note = (f"{int(v.sum())} valid, {int(pn.sum())} new; the wrapper's "
+            f"form {path}; device us by form " + ", ".join(
+                f"{k} {1e3 * t:.2f}" for k, t in forms.items())
+            + f"; each launch behind a {1e3 * restore_ms:.2f} us copy "
+            f"of the table, which is subtracted")
     log(f"[hash] {what}: hash_{c[0]} at ({n}, 4) into {c[-2].shape[0]} "
         f"slots, max_probe {mp} ({note}): kernel {1e3 * ms:.2f} us (device "
         f"time, median of 5 x 50 launches), wrapper call "
@@ -1196,13 +1639,11 @@ def time_probe(lib, c, rounds, what: str) -> dict:
         f"rounds per lane {{{histogram(rounds)}}}")
     if counts["syncs"] != 0:
         raise AssertionError(f"{what}: hash_{c[0]} waited on the card")
-    out = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n,
-           "slots": c[-2].shape[0], "syncs_per_call": counts["syncs"],
-           "profiled_launches_per_call": counts["launches"]}
-    if c[0] == "insert":
-        out.update(path=path, **{f"ms_{k}": t for k, t in forms.items()})
-    return out
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n,
+            "slots": c[-2].shape[0], "syncs_per_call": counts["syncs"],
+            "profiled_launches_per_call": counts["launches"], "path": path,
+            **{f"ms_{k}": t for k, t in forms.items()}}
 
 
 def costliest(calls, rounds, kind: str):
@@ -1212,12 +1653,31 @@ def costliest(calls, rounds, kind: str):
                key=lambda cr: int(cr[1].sum()))
 
 
-def phase_hash(dev, gt) -> dict:
+# the reference code each lookup kernel of the path replaces: the probe
+# loop, and the composition around it that the form took into the launch
+LOOKUP_REPLACES = {
+    "hash_lookup_planes": (
+        "immesh_tpu/map/hash.py:127",
+        "immesh_tpu/lio/association.py:27 (_lookup_with_neighbors), "
+        "immesh_tpu/map/voxel_map.py:231, :263 (query_planes, "
+        "lookup_planes_stack)"),
+    "hash_lookup_parent": ("immesh_tpu/map/hash.py:127",
+                           "immesh_tpu/map/voxel_map.py:120-122 (update)"),
+    "hash_lookup_neighbors": (
+        "immesh_tpu/map/hash.py:127",
+        "immesh_tpu/mesh/global_map.py:320-326, :383-388, :452-460"),
+    "hash_insert": ("immesh_tpu/map/hash.py:186", None),
+}
+
+
+def phase_hash(dev, gt) -> tuple:
     """Phase 3b.  The KITTI LIO on phase 4's scans up to the map load phase
-    4 reaches, its last frame's probes recorded and replayed (replay_probes);
-    the grid-stride case (phase_strided); 0 host syncs a call and the times
-    of the LIO's costliest lookup and insert.  Returns each kernel's largest
-    difference from its plain version."""
+    4 reaches, its last frame's probes and lookup-form calls recorded and
+    replayed (replay_probes, replay_forms); random form calls
+    (random_forms); the grid-stride case (phase_strided); 0 host syncs a
+    call; the times of the LIO's costliest insert, and of its planes and
+    parent calls beside the compositions they replaced.  Returns each kernel's largest difference from
+    its plain version, and the timed entries by kernel."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.lio.pipeline import LioPipeline
 
@@ -1234,54 +1694,71 @@ def phase_hash(dev, gt) -> dict:
     what = (f"the KITTI LIO's last frame of phase 4's {len(gt)} scans, plane "
             f"map {load} voxels of {cfg.voxel_map.capacity} slots "
             f"({100 * load / cfg.voxel_map.capacity:.1f} %)")
-    err, rounds = replay_probes(calls, what)
+    probes, forms = split_calls(calls)
+    err, rounds = replay_probes(probes, what)
+    err.update(replay_forms(forms, what))
+    rand = random_forms(dev)
     strided = phase_strided(dev)
     lib = hp._library()
-    for kind in ("lookup", "insert"):
-        time_probe(lib, *costliest(calls, rounds, kind),
-                   "the LIO's costliest " + kind)
+    time_probe(lib, *costliest(probes, rounds, "insert"),
+               "the LIO's costliest insert")
+    entries = {f"hash_lookup_{kind}": time_form(
+        lib, costliest_form(forms, kind), f"the LIO's costliest {kind} call")
+        for kind in ("planes", "parent")}
     log(f"[hash] phase 3b took {time.perf_counter() - t_phase:.1f} s")
-    return {k: max(err[k], strided[k]) for k in err}
+    err = {k: max(err.get(k, 0), rand.get(k, 0), strided.get(k, 0))
+           for k in hp.KERNELS}
+    return err, entries
 
 
-def phase_hash_path(dev, frames, err) -> list:
-    """Phase 4b.  The probe calls of phase 4's recorded frames (each frame
-    that compacted: its append at the tables' fullest, then the rebuild; and
-    the last frame) replayed as phase 3b's; the costliest lookup and insert
-    of the last frame timed for the `kernels` line, the costliest insert of
-    a compacting frame timed as well."""
+def phase_hash_path(dev, frames, err, entries) -> list:
+    """Phase 4b.  The probe and lookup-form calls of phase 4's recorded
+    frames (each frame that compacted: its append at the tables' fullest,
+    then the rebuild; and the last frame) replayed as phase 3b's; the last
+    frame's costliest insert and neighbours call timed for the `kernels`
+    line, the costliest insert of a compacting frame timed as well.
+    Returns the hash kernels' entries of the `kernels` line, with phase
+    3b's (`entries`)."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     t_phase = time.perf_counter()
     lib = hp._library()
-    entries = {}
     for k, calls in frames.items():
         what = f"the KITTI joint frame {k} of phase 4" + (
             " (the last)" if k == max(frames) else " (it compacted)")
-        e, rounds = replay_probes(calls, what)
-        err = {n: max(err[n], e[n]) for n in err}
-        kinds = ("lookup", "insert") if k == max(frames) else ("insert",)
-        for kind in kinds:
-            t = time_probe(lib, *costliest(calls, rounds, kind),
-                           f"frame {k}'s costliest {kind}")
-            if k == max(frames):
-                entries[kind] = t
-        if k == max(frames):  # each insert shape of a frame, on every form
-            last = entries["insert"]["lanes"]
-            entries["insert"]["by_lanes"] = {last: dict(entries["insert"])}
-            for u in sorted({c[1].shape[0] for c in calls
-                             if c[0] == "insert"} - {last}):
-                cr = [(c, r) for c, r in zip(calls, rounds)
-                      if c[0] == "insert" and c[1].shape[0] == u]
-                entries["insert"]["by_lanes"][u] = time_probe(
-                    lib, *costliest(*zip(*cr), "insert"),
-                    f"frame {k}'s costliest insert of {u} lanes")
+        probes, forms = split_calls(calls)
+        e, rounds = replay_probes(probes, what)
+        e.update(replay_forms(forms, what))
+        err = {n: max(err[n], e.get(n, 0)) for n in err}
+        t = time_probe(lib, *costliest(probes, rounds, "insert"),
+                       f"frame {k}'s costliest insert")
+        if k != max(frames):
+            continue
+        entries["hash_insert"] = t
+        entries["hash_lookup_neighbors"] = time_form(
+            lib, costliest_form(forms, "neighbors"),
+            f"frame {k}'s costliest neighbours call")
+        # each insert shape of the frame, on every form
+        last = t["lanes"]
+        t["by_lanes"] = {last: dict(t)}
+        for u in sorted({c[1].shape[0] for c in probes
+                         if c[0] == "insert"} - {last}):
+            cr = [(c, r) for c, r in zip(probes, rounds)
+                  if c[0] == "insert" and c[1].shape[0] == u]
+            t["by_lanes"][u] = time_probe(
+                lib, *costliest(*zip(*cr), "insert"),
+                f"frame {k}'s costliest insert of {u} lanes")
     log(f"[hash] phase 4b took {time.perf_counter() - t_phase:.1f} s")
-    return [{"name": f"hash_{kind}", "route": "cuda",
+    out = []
+    for name in LOOKUP_REPLACES:
+        replaces, composition = LOOKUP_REPLACES[name]
+        e = {"name": name, "route": "cuda",
              "source": "immesh_tpu_torch/csrc/hash_probe.cu",
-             "replaces": f"immesh_tpu/map/hash.py:{line}",
-             "max_abs_err": err[f"hash_{kind}"], "library_ms": None,
-             **entries[kind]}
-            for kind, line in (("lookup", 127), ("insert", 186))]
+             "replaces": replaces, "max_abs_err": err[name],
+             "library_ms": None, **entries[name]}
+        if composition:
+            e["composition"] = composition
+        out.append(e)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3979,6 +4456,11 @@ def phase_graph(dev, main_info, scatters) -> dict:
         f"convergence x {dead['body_ms']:.3f} ms busy and {n_level} empty "
         f"refinement levels x {dead['level_ms']:.3f} ms busy = "
         f"{dead_ms:.3f} ms a frame of device time; pose err {err:.3f} m")
+    log(f"[graph] KITTI: the LIO graph's kernel nodes {nodes['kernel']}, "
+        f"device busy {prof['captured']['busy_ms']:.3f} ms a captured step "
+        f"(torch.profiler); runs a frame on the device: " + ", ".join(
+            f"{k} {counts['runs'][k] / len(frames):.2f}"
+            for k in LIO_KERNELS))
     del eager, cap
 
     acfg = avia_config()
@@ -4230,7 +4712,7 @@ def phase_mesh_graph(dev, main_info) -> dict:
                            "mesh graph")
     log(f"[mesh graph] KITTI: per frame (the captured pipeline) "
         + ", ".join(f"{counts['runs'][k] / len(frames):.2f} {k}"
-                    for k in ("scatter_drop", "hash_insert"))
+                    for k in PATH_KERNELS[1:])
         + f" runs on the device ({counts}); the inserts recorded into the "
         f"three graphs by form {forms}")
     (g,) = cap.mesh.captured.graphs
@@ -4252,6 +4734,10 @@ def phase_mesh_graph(dev, main_info) -> dict:
         raise AssertionError("mesh graph: the KITTI mesh map never "
                              "compacted on its own")
     kitti["empty_chunk_ms"] = empty_chunk_ms(cap.mesh, cap.lio.state.pos)
+    log(f"[mesh graph] KITTI: the mesh graph's kernel nodes "
+        f"{kitti['nodes']['kernel']}, device busy "
+        f"{kitti['profiled']['captured']['busy_ms']:.3f} ms a captured mesh "
+        f"step (torch.profiler)")
     R0, p0 = main_info["R0"], main_info["p0"]
     err = float(np.linalg.norm(R0 @ cap.lio.state.pos.cpu().numpy() + p0
                                - gt[-1].gt_pos))
@@ -4320,9 +4806,9 @@ def main() -> int:
     incircle = phase_incircle(dev)
     phase_ints(dev)
     sim, gt = kitti_scans(3 + args.frames)
-    hash_err = phase_hash(dev, gt)
+    hash_err, hash_entries = phase_hash(dev, gt)
     main_info, probes, scatters = phase_main(dev, sim, gt, 3, pairs["ms"])
-    hashes = phase_hash_path(dev, probes, hash_err)
+    hashes = phase_hash_path(dev, probes, hash_err, hash_entries)
     del probes
     phase_parity(dev)
     rt = phase_runtime(dev, AVIA_FRAMES, 3)
@@ -4354,6 +4840,7 @@ def main() -> int:
         # graphs
         e["launches"] = PATH_COUNTS["main"]["launches"][e["name"]]
         e["device_runs"] = PATH_COUNTS["main"]["runs"][e["name"]]
+        e["device_runs_per_frame"] = e["device_runs"] / len(gt)
         for path, n in PATH_COUNTS.items():
             if path != "main" and e["name"] in n["runs"]:
                 e[f"launches_{path}"] = n["launches"][e["name"]]

@@ -14,12 +14,45 @@
 // signed << that overflows is undefined in C++) and (c2 >> 7) stays an
 // arithmetic shift of the signed coordinate, as torch's and XLA's are.
 //
-// hash_lookup_kernel: one thread a lane, each running its own probe loop over
-// fp, which a lookup never changes.  A lane stops at the first slot whose
-// fingerprint equals its own (found) or is 0 (absent, -1).  Lanes are
-// independent and a lane that is done never changes its slot again, so this
-// is exactly the batched loop's result.  Fingerprints only, as in the
-// reference: a collision inside a chain aliases the lookup.
+// The lookup: each lane runs its own probe loop over fp, which a lookup never
+// changes.  A lane stops at the first slot whose fingerprint equals its own
+// (found) or is 0 (absent, -1).  Lanes are independent and a lane that is
+// done never changes its slot again, so this is exactly the batched loop's
+// result.  Fingerprints only, as in the reference: a collision inside a
+// chain aliases the lookup.  It comes in four launch forms, each taking its
+// input as its caller holds it and returning what the caller's torch code
+// returned (kernels/hash_probe.py keeps that code as each form's plain
+// version):
+//   * hash_lookup_kernel (the coords form): (n, 4) int32 keys -> slots, a
+//     thread a key.  No path of the port calls it since the other forms
+//     took its callers; it stays as it was, HashTable.lookup's kernel and
+//     the probe loop of the compositions the forms replaced;
+//   * hash_lookup_planes_kernel: (n, 3) f32 points -> (found, slot) of the
+//     plane map's level descent, a thread a point.  It makes the point's
+//     keys itself (floor(p / size_l) at each of the L levels, the near
+//     voxel's too when kP = 2), issues all kP * L first-round fp loads before
+//     it compares any (they are independent), then runs each chain's further
+//     rounds, reads plane_valid and subdivided of the found slots together,
+//     and walks the descent and the near probe's take merge in registers.
+//     The f32 arithmetic is the plain version's, op for op and each op
+//     rounded alone (-fmad=false): qs = x / s as one IEEE division (torch
+//     divides by a device scalar, core/ops.py::div), frac = (qs - floor(qs))
+//     - 0.5, shift = sign(frac) * s where |frac| > 0.25, then q + shift;
+//     the f32 -> int32 cast is cvt.rzi (saturating, NaN -> 0), as torch's
+//     cast is on the card.  The divisors are the f32s torch.full((),
+//     voxel_size / 2**l) holds, made on the host and passed by value, so a
+//     graph replay reads nothing on the host;
+//   * hash_lookup_parent_kernel: (n, 3) points and a mask -> mask & (the
+//     point's voxel at level l is present and subdivided), the refinement
+//     levels' parent probe of VoxelMap.update_levels;
+//   * hash_lookup_neighbors_kernel: (A,) slots of a voxel table -> the slots
+//     of their 3x3x3 neighbourhoods, (A * 27,) in _OFFS order with the key's
+//     4th column 0, a thread an output lane: each of a slot's 27 lanes reads
+//     its key row with one 16-byte load (the lanes of a warp that share a
+//     row share its transaction) and makes its key in registers.  A thread
+//     a slot, its 27 chains in one thread, ran at 1,024 slots no faster than
+//     the torch composition it replaced: 16 blocks on 132 SMs, and a
+//     thread waits on its slowest chain.
 //
 // The insert: the reference's round-synchronous find-or-insert of unique
 // keys.  In round r every unresolved lane reads `keys` as round r - 1 left
@@ -65,16 +98,19 @@
 //     resident blocks, the clusters that fit) are made once per device and
 //     cached.
 
-// Thread 0 of block 0 of either kernel adds one to its device counter,
-// g_runs[0] (lookup) or g_runs[1] (insert): the kernels' runs on the device,
+// Thread 0 of block 0 of each kernel adds one to its device counter in
+// g_runs (kRunLookup ... kRunNeighbors): the kernels' runs on the device,
 // eager or replayed in a CUDA graph, read back by hash_probe_runs.
 //
-// Cost: both are bound by memory latency, not by bytes or operations: every
+// Cost: all are bound by memory latency, not by bytes or operations: every
 // probe round is one dependent random 32-byte sector per lane (fp for a
 // lookup, the 16-byte key row for an insert), and the insert adds an atomic
 // per attempt and two barriers a round: a block's or a cluster's at the
 // step's sizes, where a grid barrier cost more than the work.  At the plane
-// map's ~10 % load nearly every lane resolves in one or two rounds.
+// map's ~10 % load nearly every lane resolves in one or two rounds.  So the
+// lookup forms keep the work that fed and drained a lookup (the keys, the
+// descent, the neighbourhood) in the thread that probes, one launch where
+// the torch code took dozens.
 
 #include <climits>
 #include <cstdint>
@@ -96,10 +132,21 @@ constexpr int kLanesPerBlock = kClusterThreads * kLanesPerThread;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kClusterMaxLanes = kMaxCluster * kLanesPerBlock;
 constexpr int kMaxDevices = 64;
+// the planes form: at most kMaxLevels levels (VoxelMapConfig.max_layers:
+// 2 in the avia, nclt and ntu presets, 4 in KITTI's)
+constexpr int kMaxLevels = 4;
+// the offsets of a neighbourhood (the neighbours form)
+constexpr int kNeighbors = 27;
 
-// runs of the lookup (0) and insert (1) kernels on the current device since
-// the last hash_probe_reset_runs
-__device__ unsigned long long g_runs[2];
+// runs of each kernel on the current device since the last
+// hash_probe_reset_runs, in kernels/hash_probe.py's `launches` order
+enum { kRunLookup, kRunInsert, kRunPlanes, kRunParent, kRunNeighbors, kRunKinds };
+__device__ unsigned long long g_runs[kRunKinds];
+
+// the planes form's divisors, by value in the kernel's parameters
+struct Divisors {
+  float s[kMaxLevels];
+};
 
 // per-lane insert state, kept in the `new` output until the last pass
 enum : uint8_t { kOpen = 0, kAttempt = 1, kDone = 2, kWonPending = 3, kWon = 4 };
@@ -112,6 +159,13 @@ __device__ __forceinline__ Key load_key(const int32_t* __restrict__ coords,
                                         int i) {
   const int32_t* c = coords + 4 * static_cast<int64_t>(i);
   return {__ldg(c), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3)};
+}
+
+// a key row as one 16-byte load (the row must be 16-byte aligned)
+__device__ __forceinline__ Key load_key16(const int32_t* __restrict__ rows,
+                                          int64_t i) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(rows) + i);
+  return {v.x, v.y, v.z, v.w};
 }
 
 // map/hash.py::_hash without the mask (same primes, wrapping products)
@@ -132,11 +186,44 @@ __device__ __forceinline__ uint32_t fingerprint(const Key& k) {
   return h | 1u;
 }
 
+// The rest of a chain whose round r holds f at cand: the slot, or -1 when
+// an empty slot comes first or the chain reaches max_probe.
+__device__ __forceinline__ int32_t finish_chain(const int32_t* __restrict__ fp,
+                                                uint32_t h0, uint32_t fpq,
+                                                uint32_t mask, int max_probe,
+                                                int r, uint32_t cand,
+                                                int32_t f) {
+  while (true) {
+    if (f == static_cast<int32_t>(fpq))  // fpq is odd: a match is never empty
+      return static_cast<int32_t>(cand);
+    if (f == 0 || ++r >= max_probe) return -1;  // empty before a match: absent
+    cand = (h0 + static_cast<uint32_t>(r) * fpq) & mask;
+    f = __ldg(fp + cand);
+  }
+}
+
+// A key's first probe: its home slot and fingerprint.
+struct Probe {
+  uint32_t h0, fpq;
+};
+
+__device__ __forceinline__ Probe probe_of(const Key& k, uint32_t mask) {
+  return {slot_hash(k) & mask, fingerprint(k)};
+}
+
+// The key of world point p at the level whose voxel edge is the f32 s:
+// floor(p / s) with one IEEE division, cast as torch casts on the card.
+__device__ __forceinline__ Key voxel_key(const float p[3], float s, int level) {
+  return {__float2int_rz(floorf(__fdiv_rn(p[0], s))),
+          __float2int_rz(floorf(__fdiv_rn(p[1], s))),
+          __float2int_rz(floorf(__fdiv_rn(p[2], s))), level};
+}
+
 __global__ void __launch_bounds__(kThreads)
 hash_lookup_kernel(const int32_t* __restrict__ coords,
                    const int32_t* __restrict__ fp, int n, uint32_t mask,
                    int max_probe, int32_t* __restrict__ slot) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[0], 1ULL);
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[kRunLookup], 1ULL);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Key k = load_key(coords, i);
@@ -155,13 +242,141 @@ hash_lookup_kernel(const int32_t* __restrict__ coords,
   slot[i] = out;
 }
 
+// kP = 2: _lookup_with_neighbors (own voxel, then the near voxel, the near
+// one taken where the own descent found no plane); kP = 1: the descent of
+// lookup_planes_stack / query_planes alone.  kL levels.
+template <int kP, int kL>
+__global__ void __launch_bounds__(kThreads)
+hash_lookup_planes_kernel(const float* __restrict__ q, int n,
+                          const Divisors edge, const int32_t* __restrict__ fp,
+                          uint32_t mask, const uint8_t* __restrict__ plane_valid,
+                          const uint8_t* __restrict__ subdivided, int max_probe,
+                          uint8_t* __restrict__ found_out,
+                          int32_t* __restrict__ slot_out) {
+  constexpr int kK = kP * kL;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[kRunPlanes], 1ULL);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float p[kP][3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) p[0][d] = __ldg(q + 3 * static_cast<int64_t>(i) + d);
+  if constexpr (kP == 2) {
+    const float s = edge.s[0];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float qs = __fdiv_rn(p[0][d], s);
+      const float frac = __fsub_rn(__fsub_rn(qs, floorf(qs)), 0.5f);
+      const float sgn = frac > 0.0f ? 1.0f : (frac < 0.0f ? -1.0f : 0.0f);
+      const float shift = __fmul_rn(fabsf(frac) > 0.25f ? sgn : 0.0f, s);
+      p[1][d] = __fadd_rn(p[0][d], shift);
+    }
+  }
+  // every key's first round before any comparison
+  Probe pr[kK];
+  int32_t f[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j)
+    pr[j] = probe_of(voxel_key(p[j / kL], edge.s[j % kL], j % kL), mask);
+  if (max_probe > 0) {
+#pragma unroll
+    for (int j = 0; j < kK; ++j) f[j] = __ldg(fp + pr[j].h0);
+  }
+  int32_t s[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j)
+    s[j] = max_probe > 0 ? finish_chain(fp, pr[j].h0, pr[j].fpq, mask,
+                                        max_probe, 0, pr[j].h0, f[j])
+                         : -1;
+  // the found slots' flags, loaded together
+  bool pv[kK], sub[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    pv[j] = s[j] >= 0 && __ldg(plane_valid + s[j]) != 0;
+    sub[j] = s[j] >= 0 && __ldg(subdivided + s[j]) != 0;
+  }
+  // the descent: the coarsest planar level under present, subdivided parents
+  bool found[kP];
+  int32_t slot[kP];
+#pragma unroll
+  for (int k = 0; k < kP; ++k) {
+    bool fnd = false, descend = true;
+    int32_t sl = 0;
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const int j = k * kL + l;
+      const bool present = descend && s[j] >= 0;
+      const bool use = present && pv[j] && !fnd;
+      if (use) sl = s[j];
+      fnd = fnd || use;
+      descend = present && sub[j];
+    }
+    found[k] = fnd;
+    slot[k] = sl;
+  }
+  bool take = false;
+  if constexpr (kP == 2) take = !found[0] && found[1];
+  found_out[i] = (found[0] || take) ? 1 : 0;
+  slot_out[i] = take ? slot[kP - 1] : slot[0];
+}
+
+// out = mask & (the key of p at `level` is present and subdivided).
+__global__ void __launch_bounds__(kThreads)
+hash_lookup_parent_kernel(const float* __restrict__ pts, int n, float size,
+                          int level, const int32_t* __restrict__ fp,
+                          uint32_t mask, const uint8_t* __restrict__ subdivided,
+                          const uint8_t* __restrict__ in_mask, int max_probe,
+                          uint8_t* __restrict__ out) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[kRunParent], 1ULL);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool keep = false;
+  if (__ldg(in_mask + i) != 0 && max_probe > 0) {  // else false, as m & ...
+    float p[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[d] = __ldg(pts + 3 * static_cast<int64_t>(i) + d);
+    const Probe pr = probe_of(voxel_key(p, size, level), mask);
+    const int32_t s = finish_chain(fp, pr.h0, pr.fpq, mask, max_probe, 0,
+                                   pr.h0, __ldg(fp + pr.h0));
+    keep = s >= 0 && __ldg(subdivided + s) != 0;
+  }
+  out[i] = keep ? 1 : 0;
+}
+
+// out[27 a + j] = the slot of keys[slots[a]] + (_OFFS[j], 0) with the 4th
+// column 0, _OFFS[j] = (j / 9 - 1, j / 3 % 3 - 1, j % 3 - 1), a thread an
+// output lane.  slots index keys as torch does (a negative slot counts from
+// the end).
+__global__ void __launch_bounds__(kThreads)
+hash_lookup_neighbors_kernel(const int32_t* __restrict__ slots, int a_n,
+                             const int32_t* __restrict__ keys,
+                             const int32_t* __restrict__ fp, uint32_t mask,
+                             int max_probe, int32_t* __restrict__ out) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_runs[kRunNeighbors], 1ULL);
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<int64_t>(a_n) * kNeighbors) return;
+  const int a = static_cast<int>(t / kNeighbors);
+  const int j = static_cast<int>(t - static_cast<int64_t>(a) * kNeighbors);
+  int64_t sl = __ldg(slots + a);
+  if (sl < 0) sl += static_cast<int64_t>(mask) + 1;
+  const Key row = load_key16(keys, sl);
+  const Key k = {
+      static_cast<int32_t>(static_cast<uint32_t>(row.c0) + (j / 9 - 1)),
+      static_cast<int32_t>(static_cast<uint32_t>(row.c1) + (j / 3 % 3 - 1)),
+      static_cast<int32_t>(static_cast<uint32_t>(row.c2) + (j % 3 - 1)), 0};
+  const Probe pr = probe_of(k, mask);
+  out[t] = max_probe > 0 ? finish_chain(fp, pr.h0, pr.fpq, mask, max_probe, 0,
+                                        pr.h0, __ldg(fp + pr.h0))
+                         : -1;
+}
+
 __global__ void __launch_bounds__(kThreads)
 hash_insert_kernel(const int32_t* __restrict__ coords,
                    const uint8_t* __restrict__ valid, int u, int32_t* keys,
                    int32_t* fp, uint32_t mask, int max_probe,
                    int32_t* __restrict__ slot, uint8_t* __restrict__ state,
                    int32_t* open_flag) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[1], 1ULL);
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[kRunInsert], 1ULL);
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * blockDim.x;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -250,7 +465,7 @@ hash_insert_cluster_kernel(const int32_t* __restrict__ coords,
                            uint8_t* __restrict__ new_out) {
   // this block's copy of a round's open flag, by parity (cluster form)
   __shared__ int s_open[2];
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[1], 1ULL);
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[kRunInsert], 1ULL);
   const int lo = blockIdx.x * per_block;
   const int hi = min(u, lo + per_block);
   Key key[kLanesPerThread];
@@ -440,6 +655,115 @@ extern "C" int hash_lookup_launch(const int32_t* coords, const int32_t* fp,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <int kP, int kL>
+cudaError_t launch_planes(const float* q, int n, const Divisors& edge,
+                          const int32_t* fp, uint32_t mask,
+                          const uint8_t* plane_valid,
+                          const uint8_t* subdivided, int max_probe,
+                          uint8_t* found, int32_t* slot, cudaStream_t s) {
+  hash_lookup_planes_kernel<kP, kL><<<(n + kThreads - 1) / kThreads, kThreads,
+                                      0, s>>>(q, n, edge, fp, mask, plane_valid,
+                                              subdivided, max_probe, found,
+                                              slot);
+  return cudaGetLastError();
+}
+
+template <int kP>
+cudaError_t launch_planes_levels(int levels, const float* q, int n,
+                                 const Divisors& edge, const int32_t* fp,
+                                 uint32_t mask, const uint8_t* plane_valid,
+                                 const uint8_t* subdivided, int max_probe,
+                                 uint8_t* found, int32_t* slot,
+                                 cudaStream_t s) {
+  switch (levels) {
+#define IMMESH_PLANES_CASE(L)                                                \
+  case L:                                                                    \
+    return launch_planes<kP, L>(q, n, edge, fp, mask, plane_valid, subdivided, \
+                                max_probe, found, slot, s);
+    IMMESH_PLANES_CASE(1)
+    IMMESH_PLANES_CASE(2)
+    IMMESH_PLANES_CASE(3)
+    IMMESH_PLANES_CASE(4)
+#undef IMMESH_PLANES_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+bool table_ok(int capacity, int max_probe) {
+  return capacity > 0 && (capacity & (capacity - 1)) == 0 && max_probe >= 0;
+}
+
+}  // namespace
+
+// The planes form's largest level count.
+extern "C" int hash_lookup_planes_max_levels() { return kMaxLevels; }
+
+// q (n, 3) f32 points, sizes[levels] the host's f32 voxel edge of each level,
+// fp (capacity,) int32, plane_valid and subdivided (capacity,) bool ->
+// found (n,) bool, slot (n,) int32.  near 1: own and near voxel; 0: own.
+extern "C" int hash_lookup_planes_launch(const float* q, int n,
+                                         const float* sizes, int levels,
+                                         int near, const int32_t* fp,
+                                         int capacity,
+                                         const uint8_t* plane_valid,
+                                         const uint8_t* subdivided,
+                                         int max_probe, uint8_t* found,
+                                         int32_t* slot, void* stream) {
+  if (n < 0 || !table_ok(capacity, max_probe) || levels < 1 ||
+      levels > kMaxLevels || (near != 0 && near != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  Divisors edge = {};
+  for (int l = 0; l < levels; ++l) edge.s[l] = sizes[l];
+  const uint32_t mask = static_cast<uint32_t>(capacity - 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      near ? launch_planes_levels<2>(levels, q, n, edge, fp, mask, plane_valid,
+                                     subdivided, max_probe, found, slot, s)
+           : launch_planes_levels<1>(levels, q, n, edge, fp, mask, plane_valid,
+                                     subdivided, max_probe, found, slot, s));
+}
+
+// pts (n, 3) f32, size the f32 voxel edge of `level`, fp (capacity,) int32,
+// subdivided (capacity,) bool, mask (n,) bool -> out (n,) bool.
+extern "C" int hash_lookup_parent_launch(const float* pts, int n, float size,
+                                         int level, const int32_t* fp,
+                                         int capacity,
+                                         const uint8_t* subdivided,
+                                         const uint8_t* mask, int max_probe,
+                                         uint8_t* out, void* stream) {
+  if (n < 0 || !table_ok(capacity, max_probe))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  hash_lookup_parent_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      pts, n, size, level, fp, static_cast<uint32_t>(capacity - 1),
+      subdivided, mask, max_probe, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slots (a,) int32 into keys (capacity, 4) int32 (16-byte aligned), fp
+// (capacity,) int32 -> out (a * 27,) int32.
+extern "C" int hash_lookup_neighbors_launch(const int32_t* slots, int a,
+                                            const int32_t* keys,
+                                            const int32_t* fp, int capacity,
+                                            int max_probe, int32_t* out,
+                                            void* stream) {
+  if (a < 0 || !table_ok(capacity, max_probe))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a == 0) return 0;
+  const int64_t lanes = static_cast<int64_t>(a) * kNeighbors;
+  hash_lookup_neighbors_kernel<<<static_cast<unsigned>((lanes + kThreads - 1) /
+                                                       kThreads),
+                                 kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      slots, a, keys, fp, static_cast<uint32_t>(capacity - 1), max_probe, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The largest u the cluster form takes (path 1); larger inserts take the
 // cooperative form (path 0).
 extern "C" int hash_insert_cluster_max_lanes() { return kClusterMaxLanes; }
@@ -494,15 +818,19 @@ extern "C" int hash_insert_launch(const int32_t* coords, const uint8_t* valid,
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
-// out[0], out[1]: the lookup and insert kernels' runs on the current device
-// since the last reset.  Synchronous; returns the CUDA error.
+// out[0 .. kRunKinds): the lookup (the coords form), insert, planes, parent
+// and neighbours kernels' runs on the current device since the last reset.
+// Synchronous; returns the CUDA error.
 extern "C" int hash_probe_runs(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs)));
 }
 
-// Both counters of the current device to 0.  Synchronous; returns the CUDA
+// The number of run counters (kernels/hash_probe.py checks its own).
+extern "C" int hash_probe_run_kinds() { return kRunKinds; }
+
+// Every counter of the current device to 0.  Synchronous; returns the CUDA
 // error.
 extern "C" int hash_probe_reset_runs() {
-  const unsigned long long zero[2] = {0, 0};
+  const unsigned long long zero[kRunKinds] = {};
   return static_cast<int>(cudaMemcpyToSymbol(g_runs, zero, sizeof(zero)));
 }

@@ -37,7 +37,6 @@ from immesh_tpu_torch.lio.association import associate
 from immesh_tpu_torch.lio.downsample import voxel_downsample
 from immesh_tpu_torch.lio.esikf import iterated_update
 from immesh_tpu_torch.lio.pipeline import propagate_and_deskew
-from immesh_tpu_torch.map.hash import voxel_coords
 from immesh_tpu_torch.map.voxel_map import VoxelMap
 
 
@@ -71,10 +70,7 @@ def _dp_lio_body(state: EsikfState, vm: VoxelMap, bundle: ScanBundle,
     lmask = down_mask
     for level in range(map_cfg.max_layers):
         if level > 0:
-            cprev = voxel_coords(pts_world_down, map_cfg.voxel_size, level - 1)
-            parent = vm.table.lookup(cprev)
-            lmask = lmask & (parent >= 0) & vm.subdivided[
-                parent.clamp(min=0).long()]
+            lmask = vm.parent_mask(pts_world_down, lmask, level)
         uc, agg, ok = vm.scan_aggregates(
             pts_world_down, sigma2, lmask, level, max_vox)
         # gather every shard's aggregates → identical combined list everywhere

@@ -104,10 +104,7 @@ class ShardedVoxelMap:
         m = mask & self.owns(voxel_coords(pts_world, cfg.voxel_size, 0))
         for lvl in range(cfg.max_layers):
             if lvl > 0:
-                cprev = voxel_coords(pts_world, cfg.voxel_size, lvl - 1)
-                parent = vm.table.lookup(cprev)
-                m = m & (parent >= 0) & vm.subdivided[
-                    parent.clamp(min=0).long()]
+                m = vm.parent_mask(pts_world, m, lvl)
             uc, agg, ok = vm.scan_aggregates(
                 pts_world, point_sigma2, m, lvl, max_voxels)
             vm.apply_aggregates(uc, agg, ok, lvl)

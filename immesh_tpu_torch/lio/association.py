@@ -11,7 +11,6 @@ from typing import Dict
 import torch
 
 from immesh_tpu_torch.config import VoxelMapConfig
-from immesh_tpu_torch.core.ops import div
 from immesh_tpu_torch.core.so3 import cross
 from immesh_tpu_torch.core.state import EsikfState
 from immesh_tpu_torch.map.voxel_map import VoxelMap, _sym_unpack
@@ -23,17 +22,10 @@ def _lookup_with_neighbors(vm: VoxelMap, q_world: torch.Tensor):
 
     Mirrors the JAX code, not its docstring: the near voxel is probed for
     every point, and used wherever the own voxel found no plane — including
-    when the own voxel is absent from the map."""
-    size = vm.cfg.voxel_size
-    qs = div(q_world, size)
-    frac = qs - torch.floor(qs) - 0.5  # ∈ [-0.5, 0.5)
-    shift = torch.where(torch.abs(frac) > 0.25, torch.sign(frac),
-                        torch.zeros_like(frac)) * size
-    probes = torch.stack([q_world, q_world + shift], dim=0)
-    found_s, slot_s = vm.lookup_planes_stack(probes)
-    take = ~found_s[0] & found_s[1]
-    slot = torch.where(take, slot_s[1], slot_s[0])
-    return found_s[0] | take, slot
+    when the own voxel is absent from the map.  Both probes, every level
+    and the descent are kernels/hash_probe.py's planes form: its plain
+    version on the CPU, one launch on the card."""
+    return vm.lookup_planes(q_world, near=True)
 
 
 def associate(state: EsikfState, vm: VoxelMap, pts_body: torch.Tensor,

@@ -12,11 +12,13 @@ prime-mix `Hash_map_3d`, src/tools/tools_kd_hash.hpp:54-136):
   * `insert` compares full keys and resolves same-slot claims by a
     scatter-min tournament: the lowest lane id wins.
 
-Both probe loops, with the hash arithmetic, live in kernels/hash_probe.py:
-the plain PyTorch loops on the CPU, and on the card one CUDA kernel launch
-a call with no host read, as the reference's `lax.while_loop`s never leave
-the device.  Where the JAX reference returns a new table, the port updates `keys`/`fp`
-in place (JAX donated these buffers in joint_step).
+Both probe loops, with the hash arithmetic and voxel_coords, live in
+kernels/hash_probe.py: the plain PyTorch loops on the CPU, and on the card
+one CUDA kernel launch a call with no host read, as the reference's
+`lax.while_loop`s never leave the device.  The plane and mesh maps call
+that module's lookup forms, which make their keys from points or slots,
+directly.  Where the JAX reference returns a new table, the port updates
+`keys`/`fp` in place (JAX donated these buffers in joint_step).
 """
 
 from __future__ import annotations
@@ -25,11 +27,10 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from immesh_tpu_torch.core.ops import div
 from immesh_tpu_torch.device import resolve_device
 from immesh_tpu_torch.kernels import hash_probe
 from immesh_tpu_torch.kernels.hash_probe import (  # noqa: F401
-    EMPTY, _fingerprint, _hash)
+    EMPTY, _fingerprint, _hash, voxel_coords)
 
 
 @dataclass
@@ -113,14 +114,3 @@ def frame_unique_coords(coords: torch.Tensor, mask: torch.Tensor, k: int):
     first.scatter_reduce_(0, segs.long(), order.to(torch.int32), reduce="amin")
     n_uniq = torch.sum((head & valid_s).to(torch.int32))
     return seg, first[:k], n_uniq
-
-
-def voxel_coords(pts: torch.Tensor, voxel_size: float,
-                 level: int = 0) -> torch.Tensor:
-    """World points (N, 3) → int32 key quadruples (N, 4) at the given level
-    (floor quantization; level ℓ uses voxel_size / 2^ℓ)."""
-    size = voxel_size / (2 ** level)
-    c = torch.floor(div(pts, size)).to(torch.int32)
-    lvl = torch.full((pts.shape[0], 1), level, dtype=torch.int32,
-                     device=pts.device)
-    return torch.cat([c, lvl], dim=-1)

@@ -23,6 +23,7 @@ from immesh_tpu_torch.core.geometry import plane_from_moments
 from immesh_tpu_torch.core.ops import (add_drop_group, segment_sum,
                                       set_drop_group)
 from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.kernels import hash_probe
 from immesh_tpu_torch.map.hash import (
     EMPTY, HashTable, frame_unique_coords, voxel_coords)
 
@@ -131,12 +132,20 @@ class VoxelMap:
             # makes the level update an exact no-op (its own argument,
             # immesh_tpu/map/voxel_map.py:110-119), and nothing is read
             # back on the host
-            cprev = voxel_coords(pts_world, self.cfg.voxel_size, lvl - 1)
-            parent = self.table.lookup(cprev)
-            m = m & (parent >= 0) & self.subdivided[parent.clamp(min=0).long()]
+            m = self.parent_mask(pts_world, m, lvl)
             levels = levels + m.any().to(torch.int32)
             self._update_level(pts_world, point_sigma2, m, lvl, max_voxels)
         return levels
+
+    def parent_mask(self, pts_world: torch.Tensor, m: torch.Tensor,
+                    level: int) -> torch.Tensor:
+        """m & (each point's voxel at level − 1 is present and
+        subdivided): the mask of refinement level `level`
+        (kernels/hash_probe.py's parent form)."""
+        return hash_probe.lookup_parent(
+            pts_world.contiguous(), self.cfg.voxel_size, level - 1,
+            self.table.fp, self.subdivided, m.contiguous(),
+            self.table.max_probe)
 
     def scan_aggregates(self, pts, sigma2, mask, level: int, max_voxels: int):
         """Per-scan segment aggregation: (uniq_coords (U,4), agg (U,11), ok).
@@ -217,24 +226,20 @@ class VoxelMap:
     # ==================================================================
     # queries
     # ==================================================================
+    def lookup_planes(self, q: torch.Tensor, near: bool):
+        """(found (N,), slot (N,)) of the multi-level plane lookup of the
+        (N, 3) points q, with the near-voxel probe of lio/association.py
+        where `near` (kernels/hash_probe.py's planes form)."""
+        return hash_probe.lookup_planes(
+            q.contiguous(), self.cfg.voxel_size, self.cfg.max_layers,
+            self.table.fp, self.plane_valid, self.subdivided,
+            self.table.max_probe, near)
+
     def query_planes(self, pts_world: torch.Tensor):
         """Multi-level plane lookup for (N, 3) points: the coarsest planar
         level, descending through subdivided parents (reference
         voxel_mapping.cpp:247-318)."""
-        n = pts_world.shape[0]
-        dev = pts_world.device
-        slot = torch.zeros(n, dtype=torch.int32, device=dev)
-        found = torch.zeros(n, dtype=torch.bool, device=dev)
-        descend = torch.ones(n, dtype=torch.bool, device=dev)
-        for lvl in range(self.cfg.max_layers):
-            c = voxel_coords(pts_world, self.cfg.voxel_size, lvl)
-            s = self.table.lookup(c)
-            sc = s.clamp(min=0)
-            present = descend & (s >= 0)
-            use = present & self.plane_valid[sc.long()] & ~found
-            slot = torch.where(use, sc, slot)
-            found = found | use
-            descend = present & self.subdivided[sc.long()]
+        found, slot = self.lookup_planes(pts_world, near=False)
         sl = slot.long()
         return {
             "found": found,
@@ -248,29 +253,12 @@ class VoxelMap:
 
     def lookup_planes_stack(self, pts_stack: torch.Tensor):
         """Multi-level plane lookup for a (P, N, 3) stack of query positions,
-        all P·max_layers hash lookups as one batched probe loop.  Returns
-        (found (P, N), slot (P, N)) with query_planes' descent semantics."""
+        all P·max_layers hash lookups in one launch.  Returns (found (P, N),
+        slot (P, N)) with query_planes' descent semantics."""
         P, N, _ = pts_stack.shape
-        L = self.cfg.max_layers
-        dev = pts_stack.device
-        flat = pts_stack.reshape(P * N, 3)
-        keys = torch.cat(
-            [voxel_coords(flat, self.cfg.voxel_size, lvl) for lvl in range(L)],
-            dim=0)                                         # (L·P·N, 4)
-        s_all = self.table.lookup(keys).reshape(L, P, N)
-
-        slot = torch.zeros((P, N), dtype=torch.int32, device=dev)
-        found = torch.zeros((P, N), dtype=torch.bool, device=dev)
-        descend = torch.ones((P, N), dtype=torch.bool, device=dev)
-        for lvl in range(L):
-            s = s_all[lvl]
-            sc = s.clamp(min=0)
-            present = descend & (s >= 0)
-            use = present & self.plane_valid[sc.long()] & ~found
-            slot = torch.where(use, sc, slot)
-            found = found | use
-            descend = present & self.subdivided[sc.long()]
-        return found, slot
+        found, slot = self.lookup_planes(pts_stack.reshape(P * N, 3),
+                                         near=False)
+        return found.reshape(P, N), slot.reshape(P, N)
 
     def n_voxels(self) -> torch.Tensor:
         return self.table.occupancy()

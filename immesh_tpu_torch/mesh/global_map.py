@@ -25,7 +25,7 @@ frame first copies the map and puts the copy back at the cut.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -34,28 +34,13 @@ from immesh_tpu_torch.config import MeshConfig
 from immesh_tpu_torch.core.ops import (compact_indices, div, set_drop,
                                       set_drop_group)
 from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.kernels import hash_probe
+from immesh_tpu_torch.kernels.hash_probe import _OFFS
 from immesh_tpu_torch.map.hash import EMPTY, HashTable, frame_unique_coords
 
 _SENTINEL = 1 << 30
 
-_OFFS = np.stack(np.meshgrid(
-    np.arange(-1, 2), np.arange(-1, 2), np.arange(-1, 2), indexing="ij"
-), axis=-1).reshape(27, 3).astype(np.int32)
 _OWN_OFFSET_IDX = int(np.where((_OFFS == 0).all(axis=1))[0][0])
-
-
-_OFFS_ON: Dict[torch.device, torch.Tensor] = {}
-
-
-def _neighbor_offsets(device) -> torch.Tensor:
-    """_OFFS on `device`, copied there once (a copy from the host's pageable
-    memory is refused under stream capture, so the mesh step's first,
-    eager frame makes it)."""
-    dev = torch.device(device)
-    offs = _OFFS_ON.get(dev)
-    if offs is None:
-        offs = _OFFS_ON[dev] = torch.from_numpy(_OFFS).to(dev)
-    return offs
 
 
 def _grid_coords(pts: torch.Tensor, size: float, tag: int) -> torch.Tensor:
@@ -92,14 +77,6 @@ def _rank_in_segment(seg: torch.Tensor, mask: torch.Tensor,
     rank = torch.empty(n, dtype=torch.int32, device=dev)
     rank[order] = rank_sorted
     return torch.where(mask, rank, 0)
-
-
-def _neighbor_keys(keys: torch.Tensor) -> torch.Tensor:
-    """(A, 4) voxel keys → (A·27, 4) keys of their 3×3×3 neighborhoods."""
-    A = keys.shape[0]
-    nb = keys[:, None, :3] + _neighbor_offsets(keys.device)[None]
-    z = torch.zeros((A, 27, 1), dtype=torch.int32, device=keys.device)
-    return torch.cat([nb, z], dim=-1).reshape(A * 27, 4)
 
 
 @dataclass
@@ -319,6 +296,14 @@ class GlobalPointMap:
         return self, active_slots, active_mask, drops
 
     # ------------------------------------------------------------------
+    def _neighbor_slots(self, s: torch.Tensor) -> torch.Tensor:
+        """(A·27,) slots of the 3×3×3 neighbourhoods of the voxel table's
+        (A,) slots, −1 where absent (kernels/hash_probe.py's neighbours
+        form)."""
+        return hash_probe.lookup_neighbors(
+            s.to(torch.int32).contiguous(), self.vox.keys, self.vox.fp,
+            self.vox.max_probe)
+
     def _dilate_active(self, touched: torch.Tensor, tmask: torch.Tensor):
         """Expand the touched-voxel set to its occupied 26-neighborhood,
         bounded to cfg.active_voxels_per_frame entries with every seed
@@ -327,8 +312,7 @@ class GlobalPointMap:
         dev = touched.device
         A = cfg.active_voxels_per_frame
         V = self.vox_n.shape[0]
-        keys = self.vox.keys[touched.clamp(min=0).long()]     # (A, 4)
-        nb_slots = self.vox.lookup(_neighbor_keys(keys))      # (A*27,)
+        nb_slots = self._neighbor_slots(touched.clamp(min=0))  # (A*27,)
         nb_ok = tmask.repeat_interleave(27) & (nb_slots >= 0)
         nb_ok = nb_ok & (self.vox_n[nb_slots.clamp(min=0).long()] >= 3)
         # unique slots, each with priority = min over its candidate rows
@@ -363,7 +347,7 @@ class GlobalPointMap:
         cand_ok (A, 27, S), cand_pts (A, 27, S, 3)) of the 3×3×3 voxels."""
         A = s.shape[0]
         keys = self.vox.keys[s.long()]
-        nb_slots = self.vox.lookup(_neighbor_keys(keys)).reshape(A, 27)
+        nb_slots = self._neighbor_slots(s).reshape(A, 27)
         nbs = nb_slots.clamp(min=0).long()
         cand_idx = self.vox_pt_idx[nbs]                         # (A, 27, S)
         cand_ok = (nb_slots >= 0)[:, :, None] & (cand_idx >= 0)

@@ -322,10 +322,13 @@ def test_captured_step_equals_the_eager_step_on_the_card():
     launches = {**hp.launches, "scatter_drop": sd.launches}
     runs = {**hp.runs(), "scatter_drop": sd.runs()}
     # the graph's counts cover every counted kernel imported so far; the
-    # LIO runs no pairs_argmin
+    # LIO runs no pairs_argmin, and its lookups are the planes and parent
+    # forms (no coords-form lookup, no neighbourhood)
     captured = dict(g.captured)
     assert captured.pop("pairs_argmin", 0) == 0
     assert captured == {**hp.captured, "scatter_drop": sd.captured}
+    assert captured.pop("hash_lookup") == 0
+    assert captured.pop("hash_lookup_neighbors") == 0
     assert all(n > 0 for n in captured.values())
     assert runs == {k: launches[k] + 7 * g.captured[k] for k in runs}
     assert g.nodes()["kernel"] > sum(g.captured.values())

@@ -205,6 +205,13 @@ def test_voxel_map_levels_and_queries(vm_runs):
     rng = np.random.default_rng(5)
     q = np.concatenate([_scans(rng, 1, 400)[0][0],
                         rng.uniform(-9, 9, (200, 3)).astype(np.float32)])
+    # the voxel size is 1: points exactly on voxel boundaries, on the
+    # quarter marks, in the outer quarter, at negative coordinates, and the
+    # masked rows' 0 (what voxel_downsample leaves there)
+    k = rng.integers(-6, 6, (64, 3)).astype(np.float32)
+    q = np.concatenate([q, k, k + 0.25, k + 0.75, k + 0.1, k + 0.9,
+                        -np.abs(q[:64]), np.zeros((4, 3)),
+                        [[-0.0, 0.0, -0.0]]]).astype(np.float32)
     jq, tq = jvm.query_planes(jnp.asarray(q)), tvm.query_planes(_t(q))
     _eq(jq["found"], tq["found"])
     _eq(jq["slot"], tq["slot"])

@@ -6,10 +6,11 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
 
   0. device   — requires CUDA and prints the card's name and power limit,
                 the CUDA runtime and driver versions, and whether torch has
-                CUDA-graph conditional nodes (the captured LIO step runs
-                its masked form either way: chosen in code);
+                CUDA-graph conditional nodes (the captured steps' IF nodes
+                come from csrc/graph_cond.cu either way);
   1. build    — compiles every kernel from csrc/ with nvcc, one process per
-                source, all started together;
+                source, all started together; the driver's and
+                graph_cond's runtime versions must reach CUDA 12.3;
   2. kernels  — holds each kernel (pairs_argmin, incircle) against its plain
                 PyTorch version on the card (value-identical results):
                 pairs_argmin at the KITTI chunk (512, 48), the Avia chunk
@@ -192,9 +193,14 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 against captured; the KITTI graph's kernel, memcpy and
                 memset nodes and recorded kernel launches equal to phase
                 4's (whose recorders were on); one captured step under
-                torch.profiler (0 syncs); the masked form's dead work in
-                device ms (an ESIKF body after convergence, an empty
-                refinement level);
+                torch.profiler (0 syncs); the IF nodes by site (in the
+                KITTI LIO graph and the Avia's two an ESIKF body — its
+                normal equations, then its step — and one a refinement
+                level), their bodies' node types (no allocation, free
+                or event node), the bodies run on the device (the set
+                kernel's taken counts) equal to what each frame's diag
+                says (iterations, levels, chunks with an active voxel),
+                and the bodies, levels and chunks skipped a frame;
                 the inserts recorded into the graphs all of the cluster
                 form; the graph's kernel nodes and one captured step's
                 device-busy ms; each LIO kernel's runs a frame;
@@ -223,23 +229,36 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 form, each path kernel's runs a frame, its kernel nodes and
                 one captured mesh step's device-busy ms; one mesh
                 step of each under torch.profiler (0 syncs captured); the
-                dead chunks the
-                captured step ran (chunks with no active voxel, which the
-                eager step skips) and the device ms of one; ms a frame with
-                the mesh eager against captured.
+                mesh graph's IF nodes (one a chunk of the work list) and
+                their bodies' node types, the chunk bodies run on the
+                device equal to the chunks with an active voxel, the chunks
+                skipped a frame; ms a frame with the mesh eager against
+                captured.
+
+Phase 16a, before 16, holds the IF nodes' set kernel (csrc/graph_cond.cu)
+to its plain version, the host read of the predicate: a graph of 64 IF
+nodes replayed on random predicates runs each body exactly where the host
+read says; then its device time a node, predicate false and true.
+
+Every path that captures checks the device runs of every kernel against
+its eager launches, each graph's replays times the launches recorded
+outside its IF nodes, and each body's runs (the set kernel's taken count)
+times the launches recorded into it (path_counts).
 
 The line before the last is a JSON object describing every kernel (for
-pairs_argmin and the hash and scatter kernels "launches" by the wrapper and
-"device_runs" by the kernel's device counter, on the main path and on each
-other path; for the lookup forms also the composition each replaced, its
-time as one captured graph and its kernel nodes); the last line is
-{"ok": true, "device": {...}}.
+pairs_argmin, the hash and scatter kernels and the set kernel "launches"
+by the wrapper — for the set kernel, which runs only in graphs, those it
+recorded — and "device_runs" by the kernel's device counter, on the main
+path and on each other path; for the lookup forms also the composition
+each replaced, its time as one captured graph and its kernel nodes); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import inspect
 import json
 import math
@@ -254,7 +273,8 @@ import numpy as np
 import torch
 
 # the sources in immesh_tpu_torch/csrc
-KERNELS = ("pairs_argmin", "incircle", "hash_probe", "scatter_drop")
+KERNELS = ("pairs_argmin", "incircle", "hash_probe", "scatter_drop",
+           "graph_cond")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -411,6 +431,10 @@ PATH_KERNELS = ("pairs_argmin", "hash_lookup_planes", "hash_lookup_parent",
                 "hash_lookup_neighbors", "hash_insert", "scatter_drop")
 LIO_KERNELS = ("hash_lookup_planes", "hash_lookup_parent", "hash_insert",
                "scatter_drop")
+# the IF nodes' set kernel (kernels/graph_cond.py): it runs only inside the
+# captured graphs, so path_counts checks it on every path that captures
+COND_KERNEL = "graph_cond"
+COUNTED = PATH_KERNELS + (COND_KERNEL,)
 # the lookup forms (kernels/hash_probe.py), by the kernel's name
 LOOKUP_FORMS = {"hash_lookup_planes": "planes",
                 "hash_lookup_parent": "parent",
@@ -826,6 +850,7 @@ def phase_ints(dev):
 # ---------------------------------------------------------------------------
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
+    from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import incircle as ik
     from immesh_tpu_torch.kernels import pairs_argmin as pk
@@ -834,6 +859,7 @@ def reset_counts() -> None:
     ik.reset_launches()
     hp.reset_launches()
     sd.reset_launches()
+    gc.reset_launches()
 
 
 def launch_counts() -> dict:
@@ -841,27 +867,85 @@ def launch_counts() -> dict:
     kernel: eager ones (a launch recorded into a CUDA graph counts in the
     module's `captured`, and its replays in the kernel's device counter,
     path_now)."""
+    from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import incircle as ik
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
     return {"pairs_argmin": pk.launches, "incircle": ik.launches,
-            **hp.launches, "scatter_drop": sd.launches}
+            **hp.launches, "scatter_drop": sd.launches,
+            COND_KERNEL: gc.launches}
 
 
 def path_now() -> dict:
-    """The PATH_KERNELS' counts since reset_counts():
-    "launches" by their wrappers (launch_counts) and "runs" on the device,
-    eager and replayed in CUDA graphs, from the kernels' own device
-    counters (synchronises)."""
+    """The COUNTED kernels' counts since reset_counts(): "launches" by
+    their wrappers (launch_counts), "recorded" the launches they recorded
+    into CUDA graphs (kernels/build.py::captured_launches) and "runs" on
+    the device, eager and replayed in CUDA graphs, from the kernels' own
+    device counters (synchronises)."""
+    from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
-    launches = launch_counts()
+    from immesh_tpu_torch.kernels.build import captured_launches
+    launches, recorded = launch_counts(), captured_launches()
     runs = {"pairs_argmin": pk.runs(), **hp.runs(),
-            "scatter_drop": sd.runs()}
-    return {"launches": {k: launches[k] for k in PATH_KERNELS},
-            "runs": {k: runs[k] for k in PATH_KERNELS}}
+            "scatter_drop": sd.runs(), COND_KERNEL: gc.runs()}
+    return {part: {k: n[k] for k in COUNTED} for part, n in (
+        ("launches", launches), ("recorded", recorded), ("runs", runs))}
+
+
+def body_runs(graphs) -> list:
+    """(Body, its runs since reset_counts()) of every IF node of `graphs`
+    (utils/graphs.py's Graph), from the set kernel's per-node taken
+    counters (synchronises)."""
+    from immesh_tpu_torch.kernels import graph_cond as gc
+    bodies = [b for g in graphs for b in g.bodies]
+    return list(zip(bodies, gc.taken([b.slot for b in bodies])))
+
+
+def site_runs(graphs) -> dict:
+    """The body runs of `graphs` summed by site (device_if's `what`)."""
+    out = {}
+    for b, n in body_runs(graphs):
+        out[b.what] = out.get(b.what, 0) + n
+    return out
+
+
+def if_nodes(graphs) -> dict:
+    """The IF nodes of `graphs` by site, and their bodies' node types
+    summed by site; fails if a body holds a node a conditional body may
+    not hold (an allocation, a free, an event) or a graph's conditional
+    nodes are not its bodies."""
+    from immesh_tpu_torch.utils.graphs import graph_nodes
+    sites, kinds = {}, {}
+    for g in graphs:
+        outer = graph_nodes(g.graph).get("conditional", 0)
+        if outer != len(g.bodies):
+            raise AssertionError(f"a graph holds {outer} conditional nodes "
+                                 f"and {len(g.bodies)} recorded bodies")
+        for b in g.bodies:
+            sites[b.what] = sites.get(b.what, 0) + 1
+            k = kinds.setdefault(b.what, {})
+            for name, n in b.nodes().items():
+                k[name] = k.get(name, 0) + n
+    bad = {s: k for s, k in kinds.items()
+           if set(k) & {"mem_alloc", "mem_free", "event_record",
+                        "wait_event", "host"}}
+    if bad:
+        raise AssertionError(f"conditional bodies hold forbidden nodes: "
+                             f"{bad}")
+    return {"nodes": sites, "body_node_types": kinds}
+
+
+def recorded_launches(g) -> dict:
+    """The kernel launches recorded into a captured graph (utils/graphs.py's
+    Graph), its IF nodes' bodies included, by kernel."""
+    out = dict(g.captured)
+    for b in g.bodies:
+        for k, n in b.captured.items():
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 def pipe_graphs(p) -> list:
@@ -876,29 +960,39 @@ def pipe_graphs(p) -> list:
 def path_counts(path: str, counts=None, graphs=None,
                 kernels=PATH_KERNELS) -> dict:
     """The counts of `kernels` on `path` (path_now(), or a rank's), added
-    up in PATH_COUNTS.  Fails if a kernel was never launched there or
-    never ran on the device, or if the device counted other runs than the
-    launches plus the replays of the launches recorded into the path's
-    captured graphs (`graphs`, utils/graphs.py's Graph: the LIO and mesh
-    steps'; () where the path captures none; None where they are not at
-    hand, and then the runs must be at least the launches)."""
+    up in PATH_COUNTS, and of the set kernel where the path captured
+    graphs.  Fails if a kernel was never launched there or never ran on
+    the device, or if the device counted other runs than the eager
+    launches plus, for each of the path's captured graphs (`graphs`,
+    utils/graphs.py's Graph: the LIO and mesh steps'; () where the path
+    captures none; None where they are not at hand, and then the runs must
+    be at least the launches), its replays times the launches recorded
+    into it outside its IF nodes and each IF node's body runs (the set
+    kernel's taken counts) times the launches recorded into that body.
+    The set kernel is recorded, never launched eagerly: its wrapper's count
+    is what it recorded, and its runs are the replays times its nodes."""
     n = path_now() if counts is None else counts
-    n = {part: {k: n[part][k] for k in kernels}
-         for part in ("launches", "runs")}
+    if graphs:
+        kernels = (*kernels, COND_KERNEL)
+    n = {part: {k: n[part].get(k, 0) for k in kernels}
+         for part in ("launches", "recorded", "runs") if part in n}
+    bodies = body_runs(graphs) if graphs else []
     for k in kernels:
         launched, ran = n["launches"][k], n["runs"][k]
+        by_wrapper = launched if k != COND_KERNEL else n["recorded"][k]
         want = (launched if graphs is None else launched + sum(
-            g.replays * g.captured.get(k, 0) for g in graphs))
-        if launched == 0 or ran == 0 or ran < want or (
+            g.replays * g.captured.get(k, 0) for g in graphs) + sum(
+                t * b.captured.get(k, 0) for b, t in bodies))
+        if by_wrapper == 0 or ran == 0 or ran < want or (
                 graphs is not None and ran != want):
             raise AssertionError(
-                f"{path}: {k} launched {launched} times by its wrapper and "
-                f"run {ran} times on the device (the launches and the "
-                f"graphs' replays: {want})")
-    old = PATH_COUNTS.get(path, {"launches": {}, "runs": {}})
-    PATH_COUNTS[path] = {part: {k: old[part].get(k, 0) + v
-                                for k, v in n[part].items()}
-                         for part in ("launches", "runs")}
+                f"{path}: {k} launched {by_wrapper} times by its wrapper "
+                f"and run {ran} times on the device (the launches, the "
+                f"graphs' replays and their bodies' runs: {want})")
+    old = PATH_COUNTS.get(path, {})
+    PATH_COUNTS[path] = {part: {k: old.get(part, {}).get(k, 0) + v
+                                for k, v in c.items()}
+                         for part, c in n.items()}
     return n
 
 
@@ -909,7 +1003,8 @@ def captured_forms(graphs, what: str) -> dict:
     graphs' recorded inserts."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     forms = dict(hp.captured_paths)
-    want = sum(g.captured.get("hash_insert", 0) for g in graphs)
+    want = sum(g.captured.get("hash_insert", 0) + sum(
+        b.captured.get("hash_insert", 0) for b in g.bodies) for g in graphs)
     if forms != {"grid": 0, "cluster": want}:
         raise AssertionError(f"{what}: the graphs recorded hash_insert "
                              f"launches {forms} by form, expected {want} "
@@ -1858,13 +1953,20 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"{p90:.1f} ms p90; pairs_argmin {timed_launches} runs "
         f"(~{100 * share:.2f} % of frame time at the phase-2 kernel time); "
         f"pose err max {max(errs):.3f} m, last {errs[-1]:.3f} m")
+    def in_bodies(g, k):
+        return sum(b.captured.get(k, 0) for b in g.bodies)
+
     log("[main] over all " + str(len(gt)) + " frames: " + ", ".join(
         f"{k} {n} wrapper launches and {hashes['runs'][k]} runs on the "
-        f"device ({hashes['runs'][k] / len(gt):.1f} a frame, "
-        f"{graph.captured.get(k, 0)} in each replay of the LIO graph, "
-        f"{mgraph.captured.get(k, 0)} in each of the mesh graph)"
+        f"device ({hashes['runs'][k] / len(gt):.1f} a frame; recorded "
+        f"{graph.captured.get(k, 0)} + {in_bodies(graph, k)} in IF bodies "
+        f"into the LIO graph, {mgraph.captured.get(k, 0)} + "
+        f"{in_bodies(mgraph, k)} into the mesh graph)"
         for k, n in hashes["launches"].items())
-        + f"; hash_insert launches recorded into the graphs by form {forms}")
+        + f"; hash_insert launches recorded into the graphs by form {forms}; "
+        f"the set kernel recorded {hashes['recorded'][COND_KERNEL]} times "
+        f"(one an IF node), run {hashes['runs'][COND_KERNEL]} times; IF "
+        f"bodies run by site {site_runs(pipe_graphs(pipe))}")
     log(f"[main] live triangles {n_tris}, map points {n_pts}, mesh voxels "
         f"{int(pipe.mesh.gm.vox.occupancy())}, LIO voxels "
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
@@ -1886,9 +1988,10 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"{sum(map(len, probes.values()))} probes and "
         f"{sum(map(len, scatters.values()))} scatters")
     return {"gt": gt, "pos": positions, "scans": scans, "R0": R0, "p0": p0,
-            "graph_nodes": nodes, "graph_captured": graph.captured,
+            "graph_nodes": nodes, "graph_captured": recorded_launches(graph),
             "mesh_graph_nodes": mnodes,
-            "mesh_graph_captured": mgraph.captured}, probes, scatters
+            "mesh_graph_captured": recorded_launches(mgraph)}, probes, \
+        scatters
 
 
 def eager_mesh_calls(cfg, dev, worlds, at, mesh_ref):
@@ -3955,6 +4058,95 @@ def phase_profile(dev, main_info: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 16a: the IF nodes' set kernel against its plain version
+# ---------------------------------------------------------------------------
+COND_NODES = 64     # IF nodes of the probe graph
+COND_REPLAYS = 40   # replays on random predicates
+
+
+def cond_probe(dev, n: int):
+    """A CapturedStep of n IF nodes: node k adds 1 to acc[k] where pred[k]
+    (kernels/graph_cond.py's set kernel, one body kernel each)."""
+    from immesh_tpu_torch.utils.graphs import CapturedStep, device_if
+
+    class Probe(CapturedStep):
+        def __call__(self, acc, pred):
+            return self._run((acc,), (pred,))
+
+        def _pointers(self, acc):
+            return (acc.data_ptr(),)
+
+        def _step(self, acc, pred):
+            for k in range(n):
+                device_if(pred[k], functools.partial(acc[k].add_, 1),
+                          "probe")
+
+    return Probe(dev)
+
+
+def phase_cond(dev) -> dict:
+    """Phase 16a: the set kernel against its plain version (the host read
+    bool(pred)) on the card: a graph of COND_NODES IF nodes replayed on
+    COND_REPLAYS random predicate vectors (and all-false and all-true), each
+    node's body run exactly where the host read says; then its time a node
+    (one replay of the graph with every predicate false, over the nodes:
+    the set kernel and the skipped node) beside its bound (a byte read) and
+    the plain version's (one host read of a device bool), and with every
+    predicate true (the body's kernel added)."""
+    from immesh_tpu_torch.kernels import graph_cond as gc
+    t_phase = time.perf_counter()
+    reset_counts()
+    probe = cond_probe(dev, COND_NODES)
+    acc = torch.zeros(COND_NODES, dtype=torch.int32, device=dev)
+    want = np.zeros(COND_NODES, np.int64)
+    rng = np.random.default_rng(16)
+    preds = [rng.random(COND_NODES) < 0.5 for _ in range(COND_REPLAYS)]
+    preds += [np.zeros(COND_NODES, bool), np.ones(COND_NODES, bool)]
+    for p in preds:
+        pred = torch.tensor(p, device=dev)
+        probe(acc, pred)
+        want += [gc.taken_plain(pred[k]) for k in range(COND_NODES)]
+        if not np.array_equal(acc.cpu().numpy(), want):
+            raise AssertionError("graph_cond: the IF nodes' bodies ran "
+                                 "elsewhere than the host read says")
+    (g,) = probe.graphs
+    kinds = if_nodes([g])
+    taken = [t for _, t in body_runs([g])]
+    if taken != list(want - np.array(preds[0], np.int64)) \
+            or gc.runs() != COND_NODES * g.replays:
+        raise AssertionError(f"graph_cond: taken counts {taken} and "
+                             f"{gc.runs()} runs for {g.replays} replays")
+    pred = torch.zeros(COND_NODES, dtype=torch.bool, device=dev)
+    g.inputs[0].copy_(pred)
+    ms_false = device_ms(g.graph.replay, n=20) / COND_NODES
+    g.inputs[0].fill_(True)
+    ms_true = device_ms(g.graph.replay, n=20) / COND_NODES
+    plain_ms = host_ms(lambda: gc.taken_plain(pred[0]), 200)
+    bound_ms = 1e3 * 1 / PEAK_BYTES_PER_S  # the predicate's byte
+    log(f"[cond] {smi_line()}; graph_cond: {COND_NODES} IF nodes, "
+        f"{len(preds)} replays, every body where the host read says "
+        f"(taken counts and {gc.runs()} set-kernel runs as the replays "
+        f"say); the bodies' nodes {kinds['body_node_types']}; a node with "
+        f"its predicate false (set kernel + skipped body) {1e3 * ms_false:.3f} "
+        f"µs device time, true (+ the body's kernel) {1e3 * ms_true:.3f} "
+        f"µs; the plain version (one host read) {1e3 * plain_ms:.1f} µs; "
+        f"bound {1e3 * bound_ms:.2e} µs (bytes); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"name": COND_KERNEL, "route": "cuda",
+            "source": "immesh_tpu_torch/csrc/graph_cond.cu",
+            "replaces": "immesh_tpu/lio/esikf.py:90",
+            "max_abs_err": 0.0, "ms": ms_false, "ms_body_taken": ms_true,
+            "wrapper_ms": None, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "note": "the set kernel of a CUDA-graph IF node (no Pallas "
+                    "kernel: the reference's lax.while_loop / lax.cond "
+                    "predicates, immesh_tpu/lio/esikf.py:90, "
+                    "immesh_tpu/map/voxel_map.py:123, "
+                    "immesh_tpu/mesh/triangles.py:196); ms a node with "
+                    "the predicate false"}
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the captured LIO step and the scatter_drop kernel
 # ---------------------------------------------------------------------------
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -4020,34 +4212,49 @@ def compact_half(vm, pos) -> None:
     vm.compact(pos, _keep_radius_vm(vm, pos, low, vm.cfg.local_map_radius))
 
 
-def dead_work_ms(pipe, b, cfg) -> dict:
-    """Device time of the masked form's dead work on frame b, from pipe's
-    state and map (copies; nothing changes): one ESIKF body (busy ms of
-    lio_update at max_iterations less that at max_iterations − 1) and one
-    empty refinement level (busy ms of a level update with an all-false
-    mask), each under torch.profiler."""
-    from immesh_tpu_torch.lio import esikf
-    from immesh_tpu_torch.utils.timers import profile_counts
-    lio_tool = load_tool("torch_profile_lio")
-    x = lio_tool.compose(pipe.state, pipe.vm.clone(), b, cfg)
-    busy = {}
-    for n in (cfg.lio.max_iterations, cfg.lio.max_iterations - 1):
-        lc = dataclasses.replace(cfg.lio, max_iterations=n)
-        vm = pipe.vm.clone()
-        busy[n] = min(profile_counts(lambda: esikf.lio_update(
-            x["state_prop"], vm, x["down_pts"], x["pcov"], x["down_mask"],
-            lc, cfg.voxel_map))[1]["busy_ms"] for _ in range(3))
-    vm = pipe.vm.clone()
-    pts = x["state_new"].transform_points(x["down_pts"])
-    pc = x["pcov"]
-    sig = (pc[:, 0, 0] + pc[:, 1, 1] + pc[:, 2, 2]) / 3.0
-    none = torch.zeros_like(x["down_mask"])
-    level = min(profile_counts(lambda: vm._update_level(
-        pts, sig, none, cfg.voxel_map.max_layers - 1,
-        cfg.voxel_map.touched_voxels_per_scan))[1]["busy_ms"]
-        for _ in range(3))
-    return {"body_ms": busy[cfg.lio.max_iterations]
-            - busy[cfg.lio.max_iterations - 1], "level_ms": level}
+def active_chunks(smask, chunk: int) -> int:
+    """Chunks of the work list with an active voxel: the chunk bodies the
+    mesh step runs (an active voxel always pulls its own points)."""
+    return sum(bool(smask[c:c + chunk].any())
+               for c in range(0, smask.numel(), chunk))
+
+
+def lio_sites(cfg) -> dict:
+    """The IF nodes a captured LIO step holds, by site: two an ESIKF body
+    (its normal equations, then its step; the solve between them runs
+    outside, lio/esikf.py) and one a refinement level."""
+    return {"esikf": cfg.lio.max_iterations,
+            "esikf_step": cfg.lio.max_iterations,
+            "level": cfg.voxel_map.max_layers - 1}
+
+
+def check_sites(what: str, graphs, rows, cfg) -> dict:
+    """The IF nodes' body runs of a captured path (body_runs) against the
+    bodies its frames' diag says ran: the ESIKF bodies' two nodes each
+    (diag["iterations"] a frame), the refinement levels (diag["levels"])
+    and, where the rows
+    count them, the chunks with an active voxel, over the replayed frames
+    (frame 0 is the eager warm-up).  Returns the runs and the bodies,
+    levels and chunks skipped on the device a replayed frame."""
+    replayed = rows[1:]
+    n = len(replayed)
+    iterations = sum(r["iterations"] for r in replayed)
+    want = {"esikf": iterations, "esikf_step": iterations,
+            "level": sum(r["levels"] for r in replayed)}
+    nodes = if_nodes(graphs)
+    if "chunks" in rows[0]:
+        want["chunk"] = sum(r["chunks"] for r in replayed)
+    got = site_runs(graphs)
+    if {k: got.get(k, 0) for k in want} != want:
+        raise AssertionError(f"{what}: the IF nodes' bodies ran {got} times "
+                             f"on the device, diag says {want}")
+    skipped = {k: (nodes["nodes"][k] * n - want[k]) / n for k in want}
+    log(f"[graph] {what}: IF nodes by site {nodes['nodes']}, their bodies' "
+        f"node types {nodes['body_node_types']} (no allocation, free or "
+        f"event node); bodies run on the device over the {n} replayed "
+        f"frames {got}, as diag says; skipped on the device a frame: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in skipped.items()))
+    return {"if_nodes": nodes, "runs": got, "skipped_a_frame": skipped}
 
 
 def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
@@ -4075,8 +4282,8 @@ def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
 
     eager, cap = make(False), make(True)
     le, lc = (eager.lio, cap.lio) if runtime else (eager, cap)
-    counts = {part: dict.fromkeys(PATH_KERNELS, 0)
-              for part in ("launches", "runs")}
+    counts = {part: dict.fromkeys(COUNTED, 0)
+              for part in ("launches", "recorded", "runs")}
     rows, recorded = [], {}
     for k, b in enumerate(frames):
         def run(p):
@@ -4123,6 +4330,9 @@ def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
         rows.append({"ms_eager": ms_e, "ms_graph": ms_c,
                      "compacted": compacted, "iterations":
                      int(de["iterations"]), "levels": int(de["levels"])})
+        if runtime:
+            rows[-1]["chunks"] = active_chunks(cap.mesh.last_active[1],
+                                               cfg.mesh.mesh_chunk)
     if lc.captured.replays != len(frames) - 1:
         raise AssertionError(f"graph: {lc.captured.replays} replays of "
                              f"{len(frames)} frames")
@@ -4409,20 +4619,23 @@ def phase_graph(dev, main_info, scatters) -> dict:
         record_at=(*GRAPH_COMPACT_AT, last))
     (graph,) = cap.captured.graphs
     path_counts("graph_kitti", counts, graphs=[graph], kernels=LIO_KERNELS)
+    sites = check_sites("KITTI LioPipeline", [graph], rows, cfg)
+    if sites["if_nodes"]["nodes"] != lio_sites(cfg):
+        raise AssertionError(f"graph: the KITTI LIO graph's IF nodes "
+                             f"{sites['if_nodes']['nodes']}")
     forms = captured_forms([graph], "graph")
     nodes = graph.nodes()
-    # launches and copies: a recorder's copy inside phase 4's capture would
-    # add memcpy (or copy-kernel) nodes.  Other node types are left out: a
-    # graph captured after the first in a process holds 6 mem_alloc and 6
-    # mem_free nodes more (a library's stream-ordered allocations)
-    same = ("kernel", "memcpy", "memset")
-    if [nodes[k] for k in same] != [main_info["graph_nodes"][k]
-                                    for k in same] \
-            or graph.captured != main_info["graph_captured"]:
+    # launches and copies, the IF nodes' bodies included: a recorder's copy
+    # inside phase 4's capture would add memcpy (or copy-kernel) nodes
+    same = ("kernel", "memcpy", "memset", "conditional")
+    if [nodes.get(k, 0) for k in same] != [
+            main_info["graph_nodes"].get(k, 0) for k in same] \
+            or recorded_launches(graph) != main_info["graph_captured"]:
         raise AssertionError(
             f"graph: the KITTI LioPipeline's graph holds {nodes} nodes and "
-            f"{graph.captured} kernel launches, phase 4's (recorders on) "
-            f"{main_info['graph_nodes']} and {main_info['graph_captured']}")
+            f"{recorded_launches(graph)} kernel launches, phase 4's "
+            f"(recorders on) {main_info['graph_nodes']} and "
+            f"{main_info['graph_captured']}")
     kitti = graph_summary("KITTI LioPipeline", rows, 3, cfg)
     R0, p0 = main_info["R0"], main_info["p0"]
     err = float(np.linalg.norm(R0 @ cap.state.pos.cpu().numpy() + p0
@@ -4437,12 +4650,6 @@ def phase_graph(dev, main_info, scatters) -> dict:
     if prof["captured"]["syncs"] != 0:
         raise AssertionError(f"graph: the captured KITTI step waited on the "
                              f"card: {prof['captured']}")
-    dead = dead_work_ms(eager, b, cfg)
-    n_body = sum(cfg.lio.max_iterations - i for i in kitti["iterations"])
-    n_level = sum(cfg.voxel_map.max_layers - 1 - r["levels"] for r in rows)
-    dead_ms = (n_body * dead["body_ms"] + n_level * dead["level_ms"]) / len(
-        frames)
-    dead.update(bodies=n_body, levels=n_level, ms_a_frame=dead_ms)
     log(f"[graph] KITTI: {smi}; one step under torch.profiler (the last "
         f"frame again): eager {prof['eager']}, captured {prof['captured']}; "
         f"the graph's nodes {nodes}, its kernels, copies and sets as "
@@ -4450,17 +4657,14 @@ def phase_graph(dev, main_info, scatters) -> dict:
         f"{counts['runs']['scatter_drop'] / len(frames):.2f} scatter_drop "
         f"and {counts['runs']['hash_insert'] / len(frames):.2f} hash_insert "
         f"runs on the device on the captured path ({counts}; the inserts "
-        f"recorded into the graph by form {forms}); the masked "
-        f"form's dead work "
-        f"over the {len(frames)} frames: {n_body} ESIKF bodies after "
-        f"convergence x {dead['body_ms']:.3f} ms busy and {n_level} empty "
-        f"refinement levels x {dead['level_ms']:.3f} ms busy = "
-        f"{dead_ms:.3f} ms a frame of device time; pose err {err:.3f} m")
-    log(f"[graph] KITTI: the LIO graph's kernel nodes {nodes['kernel']}, "
-        f"device busy {prof['captured']['busy_ms']:.3f} ms a captured step "
+        f"recorded into the graph by form {forms}); pose err {err:.3f} m")
+    log(f"[graph] KITTI: the LIO graph's kernel nodes {nodes['kernel']} "
+        f"({nodes.get('conditional', 0)} IF nodes), device busy "
+        f"{prof['captured']['busy_ms']:.3f} ms and "
+        f"{prof['captured']['syncs']} syncs a captured step "
         f"(torch.profiler); runs a frame on the device: " + ", ".join(
             f"{k} {counts['runs'][k] / len(frames):.2f}"
-            for k in LIO_KERNELS))
+            for k in (*LIO_KERNELS, COND_KERNEL)))
     del eager, cap
 
     acfg = avia_config()
@@ -4474,15 +4678,19 @@ def phase_graph(dev, main_info, scatters) -> dict:
         runtime=True)
     path_counts("graph_avia", acounts, graphs=pipe_graphs(acap))
     captured_forms(pipe_graphs(acap), "graph: Avia")
+    asites = check_sites("Avia ImMeshRuntime", pipe_graphs(acap), arows,
+                         acfg)
+    (alio,) = acap.lio.captured.graphs
+    if if_nodes([alio])["nodes"] != lio_sites(acfg):
+        raise AssertionError(f"graph: the Avia LIO graph's IF nodes "
+                             f"{if_nodes([alio])['nodes']}")
     avia = graph_summary("Avia ImMeshRuntime (LIO and mesh)", arows, 3, acfg)
     _, aprof = profile_counts(lambda: acap.lio.advance(aframes[-1]))
     if aprof["syncs"] != 0:
         raise AssertionError(f"graph: the captured Avia step waited on the "
                              f"card: {aprof}")
-    adead = dead_work_ms(aeager.lio, aframes[-1], acfg)
     log(f"[graph] Avia: one captured LIO step under torch.profiler: "
-        f"{aprof}; dead work: an ESIKF body {adead['body_ms']:.3f} ms busy, "
-        f"an empty level {adead['level_ms']:.3f} ms busy")
+        f"{aprof}")
     del aeager, acap
 
     err = replay_scatters([c for k in sorted(scatters)
@@ -4507,43 +4715,12 @@ def phase_graph(dev, main_info, scatters) -> dict:
             "max_abs_err": err, "library_ms": None, **entry,
             "graph": {"kitti": kitti, "avia": avia,
                       "kitti_profiled": prof, "avia_profiled": aprof,
-                      "dead_kitti": dead, "dead_avia": adead}}
+                      "if_kitti": sites, "if_avia": asites}}
 
 
 # ---------------------------------------------------------------------------
 # phase 17: the captured mesh step against the eager one
 # ---------------------------------------------------------------------------
-def dead_chunks(smask, chunk: int) -> int:
-    """Chunks of the work list with no active voxel: the chunks the eager
-    step skips and the captured step runs (an active voxel always pulls
-    its own points)."""
-    return sum(not bool(smask[c:c + chunk].any())
-               for c in range(0, smask.numel(), chunk))
-
-
-def empty_chunk_ms(mesh, pos) -> float:
-    """Device busy ms of one chunk body of the mesh step whose voxels have
-    no active point (the masked form's dead work a chunk), on the map as
-    it is, under torch.profiler, least of 3; its result must be the empty
-    one, bit for bit."""
-    from immesh_tpu_torch.mesh import triangles as tri
-    from immesh_tpu_torch.utils.timers import profile_counts
-    mc = mesh.gm.cfg
-    slots = mesh.last_active[0][:mc.mesh_chunk]
-    pull = mesh.gm.pull_neighborhood(
-        slots, torch.zeros(slots.shape, dtype=torch.bool, device=pos.device))
-    key = mesh.gm.vox.keys[slots.clamp(min=0).long(), :3]
-    args = (pull["pts"], pull["pts_sm"], pull["mask"], pull["idx"], key,
-            pos, mc)
-    got = tri._chunk_impl(*args)
-    want = tri._empty(slots.shape[0], mc.tris_per_voxel, pos.device)
-    if not all(same_bits(a, b) for a, b in zip(got, want)):
-        raise AssertionError("mesh graph: an empty chunk's body did not give "
-                             "the empty result")
-    return min(profile_counts(lambda: tri._chunk_impl(*args))[1]["busy_ms"]
-               for _ in range(3))
-
-
 def run_mesh_pair(dev, make, frames, compact_at, mesh_compact_at):
     """Two pipelines from make() (JointPipelines or ImMeshRuntimes, the
     LIO step captured in both), the first given an eager mesh step (a
@@ -4563,8 +4740,8 @@ def run_mesh_pair(dev, make, frames, compact_at, mesh_compact_at):
     eager.mesh = MeshPipeline(eager.cfg, device=dev, graph=False)
     runtime = not isinstance(cap, joint.JointPipeline)
     chunk = cap.cfg.mesh.mesh_chunk
-    counts = {part: dict.fromkeys(PATH_KERNELS, 0)
-              for part in ("launches", "runs")}
+    counts = {part: dict.fromkeys(COUNTED, 0)
+              for part in ("launches", "recorded", "runs")}
     budgets, half = [], joint._mesh_half
 
     def recorded(*args):
@@ -4622,8 +4799,8 @@ def run_mesh_pair(dev, make, frames, compact_at, mesh_compact_at):
                 differs("after the forced compaction,")
             rows.append({"ms_eager": ms_e, "ms_graph": ms_c,
                          "compactions": comp,
-                         "dead_chunks": dead_chunks(cap.mesh.last_active[1],
-                                                    chunk)})
+                         "chunks": active_chunks(cap.mesh.last_active[1],
+                                                 chunk)})
     finally:
         joint._mesh_half = half
     if budgets[0::2] != budgets[1::2]:
@@ -4640,9 +4817,11 @@ def run_mesh_pair(dev, make, frames, compact_at, mesh_compact_at):
 def mesh_graph_summary(name, rows, warmup, eager, cap, frame) -> dict:
     """Median and p90 ms a frame with the mesh eager and captured over the
     timed frames; the frames where a map compacted and where the budget
-    went hi; the dead chunks; one mesh step of each pipeline again on
-    `frame`'s inputs (world scan, mask, position) under torch.profiler (0
-    syncs in the captured one); the graph's nodes."""
+    went hi; the chunk bodies run on the device (the set kernel's taken
+    counts) against the chunks with an active voxel, and the chunks skipped
+    a replayed frame; one mesh step of each pipeline again on `frame`'s
+    inputs (world scan, mask, position) under torch.profiler (0 syncs in
+    the captured one); the graph's nodes and IF nodes."""
     from immesh_tpu_torch.utils.timers import profile_counts
     t = rows[warmup:]
     out = {f"frame_{k}_{q}": (statistics.median if q == "median" else
@@ -4657,9 +4836,16 @@ def mesh_graph_summary(name, rows, warmup, eager, cap, frame) -> dict:
     out["hi_budget_frames"] = [k for k, r in enumerate(rows)
                                if r.get("budget", 0)
                                > cap.cfg.mesh.active_voxels_per_frame]
-    out["dead_chunks"] = sum(r["dead_chunks"] for r in rows)
     (g,) = cap.mesh.captured.graphs
     out["nodes"], out["captured"] = g.nodes(), g.captured
+    out["if_nodes"] = if_nodes([g])
+    n_chunks = out["if_nodes"]["nodes"]["chunk"]
+    ran, want = site_runs([g])["chunk"], sum(r["chunks"] for r in rows[1:])
+    if ran != want:
+        raise AssertionError(f"mesh graph: {name}: {ran} chunk bodies ran on "
+                             f"the device, {want} chunks had an active voxel")
+    out["chunks_skipped_a_frame"] = (n_chunks * (len(rows) - 1) - ran) / (
+        len(rows) - 1)
     prof = {}
     for what, p in (("eager", eager), ("captured", cap)):
         _, prof[what] = profile_counts(lambda: p.mesh.advance(*frame))
@@ -4674,10 +4860,14 @@ def mesh_graph_summary(name, rows, warmup, eager, cap, frame) -> dict:
         f"{out['frame_graph_median']:.2f} / {out['frame_graph_p90']:.2f}; "
         f"compactions (plane map / mesh map) after frames "
         f"{out['lio_compaction_frames']} / {out['mesh_compaction_frames']}, "
-        f"hi budget on frames {out['hi_budget_frames']}; {out['dead_chunks']} "
-        f"dead chunks run; the graph's nodes {out['nodes']}, its kernel "
-        f"launches {g.captured}; one mesh step under torch.profiler: eager "
-        f"{prof['eager']}, captured {prof['captured']}")
+        f"hi budget on frames {out['hi_budget_frames']}; {n_chunks} IF "
+        f"nodes (chunks), their bodies' node types "
+        f"{out['if_nodes']['body_node_types']}, {ran} chunk bodies run on "
+        f"the device as the chunks with an active voxel say, "
+        f"{out['chunks_skipped_a_frame']:.2f} chunks skipped on the device a "
+        f"replayed frame; the graph's nodes {out['nodes']}, its kernel "
+        f"launches outside the IF nodes {g.captured}; one mesh step under "
+        f"torch.profiler: eager {prof['eager']}, captured {prof['captured']}")
     return out
 
 
@@ -4716,14 +4906,14 @@ def phase_mesh_graph(dev, main_info) -> dict:
         + f" runs on the device ({counts}); the inserts recorded into the "
         f"three graphs by form {forms}")
     (g,) = cap.mesh.captured.graphs
-    same = ("kernel", "memcpy", "memset")
+    same = ("kernel", "memcpy", "memset", "conditional")
     nodes = g.nodes()
-    if [nodes[k] for k in same] != [main_info["mesh_graph_nodes"][k]
-                                    for k in same] \
-            or g.captured != main_info["mesh_graph_captured"]:
+    if [nodes.get(k, 0) for k in same] != [
+            main_info["mesh_graph_nodes"].get(k, 0) for k in same] \
+            or recorded_launches(g) != main_info["mesh_graph_captured"]:
         raise AssertionError(
             f"mesh graph: the KITTI mesh graph holds {nodes} nodes and "
-            f"{g.captured} kernel launches, phase 4's "
+            f"{recorded_launches(g)} kernel launches, phase 4's "
             f"{main_info['mesh_graph_nodes']} and "
             f"{main_info['mesh_graph_captured']}")
     last = (frames[-1].mask, cap.lio.state.pos)
@@ -4733,10 +4923,15 @@ def phase_mesh_graph(dev, main_info) -> dict:
     if not kitti["mesh_compaction_frames"]:
         raise AssertionError("mesh graph: the KITTI mesh map never "
                              "compacted on its own")
-    kitti["empty_chunk_ms"] = empty_chunk_ms(cap.mesh, cap.lio.state.pos)
+    mc = cfg.mesh
+    if kitti["if_nodes"]["nodes"] != {
+            "chunk": -(-mc.active_voxels_per_frame // mc.mesh_chunk)}:
+        raise AssertionError(f"mesh graph: the KITTI mesh graph's IF nodes "
+                             f"{kitti['if_nodes']['nodes']}")
     log(f"[mesh graph] KITTI: the mesh graph's kernel nodes "
         f"{kitti['nodes']['kernel']}, device busy "
-        f"{kitti['profiled']['captured']['busy_ms']:.3f} ms a captured mesh "
+        f"{kitti['profiled']['captured']['busy_ms']:.3f} ms and "
+        f"{kitti['profiled']['captured']['syncs']} syncs a captured mesh "
         f"step (torch.profiler)")
     R0, p0 = main_info["R0"], main_info["p0"]
     err = float(np.linalg.norm(R0 @ cap.lio.state.pos.cpu().numpy() + p0
@@ -4744,8 +4939,7 @@ def phase_mesh_graph(dev, main_info) -> dict:
     if err > POSE_TOL_M:
         raise AssertionError(f"mesh graph: KITTI pose {err:.3f} m from "
                              f"ground truth (limit {POSE_TOL_M} m)")
-    log(f"[mesh graph] KITTI: {smi}; one empty chunk "
-        f"{kitti['empty_chunk_ms']:.3f} ms busy; pose err {err:.3f} m")
+    log(f"[mesh graph] KITTI: {smi}; pose err {err:.3f} m")
     del eager, cap
 
     acfg = avia_config()
@@ -4768,9 +4962,8 @@ def phase_mesh_graph(dev, main_info) -> dict:
     world = acap.lio.state.transform_points(aframes[-1].pts)
     avia = mesh_graph_summary("Avia ImMeshRuntime", arows, 3, aeager, acap,
                               (world, aframes[-1].mask, acap.lio.state.pos))
-    avia["empty_chunk_ms"] = empty_chunk_ms(acap.mesh, acap.lio.state.pos)
-    log(f"[mesh graph] Avia: one empty chunk {avia['empty_chunk_ms']:.3f} ms "
-        f"busy; phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"[mesh graph] Avia: phase 17 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return {"kitti": kitti, "avia": avia}
 
 
@@ -4793,14 +4986,17 @@ def main() -> int:
         f"{torch.version.cuda}, driver {driver}, "
         f"{torch.cuda.device_count()} device(s); CUDA-graph conditional "
         f"nodes in torch (CUDAGraph.begin_capture_to_if_node): "
-        f"{'present' if cond else 'absent'}; the captured LIO step runs the "
-        f"masked form (lio/esikf.py, map/voxel_map.py), chosen in code")
+        f"{'present' if cond else 'absent'}; the captured steps' IF nodes "
+        f"are made by csrc/graph_cond.cu through the CUDA runtime")
 
     from immesh_tpu_torch.kernels import build
+    from immesh_tpu_torch.kernels import graph_cond as gc
     t0 = time.perf_counter()
     libs = build.build(KERNELS, force=True)
+    versions = gc.check_versions(gc._library())
     log(f"[build] {', '.join(libs.values())} built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; CUDA driver and graph_cond's "
+        f"runtime {versions} (conditional nodes need {gc.MIN_VERSION})")
 
     pairs = phase_kernels(dev)
     incircle = phase_incircle(dev)
@@ -4828,28 +5024,31 @@ def main() -> int:
     phase_dist(dev, main_info, window)
     phase_ablate(dev, main_info)
     phase_profile(dev, main_info)
+    cond = phase_cond(dev)
     scatter = phase_graph(dev, main_info, scatters)
     del scatters
     pairs["mesh_graph"] = phase_mesh_graph(dev, main_info)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for e in (pairs, *hashes, scatter):  # the main path's, then each other's
-        # launches: by the wrapper (eager); device_runs: the kernel's own
-        # device counter, eager and replayed in the captured LIO and mesh
-        # graphs
-        e["launches"] = PATH_COUNTS["main"]["launches"][e["name"]]
+    for e in (pairs, *hashes, scatter, cond):  # the main path's, then
+        # each other's.  launches: by the wrapper (eager; the set kernel's,
+        # which runs only in graphs: those it recorded); device_runs: the
+        # kernel's own device counter, eager and replayed in the captured
+        # LIO and mesh graphs
+        part = "recorded" if e["name"] == COND_KERNEL else "launches"
+        e["launches"] = PATH_COUNTS["main"][part][e["name"]]
         e["device_runs"] = PATH_COUNTS["main"]["runs"][e["name"]]
         e["device_runs_per_frame"] = e["device_runs"] / len(gt)
         for path, n in PATH_COUNTS.items():
             if path != "main" and e["name"] in n["runs"]:
-                e[f"launches_{path}"] = n["launches"][e["name"]]
+                e[f"launches_{path}"] = n[part][e["name"]]
                 e[f"device_runs_{path}"] = n["runs"][e["name"]]
     print(smi_line())
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: x for k, x in e.items()
                                         if k not in keys}}
-        for e in (pairs, incircle, *hashes, scatter)]}))
+        for e in (pairs, incircle, *hashes, scatter, cond)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

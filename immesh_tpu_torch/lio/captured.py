@@ -11,10 +11,12 @@ reset_filter replace the state between frames), checks that no plane-map
 tensor moved since the capture, and clones out the state, the world scan
 and diag.
 
-lio_step reads no device value on the host: the ESIKF iterations after
-convergence and the empty refinement levels run masked (lio/esikf.py,
-map/voxel_map.py), so the graph has no conditional node and a replay runs
-every launch it holds.
+lio_step reads no device value on the host under capture: each ESIKF
+body and each refinement level is the body of an IF node (lio/esikf.py,
+map/voxel_map.py, utils/graphs.py::device_if), so a replay skips the
+bodies after convergence and the empty levels on the device, as the
+reference's while_loop and lax.cond do; the eager step (graph=False, the
+CPU) reads the same tests on the host, once a body and once a level.
 """
 
 from __future__ import annotations

@@ -6,18 +6,28 @@ Information form:
     x ← x ⊞ δ,  and at convergence P⁺ = A⁻¹.
 
 The JAX `while_loop` (its cond and body, immesh_tpu/lio/esikf.py:51-81)
-runs here as `max_iterations` static bodies with the iterations after
-convergence masked to no-ops: the reference's own earlier design (its
-docstring, :4-8).  A masked iteration computes and discards, so the result
-is the while_loop's bit for bit; nothing is read back on the host, so the
-LIO step can be captured as one CUDA graph (lio/captured.py).  PyTorch
-2.11, the port's CUDA build, has no CUDA-graph conditional nodes
-(CUDAGraph.begin_capture_to_if_node), which would let the captured step
-skip the dead iterations as the while_loop does.
+runs here as `max_iterations` static bodies, each under
+utils/graphs.py::device_if on "not converged yet": in the captured LIO step
+(lio/captured.py) a body is two CUDA-graph IF nodes on that one predicate —
+its normal equations and Cholesky factor, then its step — with the
+Cholesky solve between them outside (torch.cholesky_solve makes graph
+memory nodes on the card, which a conditional body may not hold; where the
+body is skipped the solve runs on the last live factor and nothing reads
+it), so the bodies after convergence run nothing else on the card, as the
+while_loop ends; the eager step and the CPU read the test on the host.  The
+loop's carry (the six mean fields, converged, n_effective, the last
+information matrix and the count, and the body's A, b, factor and row
+count) is allocated before the loop and each body writes it in place, the
+rule a conditional body keeps.  The multi-rank
+step (dist/, `reduce` given) runs the reference dist/'s masked form
+instead: every body runs on every rank, those after convergence masked to
+no-ops by torch.where, so the ranks leave together; both forms give the
+while_loop's result bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -28,6 +38,7 @@ from immesh_tpu_torch.core.ops import nan_where_failed
 from immesh_tpu_torch.core.state import STATE_DIM, EsikfState
 from immesh_tpu_torch.lio.association import associate
 from immesh_tpu_torch.map.voxel_map import VoxelMap
+from immesh_tpu_torch.utils.graphs import device_if
 
 # the state's mean fields, which ⊞ moves (the covariance is set at the end)
 _MEAN = ("rot", "pos", "vel", "bg", "ba", "grav")
@@ -53,10 +64,11 @@ def iterated_update(state_prop: EsikfState,
     """The iteration of lio_update with the association rows of
     assoc_fn(state).  `reduce`, where given, sums the information
     contributions {"HtRH6", "HtRz6", "n"} over the ranks of a multi-rank
-    step (dist/); every rank runs every static body, and the masks follow
-    the reduced step, so replicas stay equal when the reduction gives every
-    rank the same bits.  diag["iterations"] counts the live bodies: the
-    while_loop's trip count."""
+    step (dist/); every rank then runs every static body, and the masks
+    follow the reduced step, so replicas stay equal when the reduction
+    gives every rank the same bits.  Without it the bodies after
+    convergence are skipped (device_if).  diag["iterations"] counts the
+    bodies that ran live: the while_loop's trip count."""
     dtype, dev = state_prop.rot.dtype, state_prop.rot.device
     eye = torch.eye(STATE_DIM, dtype=dtype, device=dev)
     p_inv = nan_where_failed(
@@ -64,14 +76,9 @@ def iterated_update(state_prop: EsikfState,
     rot_thresh = lio_cfg.converge_rot_deg * math.pi / 180.0
     trans_thresh = lio_cfg.converge_trans_m
 
-    state = state_prop
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    A_last = p_inv  # if zero matches, posterior = prior
-    for _ in range(lio_cfg.max_iterations):
-        # the while_loop's test; it < max_iterations holds in every body
-        live = ~converged
+    def assemble(state):
+        """A body's normal equations at `state`: (A, b, its Cholesky factor,
+        the matched rows)."""
         assoc = assoc_fn(state)
         h6, z, r_inv = assoc["h6"], assoc["z"], assoc["r_inv"]
 
@@ -86,20 +93,67 @@ def iterated_update(state_prop: EsikfState,
         b = p_inv @ state_prop.boxminus(state)
         b[0:6] += sums["HtRz6"]
         L = nan_where_failed(*torch.linalg.cholesky_ex(A + eye * 1e-9))
-        delta = torch.cholesky_solve(b[:, None], L)[:, 0]
+        return A, b, L, sums["n"]
 
-        nxt = state.boxplus(delta)
-        state = state.replace(**{f: torch.where(live, getattr(nxt, f),
-                                                getattr(state, f))
-                                 for f in _MEAN})
-        # convergence on the pose increment (reference :1619-1622)
-        step_rot = torch.linalg.norm(delta[0:3])
-        step_trans = torch.linalg.norm(delta[3:6])
-        now_conv = (step_rot < rot_thresh) & (step_trans < trans_thresh)
-        converged = torch.where(live, now_conv, converged)
-        n_eff = torch.where(live, sums["n"], n_eff)
-        A_last = torch.where(live, A, A_last)
-        it = it + live.to(torch.int32)
+    def solve(b, L):
+        return torch.cholesky_solve(b[:, None], L)[:, 0]
+
+    def converges(delta):
+        """Convergence on the pose increment (reference :1619-1622)."""
+        return ((torch.linalg.norm(delta[0:3]) < rot_thresh)
+                & (torch.linalg.norm(delta[3:6]) < trans_thresh))
+
+    # the carry (if zero matches, posterior = prior)
+    converged = torch.zeros((), dtype=torch.bool, device=dev)
+    n_eff = torch.zeros((), dtype=torch.int64, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    A_last = p_inv.clone()
+    if reduce is None:
+        # a body is two IF nodes on one predicate, the solve between them
+        # outside: torch.cholesky_solve on the card makes stream-ordered
+        # allocations (graph memory nodes), which a conditional body may
+        # not hold, so it runs on every pass, on the last live body's
+        # factor where the body is skipped, and nothing reads it then
+        mean = {f: getattr(state_prop, f).clone() for f in _MEAN}
+        A_cur, L_cur = p_inv.clone(), eye.clone()
+        b_cur = torch.zeros(STATE_DIM, dtype=dtype, device=dev)
+        n_cur = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def normal_equations():
+            for dst, src in zip((A_cur, b_cur, L_cur, n_cur),
+                                assemble(state_prop.replace(**mean))):
+                dst.copy_(src)
+
+        def step(delta):
+            nxt = state_prop.replace(**mean).boxplus(delta)
+            for f in _MEAN:
+                mean[f].copy_(getattr(nxt, f))
+            converged.copy_(converges(delta))
+            n_eff.copy_(n_cur)
+            A_last.copy_(A_cur)
+            it.add_(1)
+
+        for _ in range(lio_cfg.max_iterations):
+            # the while_loop's test; it < max_iterations holds in every body
+            live = ~converged
+            device_if(live, normal_equations, "esikf")
+            delta = solve(b_cur, L_cur)
+            device_if(live, functools.partial(step, delta), "esikf_step")
+        state = state_prop.replace(**mean)
+    else:
+        state = state_prop
+        for _ in range(lio_cfg.max_iterations):
+            live = ~converged
+            A, b, L, n = assemble(state)
+            delta = solve(b, L)
+            nxt = state.boxplus(delta)
+            state = state.replace(**{f: torch.where(live, getattr(nxt, f),
+                                                    getattr(state, f))
+                                     for f in _MEAN})
+            converged = torch.where(live, converges(delta), converged)
+            n_eff = torch.where(live, n, n_eff)
+            A_last = torch.where(live, A, A_last)
+            it = it + live.to(torch.int32)
 
     cov_post = nan_where_failed(*torch.linalg.inv_ex(A_last + eye * 1e-9))
     cov_post = 0.5 * (cov_post + cov_post.T)

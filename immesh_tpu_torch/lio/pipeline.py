@@ -7,10 +7,11 @@ and the IMU-less constant-twist branch, with LiDAR→IMU extrinsics.
 The full deskewed world-frame scan is returned for the meshing stage.
 
 The reference's step is one jitted program with no host round-trips
-(immesh_tpu/lio/pipeline.py:32).  Here `lio_step` reads no device value on
-the host either, and on the card `LioPipeline` runs it as one captured CUDA
-graph, replayed every frame (lio/captured.py); `graph=False` keeps the
-eager step.
+(immesh_tpu/lio/pipeline.py:32).  On the card `LioPipeline` runs
+`lio_step` as one captured CUDA graph, replayed every frame, which reads
+nothing on the host and skips the ESIKF bodies after convergence and the
+empty refinement levels on the device (lio/captured.py); `graph=False`
+keeps the eager step, which reads those two tests on the host.
 """
 
 from __future__ import annotations

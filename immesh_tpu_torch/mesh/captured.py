@@ -13,11 +13,12 @@ place), and clones out the work list (slots, smask), the active count and
 every diag counter: the adaptive budget reads drop_deferred two frames
 later, and the texture and render paths read the work list.
 
-The graph has no conditional node: the card's torch has no
-`CUDAGraph.begin_capture_to_if_node`.  So the step runs every chunk
-(mesh_step's skip_empty=False, the masked form): an empty chunk's body
-gives exactly the empty result, so a replay equals the eager step with its
-host-side skip bit for bit.
+Each chunk is the body of an IF node on "the chunk has an active point"
+(triangles.triangulate_voxels, utils/graphs.py::device_if), so a replay
+skips an empty chunk on the device, as the reference's lax.cond does; the
+eager step (graph=False, the CPU) reads the same test on the host.  The
+chunk outputs hold the empty result before the loop and a body writes its
+rows in place, so a replay equals the eager step bit for bit.
 """
 
 from __future__ import annotations
@@ -57,6 +58,5 @@ class CapturedMeshStep(CapturedStep):
     def _step(self, gm, store, pts_world, mask, sensor_pos):
         from immesh_tpu_torch.mesh.pipeline import mesh_step
         _, _, n_active, slots, smask, diag = mesh_step(
-            gm, store, pts_world, mask, sensor_pos, gm.cfg.mesh_chunk,
-            skip_empty=False)
+            gm, store, pts_world, mask, sensor_pos, gm.cfg.mesh_chunk)
         return n_active, slots, smask, diag

@@ -4,8 +4,9 @@ Port of immesh_tpu/mesh/pipeline.py (reference
 `incremental_mesh_reconstruction`, ImMesh_mesh_reconstruction.cpp:92-267:
 append → per-voxel pull/commit/push).  The map and store are updated in
 place.  On a CUDA device `MeshPipeline` runs the step as one captured CUDA
-graph, replayed every frame (mesh/captured.py); `graph=False` and the CPU
-run `mesh_step` eagerly, with the host-side skip of empty chunks.
+graph, replayed every frame, empty chunks skipped on the device by IF nodes
+(mesh/captured.py); `graph=False` and the CPU run `mesh_step` eagerly,
+with the host-side skip of empty chunks.
 """
 
 from __future__ import annotations
@@ -28,21 +29,19 @@ from immesh_tpu_torch.mesh.triangles import (
 
 def mesh_step(gm: GlobalPointMap, store: TriangleStore,
               pts_world: torch.Tensor, mask: torch.Tensor,
-              sensor_pos: torch.Tensor, chunk: int = 16,
-              skip_empty: bool = True):
+              sensor_pos: torch.Tensor, chunk: int = 16):
     """Append one world-frame scan and re-mesh the active voxels.  Returns
-    (gm, store, n_active, slots, smask, diag) like the reference.
-
-    With `skip_empty` a chunk of voxels with no active point is skipped
-    after a host read of its mask; the captured step passes False and runs
-    every chunk, with the same result (triangles.triangulate_voxels)."""
+    (gm, store, n_active, slots, smask, diag) like the reference.  A chunk
+    of voxels with no active point is skipped (triangles.
+    triangulate_voxels): on the device in the captured step, after a host
+    read of its mask in the eager one."""
     gm, slots, smask, drops = gm.append_frame(pts_world, mask)
     if gm.cfg.pull_smooth_lam > 0:
         # refresh the stored smoothed positions of the active voxels' own
         # points BEFORE triangulation (mesh_rec_geometry.cpp:333-369)
         gm.smooth_active(slots, smask)
     store, n_emitted, tri_drop = mesh_voxels(
-        gm, store, slots, smask, sensor_pos, chunk, skip_empty)
+        gm, store, slots, smask, sensor_pos, chunk)
     gm.mark_meshed(slots, smask)
     diag = {f"drop_{k}": v for k, v in drops.items()}
     diag["drop_tris"] = tri_drop

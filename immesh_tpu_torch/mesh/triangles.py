@@ -23,6 +23,7 @@ given, so the port does not.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -35,6 +36,7 @@ from immesh_tpu_torch.kernels.pairs_argmin import pairs_argmin
 from immesh_tpu_torch.mesh.delaunay import (
     angle_filter, compact_triangles, delaunay_pairs_w, pca_project)
 from immesh_tpu_torch.mesh.global_map import GlobalPointMap
+from immesh_tpu_torch.utils.graphs import device_if
 
 
 def _pos_hash(pts: torch.Tensor) -> torch.Tensor:
@@ -101,13 +103,11 @@ def remap_store(store: TriangleStore, slot_map: torch.Tensor,
 
 def mesh_voxels(gm: GlobalPointMap, store: TriangleStore,
                 slots: torch.Tensor, smask: torch.Tensor,
-                sensor_pos: torch.Tensor, chunk: int = 16,
-                skip_empty: bool = True):
+                sensor_pos: torch.Tensor, chunk: int = 16):
     """Re-triangulate the active voxels and replace their triangle lists.
-    Returns (store, n_emitted, n_dropped); `skip_empty` as in
-    triangulate_voxels."""
+    Returns (store, n_emitted, n_dropped)."""
     ids, counts, dropped = triangulate_voxels(
-        gm, slots, smask, sensor_pos, store.cfg, chunk, skip_empty)
+        gm, slots, smask, sensor_pos, store.cfg, chunk)
     n_emitted = torch.sum(torch.where(smask, counts, 0))
     return apply_triangles(store, slots, smask, ids, counts), n_emitted, dropped
 
@@ -235,18 +235,17 @@ def _chunk_impl(pts_c, sm_c, pmask_c, gidx_c, key_c, sensor_pos,
 
 def triangulate_voxels(gm: GlobalPointMap, slots: torch.Tensor,
                        smask: torch.Tensor, sensor_pos: torch.Tensor,
-                       cfg: MeshConfig, chunk: int = 16,
-                       skip_empty: bool = True):
+                       cfg: MeshConfig, chunk: int = 16):
     """Pure compute: active voxels → (ids (A, C, 3) global point ids,
     counts (A,), dropped ()) — pull → PCA project → Delaunay → filters →
     ownership → winding (reference ImMesh_mesh_reconstruction.cpp:92-267).
 
-    Chunks of `chunk` voxels are triangulated one launch each.  With
-    `skip_empty`, a chunk with no active point is skipped, as the
-    reference's lax.cond skips it; that reads the chunk's mask back on the
-    host.  Without it (the captured mesh step, which may read nothing on
-    the host) every chunk runs: an empty chunk's body gives exactly the
-    empty result, so both forms return the same bits."""
+    Chunks of `chunk` voxels are triangulated one launch each, a chunk with
+    no active point skipped, as the reference's lax.cond skips it: an IF
+    node of the captured mesh step (utils/graphs.py::device_if), a host
+    read of the chunk's mask in the eager step.  ids, counts and dropped
+    hold the empty result before the loop (the reference's false branch),
+    and a chunk's body writes its rows and adds its drops in place."""
     A = slots.shape[0]
     C = cfg.tris_per_voxel
     dev = slots.device
@@ -258,13 +257,15 @@ def triangulate_voxels(gm: GlobalPointMap, slots: torch.Tensor,
     vox_key = gm.vox.keys[slots.clamp(min=0).long(), :3]         # (A, 3)
 
     ids, counts, dropped = _empty(A, C, dev)
-    for c0 in range(0, A, chunk):
-        sl = slice(c0, c0 + chunk)
-        if skip_empty and not bool(pmask[sl].any()):
-            continue
+
+    def body(sl):
         i_c, n_c, d_c = _chunk_impl(pts[sl], pts_sm[sl], pmask[sl], gidx[sl],
                                     vox_key[sl], sensor_pos, cfg)
         ids[sl] = i_c
         counts[sl] = n_c
-        dropped = dropped + d_c
+        dropped.add_(d_c)
+
+    for c0 in range(0, A, chunk):
+        sl = slice(c0, c0 + chunk)
+        device_if(pmask[sl].any(), functools.partial(body, sl), "chunk")
     return ids, counts, dropped

@@ -26,16 +26,42 @@ kernels/build.py::captured_launches), and each graph keeps them beside its
 replays; the kernels' own device counters (`runs()` of the
 kernels/ modules) measure what the replays ran.  Each graph also keeps its
 cudaGraph_t, so its nodes can be counted by type (Graph.nodes).
+
+Device-side exits (`device_if`).  Where the reference skips work on the
+device (the ESIKF while_loop, an empty refinement level's or mesh chunk's
+lax.cond), the step calls device_if(pred, body):
+
+  * under capture on the card the body is captured into the body graph of
+    an IF node (kernels/graph_cond.py): a one-thread kernel, launched on
+    the capture stream just before the node, sets the node from the
+    predicate at every replay, and a skipped body runs nothing;
+  * outside capture (graph=False, the warm-up frame, the CPU) it is the
+    reference's semantics read on the host: `if bool(pred): body()`.
+
+A body writes its results only in place, into tensors allocated before the
+node (the carry): a tensor the body creates holds the previous replay's
+bits whenever the body is skipped, so nothing after the node may read one.
+A body is captured on the step's own body stream, a stream of its own (a
+conditional body may hold no event node, so it takes no wait_stream), with
+torch's allocations of the capturing thread routed into the graph's private
+pool; the warm-up frame runs every body it takes on that stream too, so the
+library handles and workspaces of the body stream exist before the capture.
+A graph keeps its bodies (`Graph.bodies`): each one's slot, its body graph
+and the kernel launches recorded into it, which the kernels' device runs
+follow as kernels/graph_cond.py's per-slot taken counts say.  A node that
+cannot be made, or a graph that cannot be instantiated, raises: there is
+no masked fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from immesh_tpu_torch.kernels import graph_cond
 from immesh_tpu_torch.kernels.build import captured_launches
 
 # the CUDA driver API's CUgraphNodeType values
@@ -49,9 +75,15 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
     """The nodes of a graph captured with keep_graph=True, by type
     ("kernel", "memcpy", "memset" and any other type the graph holds, by
     its CUgraphNodeType name), read from its cudaGraph_t through the CUDA
-    driver API."""
+    driver API.  A conditional node counts as one "conditional"; its body
+    is not entered (Graph.nodes adds the bodies)."""
+    return raw_graph_nodes(graph.raw_cuda_graph())
+
+
+def raw_graph_nodes(raw: int) -> Dict[str, int]:
+    """graph_nodes of a cudaGraph_t given as an int."""
     cuda = ctypes.CDLL("libcuda.so.1")
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    raw = ctypes.c_void_p(raw)
     n = ctypes.c_size_t(0)
     err = cuda.cuGraphGetNodes(raw, None, ctypes.byref(n))
     nodes = (ctypes.c_void_p * n.value)()
@@ -109,17 +141,95 @@ def clone_tree(x):
 
 
 @dataclasses.dataclass
+class Body:
+    """The body of one IF node of a captured graph (device_if)."""
+    what: str                   # the site, as device_if was told
+    slot: int                   # its taken counter (kernels/graph_cond.py)
+    graph: int                  # the body's cudaGraph_t
+    captured: Dict[str, int]    # kernel launches recorded into the body
+
+    def nodes(self) -> Dict[str, int]:
+        """The body's nodes by type (raw_graph_nodes)."""
+        return raw_graph_nodes(self.graph)
+
+
+@dataclasses.dataclass
 class Graph:
     graph: torch.cuda.CUDAGraph  # kept (keep_graph=True), instantiated
     inputs: tuple               # the static inputs the graph reads
     out: Any                    # what the step returned: graph-owned
     ptrs: Tuple[int, ...]       # the persistent tensors' addresses
-    captured: Dict[str, int]    # kernel launches recorded into the graph
+    captured: Dict[str, int]    # kernel launches recorded outside the bodies
+    bodies: List[Body] = dataclasses.field(default_factory=list)
+    pool: Any = None            # the bodies' memory pool, kept with the graph
     replays: int = 0
 
     def nodes(self) -> Dict[str, int]:
-        """The graph's nodes by type (graph_nodes)."""
-        return graph_nodes(self.graph)
+        """The graph's nodes by type, its IF nodes' bodies included (each
+        IF node counts once as "conditional")."""
+        total = graph_nodes(self.graph)
+        for b in self.bodies:
+            for k, n in b.nodes().items():
+                total[k] = total.get(k, 0) + n
+        return total
+
+
+# the step running now on the card: its body stream, and while it is being
+# captured the graph's bodies (device_if)
+@dataclasses.dataclass
+class _Step:
+    body_stream: torch.cuda.Stream
+    capturing: bool = False
+    bodies: List[Body] = dataclasses.field(default_factory=list)
+    in_body: bool = False
+
+
+_running: List[_Step] = []
+
+
+def device_if(pred: torch.Tensor, body: Callable[[], Any],
+              what: str = "body") -> None:
+    """Run body() where the one-element bool `pred` holds, as the
+    reference's lax.cond / while_loop test does on the device (the module's
+    docstring).  Under a CapturedStep's capture: an IF node whose body graph
+    holds body()'s launches.  Otherwise `if bool(pred): body()`, on the
+    step's body stream during its warm-up frame.  body() returns nothing
+    that is used: it writes its results in place."""
+    step = _running[-1] if _running else None
+    if pred.device.type != "cuda" or step is None or not step.capturing:
+        if not graph_cond.taken_plain(pred):
+            return
+        if pred.device.type != "cuda" or step is None:
+            body()
+            return
+        cur = torch.cuda.current_stream(pred.device)
+        step.body_stream.wait_stream(cur)
+        with torch.cuda.stream(step.body_stream):
+            body()
+        cur.wait_stream(step.body_stream)
+        return
+    if step.in_body:
+        raise RuntimeError("device_if inside a conditional body")
+    slot = graph_cond.next_slot()
+    body_graph = graph_cond.if_begin(pred, slot, step.body_stream)
+    before = captured_launches()
+    step.in_body = True
+    try:
+        with torch.cuda.stream(step.body_stream):
+            body()
+    except BaseException:
+        step.in_body = False
+        try:
+            graph_cond.if_end(step.body_stream, body_graph)
+        except RuntimeError:
+            pass  # the body's own error is the one to report
+        raise
+    step.in_body = False
+    graph_cond.if_end(step.body_stream, body_graph)
+    after = captured_launches()
+    step.bodies.append(Body(what, slot, body_graph,
+                            {k: n - before.get(k, 0)
+                             for k, n in after.items()}))
 
 
 class CapturedStep:
@@ -133,6 +243,7 @@ class CapturedStep:
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.Stream(device)
+        self.body_stream = torch.cuda.Stream(device)  # device_if's bodies
         self._graphs = {}   # key → Graph, or None once warmed up
 
     @property
@@ -164,11 +275,16 @@ class CapturedStep:
 
     def _warm_up(self, persistent, inputs):
         """The shape's first frame, eager, on the capture stream (which
-        runs nothing else but the capture)."""
+        runs nothing else but the capture), its bodies on the body
+        stream."""
         cur = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            out = self._step(*persistent, *inputs)
+        _running.append(_Step(self.body_stream))
+        try:
+            with torch.cuda.stream(self.stream):
+                out = self._step(*persistent, *inputs)
+        finally:
+            _running.pop()
         cur.wait_stream(self.stream)
         return out
 
@@ -176,12 +292,35 @@ class CapturedStep:
         static_in = clone_tree(inputs)
         before = captured_launches()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        step = _Step(self.body_stream, capturing=True)
+        pool = torch.cuda.MemPool()
+        dev = self.stream.device.index
         with torch.cuda.graph(graph, stream=self.stream):
-            out = self._step(*persistent, *static_in)
-        graph.instantiate()
+            # the body stream's allocations, captured into the bodies, into
+            # the pool kept with the graph (torch routes only the capture
+            # stream's into the graph's own)
+            with torch.cuda.stream(self.body_stream):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(dev, pool.id)
+            _running.append(step)
+            try:
+                out = self._step(*persistent, *static_in)
+            finally:
+                _running.pop()
+                torch._C._cuda_endAllocateToPool(dev, pool.id)
+                torch._C._cuda_releasePool(dev, pool.id)
+        try:
+            graph.instantiate()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"instantiating the captured step failed ({e}); its IF "
+                f"nodes' bodies hold " + "; ".join(
+                    f"{b.what}: {b.nodes()}" for b in step.bodies)) from e
         after = captured_launches()
+        outer = {k: n - before.get(k, 0) - sum(b.captured.get(k, 0)
+                                                for b in step.bodies)
+                 for k, n in after.items()}
         return Graph(graph, static_in, out, self._pointers(*persistent),
-                     {k: n - before.get(k, 0) for k, n in after.items()})
+                     outer, step.bodies, pool)
 
     def _replay(self, g: Graph, persistent, inputs):
         if self._pointers(*persistent) != g.ptrs:

@@ -274,6 +274,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "torch_profile_lio.py")
     yield os.path.join(REPO, "tools", "torch_profile_stages.py")
     yield os.path.join(REPO, "tools", "torch_ab_lio.py")
+    yield os.path.join(REPO, "tools", "torch_graph_nodes.py")
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),

@@ -1,19 +1,21 @@
 """The LIO step's device-side control flow: the ESIKF iterations and the
-refinement levels in the masked form the captured CUDA graph runs, and the
-plane map's in-place compaction, each against the JAX reference on seeded
-numpy inputs.
+refinement levels as the captured CUDA graph runs them (each body under
+utils/graphs.py::device_if, an IF node on the card, a host `if` here), and
+the plane map's in-place compaction, each against the JAX reference on
+seeded numpy inputs.
 
-  * iterated_update (lio_update) runs max_iterations static bodies, those
-    after convergence masked.  Against the reference's while_loop on inputs
+  * iterated_update (lio_update) runs up to max_iterations static bodies,
+    those after convergence skipped.  Against the reference's while_loop on inputs
     that converge at iteration 1, at iteration 2 and never (stopping at
     max_iterations): the iteration count EQUAL (the reference's counted by
     its association calls, run without jit), the state within
     tests/test_torch_lio_mesh.py's tolerances (pose 1e-4 m and 1e-5 rad,
     covariance rtol 1e-3 of its largest entry: another summation order and
     another 18×18 Cholesky), n_effective within 2.  Against the port's own
-    early-exit loop (the form before the masking), bit for bit.
-  * VoxelMap.update runs every refinement level, an empty one as an exact
-    no-op: bit for bit the update that skips the empty levels, and against
+    host loop (the form before PR 10) and the masked form the multi-rank
+    step runs (every body, the dead ones masked), bit for bit.
+  * VoxelMap.update skips an empty refinement level: bit for bit the update
+    that runs every level (an empty one an exact no-op), and against
     the reference's lax.cond on a scan whose refinement level is skipped
     and on one whose level is taken (keys, fp, counts and flags EXACT;
     moments rtol 1e-6; centres and var_c rtol 1e-4, as tests/
@@ -25,7 +27,8 @@ numpy inputs.
 
 The `cuda` test holds the captured LIO step to the eager step on the card
 bit for bit, and the hash and scatter kernels' device run counts to their
-eager launches plus the graph's replays; it skips without a card.  The reference is imported inside a
+eager launches plus the graph's replays and the runs of its IF nodes'
+bodies; it skips without a card.  The reference is imported inside a
 fixture, so on the GPU machine (no JAX)
 
     python -m pytest --noconftest -m cuda tests/test_torch_lio_graph.py
@@ -224,13 +227,19 @@ def test_masked_esikf_matches_the_reference_loop(J, plane_map, monkeypatch,
     np.testing.assert_allclose(jc, ts.cov.numpy(), rtol=0,
                                atol=1e-3 * np.abs(jc).max())
 
-    # bit for bit the early-exit loop: the masked bodies change nothing
+    # bit for bit the host loop and the masked form (every body runs, the
+    # dead ones masked): the skipped bodies change nothing
     es, conv, n_eff, it = _early_exit_update(
         tprior, lambda st: associate(st, tvm, *args, tvc), tlio)
     assert it == iterations and bool(conv) == bool(tdiag["converged"])
     assert int(n_eff) == int(tdiag["n_effective"])
+    ms, mdiag = tesikf.iterated_update(
+        tprior, lambda st: associate(st, tvm, *args, tvc), tlio,
+        reduce=lambda sums: sums)
     for f in dataclasses.fields(es):
         assert torch.equal(getattr(es, f.name), getattr(ts, f.name)), f.name
+        assert torch.equal(getattr(ms, f.name), getattr(ts, f.name)), f.name
+    assert all(torch.equal(mdiag[k], tdiag[k]) for k in tdiag)
 
 
 # ---------------------------------------------------------------------------
@@ -247,26 +256,27 @@ def test_update_runs_every_level_as_the_reference(J, plane_map, blob):
         keep = (p[:, 0] < 0) & (p[:, 1] < 1.5) & (np.abs(p[:, 2]) < 0.1)
         p, s2, m = p[keep], s2[keep], m[keep]
     tvm = _port("vm", plane_map, TVC(**_VM))
-    skip = tvm.clone()
+    every = tvm.clone()
     jvm = J.jax.jit(lambda vm, *a: vm.update(*a))(plane_map, *map(
         J.jnp.asarray, (p, s2, m)))
     levels = int(tvm.update_levels(_t(p), _t(s2), _t(m)))
     assert (levels > 0) == blob
     _check_vm(jvm, tvm)
 
-    # the same update with the empty levels skipped, as before the masking
-    skip._update_level(_t(p), _t(s2), _t(m), 0, _VM["touched_voxels_per_scan"])
+    # the same update with every level run, an empty one an exact no-op:
+    # the masked form the captured step ran before its IF nodes
+    every._update_level(_t(p), _t(s2), _t(m), 0,
+                        _VM["touched_voxels_per_scan"])
     lm = _t(m)
     for lvl in range(1, _VM["max_layers"]):
-        parent = skip.table.lookup(voxel_coords(_t(p), 1.0, lvl - 1))
-        lm = lm & (parent >= 0) & skip.subdivided[parent.clamp(min=0).long()]
-        if bool(lm.any()):
-            skip._update_level(_t(p), _t(s2), lm, lvl,
-                               _VM["touched_voxels_per_scan"])
+        parent = every.table.lookup(voxel_coords(_t(p), 1.0, lvl - 1))
+        lm = lm & (parent >= 0) & every.subdivided[parent.clamp(min=0).long()]
+        every._update_level(_t(p), _t(s2), lm, lvl,
+                            _VM["touched_voxels_per_scan"])
     for (n, a), b in zip([("keys", tvm.table.keys), ("fp", tvm.table.fp)]
                          + [(n, getattr(tvm, n)) for n in tvm._FIELDS],
-                         [skip.table.keys, skip.table.fp]
-                         + [getattr(skip, n) for n in skip._FIELDS]):
+                         [every.table.keys, every.table.fp]
+                         + [getattr(every, n) for n in every._FIELDS]):
         assert torch.equal(a, b), n
 
 
@@ -293,11 +303,14 @@ def test_captured_step_equals_the_eager_step_on_the_card():
     """The KITTI-shaped LIO on the card, eager and captured from the same
     start: state, world scan, diag and every plane-map tensor bit for bit
     on every frame, a compaction included.  The hash and scatter kernels'
-    device counters see the eager launches and every replay of the
-    kernels recorded into the graph, and the graph holds those kernels."""
+    device counters see the eager launches, every replay of the kernels
+    recorded into the graph outside its IF nodes, and every run of a body
+    (the set kernel's taken counts) times the kernels recorded into it; the
+    graph holds those kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     import chip_smoke
+    from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import scatter_drop as sd
     from immesh_tpu_torch.lio.pipeline import LioPipeline
@@ -307,6 +320,7 @@ def test_captured_step_equals_the_eager_step_on_the_card():
     pipes = [LioPipeline(cfg, device=dev, graph=g) for g in (False, True)]
     hp.reset_launches()
     sd.reset_launches()
+    gc.reset_launches()
     for k in range(8):
         b = chip_smoke.bundle(sim.frame(k), cfg, dev)
         outs = [p.step(b) for p in pipes]
@@ -324,11 +338,16 @@ def test_captured_step_equals_the_eager_step_on_the_card():
     # the graph's counts cover every counted kernel imported so far; the
     # LIO runs no pairs_argmin, and its lookups are the planes and parent
     # forms (no coords-form lookup, no neighbourhood)
-    captured = dict(g.captured)
+    captured = {k: n + sum(b.captured.get(k, 0) for b in g.bodies)
+                for k, n in g.captured.items()}
     assert captured.pop("pairs_argmin", 0) == 0
+    assert captured.pop("graph_cond") == len(g.bodies) == (
+        2 * cfg.lio.max_iterations + cfg.voxel_map.max_layers - 1)
     assert captured == {**hp.captured, "scatter_drop": sd.captured}
     assert captured.pop("hash_lookup") == 0
     assert captured.pop("hash_lookup_neighbors") == 0
     assert all(n > 0 for n in captured.values())
-    assert runs == {k: launches[k] + 7 * g.captured[k] for k in runs}
-    assert g.nodes()["kernel"] > sum(g.captured.values())
+    taken = gc.taken([b.slot for b in g.bodies])
+    assert runs == {k: launches[k] + 7 * g.captured[k] + sum(
+        t * b.captured[k] for t, b in zip(taken, g.bodies)) for k in runs}
+    assert g.nodes()["kernel"] > sum(captured.values())

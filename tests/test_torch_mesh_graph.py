@@ -13,12 +13,13 @@ accumulated drift.  The reference's joint program is compiled once: its
 hi-budget variant computes the same bits (reference behaviour 7), so the
 run passes it the base config and logs the budget it was asked for.
 
-  (a) The masked chunk loop (mesh_step(skip_empty=False), what the graph
-      runs) equals the skipping loop bit for bit, and the reference's
-      lax.cond loop within tests/test_torch_lio_mesh.py's tolerances:
-      point ids, slots, work list, counters and triangles EXACT, smoothed
-      positions 1e-5 m.  Frame 0 leaves chunks empty; an empty chunk's body
-      gives exactly the empty result.
+  (a) The chunk loop (each chunk under utils/graphs.py::device_if, an IF
+      node in the captured graph, a host `if` here) equals the masked loop
+      that runs every chunk bit for bit, and the reference's lax.cond loop
+      within tests/test_torch_lio_mesh.py's tolerances: point ids, slots,
+      work list, counters and triangles EXACT, smoothed positions 1e-5 m.
+      Frame 0 leaves chunks empty; an empty chunk's body gives exactly the
+      empty result.
   (b) append_frame's per-voxel counts (a scatter-add of ones where it had
       torch.bincount) equal the reference's, exactly, on every frame.
   (c) GlobalPointMap.compact + remap_store, which copy back into the same
@@ -30,15 +31,17 @@ run passes it the base config and logs the budget it was asked for.
   (e) With the polls copied to the host asynchronously (device.HostCopy),
       the port's plane-map and mesh compactions and its hi/lo budget fall
       on the same frames as the reference's.
-  (f) The masked mesh step reads no device value on the host:
-      Tensor.__bool__, __int__, __float__, __index__, item, tolist and
-      nonzero raise while it runs (outside the kernels' plain versions,
-      which stand for a kernel launch on the CPU); the skipping loop trips
-      the trap.
+  (f) The mesh step reads no device value on the host but its chunks'
+      tests (device_if's host read, which the captured step makes an IF
+      node's set kernel): Tensor.__bool__, __int__, __float__, __index__,
+      item, tolist and nonzero raise while it runs (outside the kernels'
+      plain versions, which stand for a kernel launch on the CPU, and that
+      read, one a chunk); with that read trapped too it trips the trap.
   (g) On the card (`cuda`, skips here): the captured JointPipeline against
       the eager one bit for bit, one mesh graph serving both budgets, and
-      pairs_argmin's device runs = its eager launches + the graph's
-      replays x its recorded launches.  The reference is imported inside a
+      pairs_argmin's device runs = its eager launches + the runs of the
+      chunk bodies (the set kernel's taken counts) x their recorded
+      launches.  The reference is imported inside a
       fixture, so on the GPU machine (no JAX)
 
     python -m pytest --noconftest -m cuda tests/test_torch_mesh_graph.py
@@ -212,17 +215,20 @@ def _check_mesh(jt, gm, store):
 # (a) the masked chunk loop
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("k", [0, 1])
-def test_masked_chunk_loop_equals_the_skipping_loop_and_the_reference(run,
-                                                                      k):
+def test_masked_chunk_loop_equals_the_skipping_loop_and_the_reference(
+        run, k, monkeypatch):
     f = run.frames[k]
     outs = {}
     for skip in (True, False):
+        if not skip:  # the masked loop: every chunk's body runs
+            monkeypatch.setattr(ttri, "device_if",
+                                lambda pred, body, what="": body())
         o = _port(run, f["before"])
         _, _, n, slots, smask, diag = mesh_step(
             o["gm"], o["store"], _t(f["world"]), _t(f["mask"]),
-            _t(f["pos"]), CHUNK, skip_empty=skip)
+            _t(f["pos"]), CHUNK)
         outs[skip] = (o, n, slots, smask, diag)
-    (om, n, slots, smask, diag), (os_, *rest) = outs[False], outs[True]
+    (om, n, slots, smask, diag), (os_, *rest) = outs[True], outs[False]
     for a, b in zip(tensors((om, n, slots, smask, diag)),
                     tensors((os_, *rest))):
         assert _same_bits(a, b)
@@ -397,21 +403,38 @@ def host_reads(monkeypatch):
     return trap
 
 
-def test_masked_mesh_step_reads_nothing_on_the_host(run, host_reads):
+def test_masked_mesh_step_reads_nothing_on_the_host(run, host_reads,
+                                                    monkeypatch):
+    from immesh_tpu_torch.kernels import graph_cond
     f = run.frames[0]
     args = (_t(f["world"]), _t(f["mask"]), _t(f["pos"]), CHUNK)
+    read = graph_cond.taken_plain
+    reads = []
+
+    def counted(pred):
+        on, host_reads.on = host_reads.on, False
+        try:
+            reads.append(read(pred))
+        finally:
+            host_reads.on = on
+        return reads[-1]
+
+    monkeypatch.setattr(graph_cond, "taken_plain", counted)
     o = _port(run, f["before"])
     host_reads.on = True
     try:
-        out = mesh_step(o["gm"], o["store"], *args, skip_empty=False)
+        out = mesh_step(o["gm"], o["store"], *args)
     finally:
         host_reads.on = False
     assert int(out[2]) == f["diag"]["n_active_voxels"]
+    # one read a chunk: frame 0's 23 active voxels fill two of four
+    assert reads == [True, True, False, False]
+    monkeypatch.setattr(graph_cond, "taken_plain", read)
     o = _port(run, f["before"])
     host_reads.on = True
     try:
         with pytest.raises(AssertionError, match="Tensor.__bool__"):
-            mesh_step(o["gm"], o["store"], *args, skip_empty=True)
+            mesh_step(o["gm"], o["store"], *args)
     finally:
         host_reads.on = False
 
@@ -429,6 +452,7 @@ def test_captured_mesh_step_equals_the_eager_step_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     import chip_smoke
+    from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.runtime.joint import JointPipeline
     dev = torch.device("cuda")
@@ -437,6 +461,7 @@ def test_captured_mesh_step_equals_the_eager_step_on_the_card():
     pipes = [JointPipeline(cfg, adaptive_mesh_budget=256, device=dev,
                            graph=g) for g in (False, True)]
     pk.reset_launches()
+    gc.reset_launches()
     n = 8
     for k in range(n):
         b = chip_smoke.bundle(sim.frame(k), cfg, dev)
@@ -456,7 +481,10 @@ def test_captured_mesh_step_equals_the_eager_step_on_the_card():
                  c.mesh.last_active)]) == []
     cap = pipes[1].mesh.captured
     (g,) = cap.graphs  # lo and hi frames: one graph
-    assert g.replays == n - 1 and g.captured["pairs_argmin"] > 0
-    assert pk.captured == g.captured["pairs_argmin"]
-    assert pk.runs() == pk.launches + g.replays * g.captured["pairs_argmin"]
+    assert g.replays == n - 1 and g.captured["pairs_argmin"] == 0
+    assert [b.what for b in g.bodies] == ["chunk"] * 2  # 128 voxels, 64 a chunk
+    assert pk.captured == sum(b.captured["pairs_argmin"] for b in g.bodies)
+    taken = gc.taken([b.slot for b in g.bodies])
+    assert pk.runs() == pk.launches + sum(
+        t * b.captured["pairs_argmin"] for t, b in zip(taken, g.bodies))
     assert g.nodes()["kernel"] > sum(g.captured.values())

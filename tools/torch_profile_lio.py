@@ -19,9 +19,10 @@ map; its intermediates are the fixed inputs every stage is timed on:
          map_update, world_transform
 
 associate_x1 is one association at the propagated state, which
-esikf_update_x3 (lio_update) runs once per static body (max_iterations of
-them, those after convergence masked); the live iterations are printed, and
-associate_x1 stays out of the stages' sum.
+esikf_update_x3 (lio_update) runs once per live body (the bodies after
+convergence are skipped: read on the host here, an IF node in the captured
+step); the live iterations are printed, and associate_x1 stays out of the
+stages' sum.
 map_update inserts the downsampled scan at the posterior pose, as lio_step
 does (the JAX tool uses the propagated one).  The port updates the map in
 place, so map_update runs on copies of the map made before its timed loop,
@@ -30,8 +31,11 @@ checked bit for bit after each stage.
 
 Each stage runs once untimed, then --repeat times back to back with one
 device synchronisation at the end: wall ms per call, the JAX tool's
-measure.  No stage reads a device value on the host, so the host enqueues
-ahead of the card and the wall time is the larger of the two.  A whole
+measure.  No stage reads a device value on the host but esikf_update_x3
+and map_update, which read the convergence test once a body and a level's
+mask once a level (the eager form of the captured step's IF nodes), so the
+host enqueues ahead of the card between those reads and the wall time is
+the larger of the two.  A whole
 lio_step on the same frame, timed the same way on map copies, stands beside
 the stages' sum, and so does "in seq": each stage's ms inside compose() on
 --repeat map copies, synchronised before and after every stage, whose sum
@@ -200,7 +204,7 @@ def same_state(a, b) -> bool:
 def esikf_iterations(fn) -> int:
     """Run fn(), the esikf_update_x3 stage, once: the ESIKF's live
     iterations (diag["iterations"], the reference while_loop's trip count;
-    each of the max_iterations static bodies runs one association)."""
+    each live body runs one association)."""
     return int(fn()["diag"]["iterations"])
 
 

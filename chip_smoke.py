@@ -49,10 +49,13 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 over the memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
-                for warm-up plus N timed frames, its LIO step and its mesh
-                step each one captured CUDA graph (frame 0 eager, frame 1
-                captured, then replayed, as on every later path but the
-                ablation's and the stage profilers' mesh step and dist/);
+                for warm-up plus N timed frames, the frame (its LIO step,
+                then its mesh step) one captured CUDA graph (frame 0 eager,
+                frame 1 captured, then replayed; the other paths capture
+                their LIO and mesh steps as two graphs, but the ablation's
+                and the stage profilers' mesh step and dist/); the frame
+                graph's IF nodes and set launches by site and the bodies
+                it ran against each frame's diag (check_sites);
                 checks that pairs_argmin ran on the device (its own device
                 counter) on every frame with active voxels and that every
                 path kernel (pairs_argmin, the planes, parent and
@@ -190,17 +193,18 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 high-water mark in these runs); ESIKF iterations equal, the
                 frames where a refinement level was empty and where all
                 max_iterations bodies ran live reported; ms a step eager
-                against captured; the KITTI graph's kernel, memcpy and
-                memset nodes and recorded kernel launches equal to phase
-                4's (whose recorders were on); one captured step under
-                torch.profiler (0 syncs); the IF nodes by site (in the
-                KITTI LIO graph and the Avia's two an ESIKF body — its
-                normal equations, then its step — and one a refinement
-                level), their bodies' node types (no allocation, free
-                or event node), the bodies run on the device (the set
-                kernel's taken counts) equal to what each frame's diag
-                says (iterations, levels, chunks with an active voxel),
-                and the bodies, levels and chunks skipped a frame;
+                against captured; the KITTI LIO graph's nodes kept for
+                phase 17; one captured step under torch.profiler (0
+                syncs); the IF nodes by site (in the KITTI LIO graph and
+                the Avia's two an ESIKF body after the first, which runs
+                with no node — its normal equations, then its step, both
+                set by one launch — and one a refinement level) and the
+                set launches by site (one a predicate), their bodies'
+                node types (no allocation, free or event node), the bodies
+                run on the device (the set kernel's taken counts) equal to
+                what each frame's diag says (iterations − 1, levels,
+                chunks with an active voxel), and the bodies, levels and
+                chunks skipped a frame;
                 the inserts recorded into the graphs all of the cluster
                 form; the graph's kernel nodes and one captured step's
                 device-busy ms; each LIO kernel's runs a frame;
@@ -214,31 +218,40 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 `kernels` line, its costliest single call (a 768-byte
                 slot-row set) and the LIO's costliest group (the plane
                 refit's 8 fields, also timed as 8 single launches) too;
- 17. mesh graph — the captured mesh step: the KITTI JointPipeline (phase
-                4's 3 + 40 scans, adaptive budget) and the Avia
-                ImMeshRuntime (3 + 30 frames), each run with the mesh step
-                eager and captured (the LIO step captured in both) from the
-                same start, in turns: point map, store, work list, active
-                count, every drop counter, filter state and plane map bit
-                for bit on every frame, the plane maps compacted to half
-                after GRAPH_COMPACT_AT and the KITTI mesh maps on their own
-                (Avia: both maps forced after GRAPH_AVIA_COMPACT_AT); the
-                compaction and hi/lo budget frames equal; the KITTI mesh
-                graph's kernel, memcpy and memset nodes and recorded
-                launches equal to phase 4's, its inserts of the cluster
-                form, each path kernel's runs a frame, its kernel nodes and
-                one captured mesh step's device-busy ms; one mesh
-                step of each under torch.profiler (0 syncs captured); the
-                mesh graph's IF nodes (one a chunk of the work list) and
-                their bodies' node types, the chunk bodies run on the
-                device equal to the chunks with an active voxel, the chunks
-                skipped a frame; ms a frame with the mesh eager against
-                captured.
+ 17. frame graph — the KITTI JointPipeline (phase 4's 3 + 40 scans,
+                adaptive budget) three ways from the same start, in turns:
+                eager (graph=False), the frame as one captured graph, and
+                the two-graph composition (a captured LioPipeline and
+                MeshPipeline chained); then the Avia ImMeshRuntime (3 + 30
+                frames) with its mesh step eager and captured: point map,
+                store, work list, active count, every drop counter, filter
+                state and plane map bit for bit on every frame, the plane
+                maps compacted to half after GRAPH_COMPACT_AT and the KITTI
+                mesh maps on their own (Avia: both maps forced after
+                GRAPH_AVIA_COMPACT_AT); the compaction and hi/lo budget
+                frames equal; the frame graph's kernel, memcpy, memset and
+                conditional nodes and recorded launches equal to phase
+                4's, its kernel and conditional nodes and launches to the
+                two graphs' sum, the two-graph LIO graph to phase 16's;
+                the inserts of the cluster form; IF nodes and set launches
+                by site, the bodies run on the device against diag, the
+                chunks skipped a frame; one frame of each (the polls left
+                out) under torch.profiler, 0 syncs in the captured ones;
+                ms a frame each way, and the frame split: wall, the
+                graphs' device span (CUDA events around each replay) and
+                the time outside them, and the frame graph's device-busy
+                ms replayed alone.
 
-Phase 16a, before 16, holds the IF nodes' set kernel (csrc/graph_cond.cu)
-to its plain version, the host read of the predicate: a graph of 64 IF
-nodes replayed on random predicates runs each body exactly where the host
-read says; then its device time a node, predicate false and true.
+Phase 16a, before 16, holds the IF sites' set kernel (csrc/graph_cond.cu)
+to its plain version, the predicate made by torch and read on the host: a
+graph of 64 IF nodes replayed on random predicates runs each body exactly
+where the host read says; every form (read, not, any over unaligned
+spans, a level's and a chunk's bytes, the count set and added, one launch
+setting 3 and 4 nodes across a cholesky_solve) equals the same step on
+the CPU on random inputs; then each site of the path (the ESIKF body, a
+level, a KITTI chunk) is timed as 64 copies in one graph, its launch that
+makes the predicate against the parent's torch predicate nodes and a set
+launch a node, predicate false and true.
 
 Every path that captures checks the device runs of every kernel against
 its eager launches, each graph's replays times the launches recorded
@@ -949,12 +962,35 @@ def recorded_launches(g) -> dict:
 
 
 def pipe_graphs(p) -> list:
-    """The captured graphs (utils/graphs.py's Graph) of a JointPipeline's
-    or an ImMeshRuntime's LIO and mesh steps."""
-    graphs = list(p.lio.captured.graphs)
-    if p.mesh is not None and p.mesh.captured is not None:
-        graphs += p.mesh.captured.graphs
-    return graphs
+    """The captured graphs (utils/graphs.py's Graph) of a JointPipeline (its
+    frame graph, or the LIO and mesh graphs of the pipelines it composes
+    with graph=False) or of an ImMeshRuntime's LIO and mesh steps."""
+    if getattr(p, "captured", None) is not None:
+        return list(p.captured.graphs)
+    return [g for part in (p.lio, p.mesh)
+            if part is not None and part.captured is not None
+            for g in part.captured.graphs]
+
+
+def set_launches(graphs) -> dict:
+    """The set kernel's launches recorded into `graphs` by site (the site
+    of the launch's first IF node); fails unless they are all the graphs'
+    recorded set-kernel launches and each sets the nodes of one site
+    (the ESIKF's two halves count as one site): one launch a predicate."""
+    sites, first = {}, {}
+    for g in graphs:
+        for b in g.bodies:
+            if b.launch not in first:
+                first[b.launch] = b.what
+                sites[b.what] = sites.get(b.what, 0) + 1
+            elif first[b.launch].split("_")[0] != b.what.split("_")[0]:
+                raise AssertionError(f"one set launch sets the IF nodes of "
+                                     f"{first[b.launch]} and {b.what}")
+    recorded = sum(g.captured.get(COND_KERNEL, 0) for g in graphs)
+    if sum(sites.values()) != recorded:
+        raise AssertionError(f"the graphs recorded {recorded} set launches, "
+                             f"their IF nodes name {sites}")
+    return sites
 
 
 def path_counts(path: str, counts=None, graphs=None,
@@ -1872,7 +1908,7 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
     reset_counts()
     ms, launches, errs, actives = [], [], [], []
-    diags, positions, scans, worlds = [], [], [], []
+    diags, positions, scans, worlds, rows = [], [], [], [], []
     probes = {}  # the probe calls of each compacting frame and of the last
     scatters = {}  # and their set_drop / add_drop calls
     for k, (f, b) in enumerate(zip(gt, frames)):
@@ -1909,6 +1945,10 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         errs.append(err)
         actives.append(n_act)
         launches.append(fired)
+        rows.append({"iterations": int(diag["iterations"]),
+                     "levels": int(diag["levels"]),
+                     "chunks": active_chunks(pipe.mesh.last_active[1],
+                                             cfg.mesh.mesh_chunk)})
         positions.append(pos)
         # the mesh step's inputs, for its eager run (eager_mesh_calls)
         worlds.append((world.clone(), b.mask, pipe.state.pos.clone()))
@@ -1921,10 +1961,21 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         log(f"[main] frame {k:2d}: {dt:8.1f} ms, pose err {err:.3f} m, "
             f"{n_act} active voxels, {fired} pairs_argmin runs, backlog "
             f"{int(diag['drop_deferred'])}")
-    (graph,), (mgraph,) = pipe.lio.captured.graphs, pipe.mesh.captured.graphs
-    hashes = path_counts("main", graphs=pipe_graphs(pipe))
-    forms = captured_forms(pipe_graphs(pipe), "main")
-    nodes, mnodes = graph.nodes(), mgraph.nodes()
+    (graph,) = pipe.captured.graphs
+    if pipe.captured.replays != len(gt) - 1:
+        raise AssertionError(f"main: {pipe.captured.replays} replays of the "
+                             f"frame graph in {len(gt)} frames")
+    hashes = path_counts("main", graphs=[graph])
+    forms = captured_forms([graph], "main")
+    nodes = graph.nodes()
+    sites = check_sites("KITTI JointPipeline (phase 4)", [graph], rows, cfg)
+    n_chunks = -(-cfg.mesh.active_voxels_per_frame // cfg.mesh.mesh_chunk)
+    if sites["if_nodes"]["nodes"] != {**lio_sites(cfg), "chunk": n_chunks} \
+            or sites["set_launches"] != {**lio_launches(cfg),
+                                         "chunk": n_chunks}:
+        raise AssertionError(f"main: the frame graph's IF nodes by site "
+                             f"{sites['if_nodes']['nodes']}, set launches "
+                             f"{sites['set_launches']}")
 
     n_tris = int(pipe.store.n_triangles())
     n_pts = int(pipe.mesh.gm.n_points())
@@ -1960,23 +2011,23 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"{k} {n} wrapper launches and {hashes['runs'][k]} runs on the "
         f"device ({hashes['runs'][k] / len(gt):.1f} a frame; recorded "
         f"{graph.captured.get(k, 0)} + {in_bodies(graph, k)} in IF bodies "
-        f"into the LIO graph, {mgraph.captured.get(k, 0)} + "
-        f"{in_bodies(mgraph, k)} into the mesh graph)"
+        f"into the frame graph)"
         for k, n in hashes["launches"].items())
-        + f"; hash_insert launches recorded into the graphs by form {forms}; "
+        + f"; hash_insert launches recorded into the graph by form {forms}; "
         f"the set kernel recorded {hashes['recorded'][COND_KERNEL]} times "
-        f"(one an IF node), run {hashes['runs'][COND_KERNEL]} times; IF "
-        f"bodies run by site {site_runs(pipe_graphs(pipe))}")
+        f"(one a predicate: by site {sites['set_launches']}, setting the "
+        f"IF nodes {sites['if_nodes']['nodes']}), run "
+        f"{hashes['runs'][COND_KERNEL]} times; IF bodies run by site "
+        f"{sites['runs']}")
     log(f"[main] live triangles {n_tris}, map points {n_pts}, mesh voxels "
         f"{int(pipe.mesh.gm.vox.occupancy())}, LIO voxels "
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
         f"(mesh {pipe.mesh.n_compactions}, lio {pipe.lio.n_compactions}, "
         f"{pipe.mesh.compact_ms + pipe.lio.compact_ms:.1f} ms), drops {drops}")
-    log(f"[main] the LIO step and the mesh step each ran as one captured "
-        f"CUDA graph: {pipe.lio.captured.replays} and "
-        f"{pipe.mesh.captured.replays} replays of {len(gt)} frames (frame 0 "
-        f"eager, the warm-up), the graphs' nodes {nodes} and {mnodes}; "
-        f"probe, set_drop and add_drop calls outside them recorded (copies "
+    log(f"[main] the frame (LIO step and mesh step) ran as one captured "
+        f"CUDA graph: {pipe.captured.replays} replays of {len(gt)} frames "
+        f"(frame 0 eager, the warm-up), the graph's nodes {nodes}; "
+        f"probe, set_drop and add_drop calls outside it recorded (copies "
         f"of the tables and targets they found, taken in every frame's "
         f"time, none inside a capture)")
     mesh_probes, mesh_scatters = eager_mesh_calls(
@@ -1989,9 +2040,7 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"{sum(map(len, scatters.values()))} scatters")
     return {"gt": gt, "pos": positions, "scans": scans, "R0": R0, "p0": p0,
             "graph_nodes": nodes, "graph_captured": recorded_launches(graph),
-            "mesh_graph_nodes": mnodes,
-            "mesh_graph_captured": recorded_launches(mgraph)}, probes, \
-        scatters
+            "sites": sites}, probes, scatters
 
 
 def eager_mesh_calls(cfg, dev, worlds, at, mesh_ref):
@@ -4060,39 +4109,186 @@ def phase_profile(dev, main_info: dict) -> int:
 # ---------------------------------------------------------------------------
 # phase 16a: the IF nodes' set kernel against its plain version
 # ---------------------------------------------------------------------------
-COND_NODES = 64     # IF nodes of the probe graph
+COND_NODES = 64     # IF nodes of the probe graph, and copies of a site
 COND_REPLAYS = 40   # replays on random predicates
+# the "any" form's probe spans (misalignment, bytes), laid out one after
+# another in one buffer: one byte, unaligned heads and tails, a KITTI
+# level's map-update points and a KITTI chunk's rows of the pull mask
+COND_SPANS = ((0, 1), (3, 13), (0, 16), (5, 35), (0, 8192), (7, 8193),
+              (0, 512 * 48))
+# the sites timed: (site, the predicate's bytes): the ESIKF's converged
+# byte, a KITTI level's 8,192 map-update points, a KITTI chunk's 512 × 48
+# pull-mask rows
+COND_SITES = (("esikf", 1), ("level", 8192), ("chunk", 512 * 48))
 
 
-def cond_probe(dev, n: int):
-    """A CapturedStep of n IF nodes: node k adds 1 to acc[k] where pred[k]
-    (kernels/graph_cond.py's set kernel, one body kernel each)."""
-    from immesh_tpu_torch.utils.graphs import CapturedStep, device_if
+def probe_step(dev, fn):
+    """A CapturedStep whose step is fn(acc, *inputs), `acc` its persistent
+    state, written in place."""
+    from immesh_tpu_torch.utils.graphs import CapturedStep
 
     class Probe(CapturedStep):
-        def __call__(self, acc, pred):
-            return self._run((acc,), (pred,))
+        def __call__(self, acc, *inputs):
+            return self._run((acc,), inputs)
 
         def _pointers(self, acc):
-            return (acc.data_ptr(),)
+            return ((acc.data_ptr(),),)
 
-        def _step(self, acc, pred):
-            for k in range(n):
-                device_if(pred[k], functools.partial(acc[k].add_, 1),
-                          "probe")
+        def _step(self, acc, *inputs):
+            return fn(acc, *inputs)
 
     return Probe(dev)
 
 
+def cond_probe(dev, n: int):
+    """A CapturedStep of n IF nodes: node k adds 1 to acc[k] where pred[k]
+    (the set kernel's "read" form, one body kernel each)."""
+    from immesh_tpu_torch.utils.graphs import device_if
+
+    def step(acc, pred):
+        for k in range(n):
+            device_if(pred[k], functools.partial(acc[k].add_, 1), "probe")
+
+    return probe_step(dev, step)
+
+
+def span_offsets() -> list:
+    """Each COND_SPANS span's (offset, bytes) in the probe buffer: 64-byte
+    aligned bases, shifted by the span's misalignment."""
+    out, base = [], 0
+    for mis, n in COND_SPANS:
+        out.append((base + mis, n))
+        base += -(-(mis + n) // 64) * 64
+    return out
+
+
+def forms_step(acc, flags, buf, A, B):
+    """The set kernel's forms as IF sites, each adding 1 to its acc entry
+    where its predicate holds: "read" of flags[0:4], "not" of flags[4:8],
+    "any" of each span of buf (span_offsets), its bit set (even spans) or
+    added (odd) into acc[n_sites + j]; then one "not" predicate of flags[8]
+    set by one launch for 3 nodes, and one "any" of the level span for 4,
+    with a torch.cholesky_solve between their nodes (the ESIKF's shape).
+    The same function on CPU tensors is the plain version."""
+    from immesh_tpu_torch.kernels import graph_cond as gc
+    from immesh_tpu_torch.utils.graphs import device_if
+    spans = span_offsets()
+    n_sites = 8 + len(spans) + 3 + gc.MAX_USES
+    site = iter(range(n_sites))
+
+    def bump():
+        return functools.partial(acc[next(site)].add_, 1)
+
+    for k in range(4):
+        device_if(flags[k], bump(), "read")
+    for k in range(4, 8):
+        device_if(gc.negation(flags[k]), bump(), "not")
+    for j, (o, n) in enumerate(spans):
+        device_if(gc.any_of(buf[o:o + n], acc[n_sites + j],
+                            "set" if j % 2 == 0 else "add"), bump(), "any")
+    o, n = spans[4]
+    shared = (gc.negation(flags[8], uses=3),
+              gc.Pred("any", buf[o:o + n], uses=gc.MAX_USES))
+    for p in shared:
+        for _ in range(p.uses):
+            device_if(p, bump(), "shared")
+            torch.cholesky_solve(B, A)  # outside the nodes
+
+
+def forms_inputs(rng, dev):
+    """Random flags and span bytes for forms_step: a span is empty, has
+    one true byte (its last, its first or a random one) or is dense."""
+    spans = span_offsets()
+    buf = np.zeros(spans[-1][0] + spans[-1][1] + 64, bool)
+    for o, n in spans:
+        mode = rng.integers(5)
+        if mode == 1:
+            buf[o + n - 1] = True
+        elif mode == 2:
+            buf[o] = True
+        elif mode == 3:
+            buf[o + rng.integers(n)] = True
+        elif mode == 4:
+            buf[o:o + n] = rng.random(n) < 0.3
+    flags = rng.random(9) < 0.5
+    return torch.tensor(flags, device=dev), torch.tensor(buf, device=dev)
+
+
+def site_step(site: str, new: bool):
+    """COND_NODES copies of one IF site of the path, its body a one-kernel
+    add: as the port makes it (`new`: one set launch makes the predicate
+    from the site's inputs), or as the parent did (the torch predicate
+    nodes, then the set kernel's "read" of the bool they made)."""
+    from immesh_tpu_torch.kernels import graph_cond as gc
+    from immesh_tpu_torch.utils.graphs import device_if
+
+    def step(acc, x):
+        for k in range(COND_NODES):
+            body = functools.partial(acc[k].add_, 1)
+            if site == "esikf":  # two nodes on `not converged`
+                live = gc.negation(x[k], uses=2) if new else ~x[k]
+                device_if(live, body, "esikf")
+                device_if(live, body, "esikf_step")
+            elif site == "level":  # any of the level's mask, counted
+                count = acc[COND_NODES + k]
+                if new:
+                    device_if(gc.any_of(x[k], count, "add"), body, "level")
+                else:
+                    taken = x[k].any()
+                    count.add_(taken.to(torch.int32))
+                    device_if(taken, body, "level")
+            else:  # any of the chunk's rows of the pull mask
+                rows = x[k * 512:(k + 1) * 512]
+                device_if(gc.any_of(rows) if new else rows.any(), body,
+                          "chunk")
+
+    return step
+
+
+def time_site(dev, site: str, nbytes: int) -> dict:
+    """One IF site's device time, the redesigned launch against the
+    parent's composition, each COND_NODES copies captured as one graph and
+    replayed: with the predicate false (the site's launches and its
+    skipped nodes) and true (the bodies' add kernels too), a site's outer
+    kernel nodes, and the bound (the predicate's bytes)."""
+    from immesh_tpu_torch.utils.graphs import graph_nodes
+    shape = {"esikf": (COND_NODES,), "level": (COND_NODES, nbytes),
+             "chunk": (COND_NODES * 512, 48)}[site]
+    out = {"bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S}
+    for new in (True, False):
+        name = "new" if new else "old"
+        acc = torch.zeros(2 * COND_NODES, dtype=torch.int32, device=dev)
+        x = torch.zeros(shape, dtype=torch.bool, device=dev)
+        if site == "esikf":
+            x.fill_(True)  # converged: every body skipped
+        step = probe_step(dev, site_step(site, new))
+        for _ in range(3):  # warm-up, capture, a replay
+            step(acc, x)
+        (g,) = step.graphs
+        out[f"kernel_nodes_{name}"] = graph_nodes(g.graph)["kernel"] \
+            / COND_NODES
+        out[f"set_launches_{name}"] = g.captured["graph_cond"] / COND_NODES
+        out[f"ms_{name}"] = device_ms(g.graph.replay, n=20) / COND_NODES
+        g.inputs[0].copy_(~x if site == "esikf" else x.logical_not())
+        out[f"ms_{name}_taken"] = device_ms(g.graph.replay, n=20) \
+            / COND_NODES
+    return out
+
+
 def phase_cond(dev) -> dict:
-    """Phase 16a: the set kernel against its plain version (the host read
-    bool(pred)) on the card: a graph of COND_NODES IF nodes replayed on
-    COND_REPLAYS random predicate vectors (and all-false and all-true), each
-    node's body run exactly where the host read says; then its time a node
-    (one replay of the graph with every predicate false, over the nodes:
-    the set kernel and the skipped node) beside its bound (a byte read) and
-    the plain version's (one host read of a device bool), and with every
-    predicate true (the body's kernel added)."""
+    """Phase 16a: the set kernel against its plain version on the card.
+    (1) A graph of COND_NODES "read" IF nodes replayed on COND_REPLAYS
+    random predicate vectors (and all-false and all-true), each node's body
+    run exactly where the host read says.  (2) Every form (forms_step):
+    read, not, any over one byte, unaligned heads and tails, a level's and
+    a chunk's bytes, its count set and added, and one launch setting 3 and
+    MAX_USES nodes with a cuSOLVER solve between them, replayed on random
+    inputs against the same step run on the CPU (the plain versions): the
+    bodies and counts equal, the taken counters as the bodies say, one set
+    launch a predicate.  (3) Each site of the path (COND_SITES) timed, the
+    launch that makes its own predicate against the parent's composition
+    (time_site), beside its bound (the predicate's bytes) and the plain
+    version (the torch predicate read on the host)."""
     from immesh_tpu_torch.kernels import graph_cond as gc
     t_phase = time.perf_counter()
     reset_counts()
@@ -4116,34 +4312,84 @@ def phase_cond(dev) -> dict:
             or gc.runs() != COND_NODES * g.replays:
         raise AssertionError(f"graph_cond: taken counts {taken} and "
                              f"{gc.runs()} runs for {g.replays} replays")
-    pred = torch.zeros(COND_NODES, dtype=torch.bool, device=dev)
-    g.inputs[0].copy_(pred)
-    ms_false = device_ms(g.graph.replay, n=20) / COND_NODES
-    g.inputs[0].fill_(True)
-    ms_true = device_ms(g.graph.replay, n=20) / COND_NODES
-    plain_ms = host_ms(lambda: gc.taken_plain(pred[0]), 200)
-    bound_ms = 1e3 * 1 / PEAK_BYTES_PER_S  # the predicate's byte
-    log(f"[cond] {smi_line()}; graph_cond: {COND_NODES} IF nodes, "
+
+    reset_counts()
+    n_sites = 8 + len(COND_SPANS) + 3 + gc.MAX_USES
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    M = torch.randn(18, 18, generator=gen)
+    A_cpu = torch.linalg.cholesky(M @ M.T + 18 * torch.eye(18))
+    B_cpu = torch.randn(18, 1, generator=gen)
+    acc_dev = torch.zeros(n_sites + len(COND_SPANS), dtype=torch.int32,
+                          device=dev)
+    acc_cpu = acc_dev.cpu()
+    forms = probe_step(dev, forms_step)
+    after_warmup = None
+    for r in range(COND_REPLAYS + 2):
+        flags, buf = forms_inputs(rng, dev)
+        forms(acc_dev, flags, buf, A_cpu.to(dev), B_cpu.to(dev))
+        forms_step(acc_cpu, flags.cpu(), buf.cpu(), A_cpu, B_cpu)
+        if not torch.equal(acc_dev.cpu(), acc_cpu):
+            raise AssertionError(f"graph_cond: replay {r}: the forms' "
+                                 f"bodies and counts {acc_dev.tolist()}, "
+                                 f"their plain versions {acc_cpu.tolist()}")
+        if r == 0:
+            after_warmup = acc_cpu.clone()
+    (fg,) = forms.graphs
+    ftaken = [t for _, t in body_runs([fg])]
+    launches = set_launches([fg])
+    n_preds = 8 + len(COND_SPANS) + 2
+    if ftaken != (acc_cpu - after_warmup)[:n_sites].tolist() \
+            or fg.captured["graph_cond"] != n_preds \
+            or gc.runs() != n_preds * fg.replays \
+            or len(fg.bodies) != n_sites:
+        raise AssertionError(f"graph_cond: the forms' taken counts {ftaken}, "
+                             f"{fg.captured['graph_cond']} set launches, "
+                             f"{gc.runs()} runs for {fg.replays} replays")
+
+    sites = {site: time_site(dev, site, nbytes)
+             for site, nbytes in COND_SITES}
+    m = torch.zeros(8192, dtype=torch.bool, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    plain_ms = host_ms(lambda: gc.taken_plain(gc.any_of(m, count, "add")),
+                       200)
+    level = sites["level"]
+    log(f"[cond] {smi_line()}; graph_cond: {COND_NODES} read-form IF nodes, "
         f"{len(preds)} replays, every body where the host read says "
-        f"(taken counts and {gc.runs()} set-kernel runs as the replays "
-        f"say); the bodies' nodes {kinds['body_node_types']}; a node with "
-        f"its predicate false (set kernel + skipped body) {1e3 * ms_false:.3f} "
-        f"µs device time, true (+ the body's kernel) {1e3 * ms_true:.3f} "
-        f"µs; the plain version (one host read) {1e3 * plain_ms:.1f} µs; "
-        f"bound {1e3 * bound_ms:.2e} µs (bytes); "
+        f"(taken counts and set-kernel runs as the replays say); the "
+        f"bodies' nodes {kinds['body_node_types']}; every form "
+        f"({len(COND_SPANS)} any spans, counts set and added, one launch for "
+        f"3 and for {gc.MAX_USES} nodes across a cholesky_solve) equal to the "
+        f"same step on the CPU over {fg.replays} replays, one set launch a "
+        f"predicate ({launches})")
+    for site, t in sites.items():
+        log(f"[cond] site {site}: µs a site with its predicate false, the "
+            f"launch that makes it {1e3 * t['ms_new']:.3f} "
+            f"({t['kernel_nodes_new']:.0f} kernel nodes, "
+            f"{t['set_launches_new']:.0f} set launch), the parent's "
+            f"composition {1e3 * t['ms_old']:.3f} "
+            f"({t['kernel_nodes_old']:.0f} kernel nodes, "
+            f"{t['set_launches_old']:.0f} set launches); true (the bodies "
+            f"run) {1e3 * t['ms_new_taken']:.3f} and "
+            f"{1e3 * t['ms_old_taken']:.3f}; bound {1e3 * t['bound_ms']:.2e} "
+            f"µs (bytes)")
+    log(f"[cond] the plain version of the level site (the torch predicate "
+        f"and count, one host read) {1e3 * plain_ms:.1f} µs; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"name": COND_KERNEL, "route": "cuda",
             "source": "immesh_tpu_torch/csrc/graph_cond.cu",
             "replaces": "immesh_tpu/lio/esikf.py:90",
-            "max_abs_err": 0.0, "ms": ms_false, "ms_body_taken": ms_true,
-            "wrapper_ms": None, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None,
-            "note": "the set kernel of a CUDA-graph IF node (no Pallas "
-                    "kernel: the reference's lax.while_loop / lax.cond "
-                    "predicates, immesh_tpu/lio/esikf.py:90, "
+            "max_abs_err": 0.0, "ms": level["ms_new"],
+            "ms_body_taken": level["ms_new_taken"], "wrapper_ms": None,
+            "plain_ms": plain_ms, "bound_ms": level["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "sites": sites,
+            "note": "the set kernel of CUDA-graph IF nodes, one launch a "
+                    "predicate that makes it (no Pallas kernel: the "
+                    "reference's lax.while_loop / lax.cond predicates, "
+                    "immesh_tpu/lio/esikf.py:90, "
                     "immesh_tpu/map/voxel_map.py:123, "
-                    "immesh_tpu/mesh/triangles.py:196); ms a node with "
-                    "the predicate false"}
+                    "immesh_tpu/mesh/triangles.py:196); ms: a refinement "
+                    "level's site (any of 8,192 bools, the count added, "
+                    "one IF node) with the predicate false"}
 
 
 # ---------------------------------------------------------------------------
@@ -4221,11 +4467,19 @@ def active_chunks(smask, chunk: int) -> int:
 
 def lio_sites(cfg) -> dict:
     """The IF nodes a captured LIO step holds, by site: two an ESIKF body
-    (its normal equations, then its step; the solve between them runs
-    outside, lio/esikf.py) and one a refinement level."""
-    return {"esikf": cfg.lio.max_iterations,
-            "esikf_step": cfg.lio.max_iterations,
-            "level": cfg.voxel_map.max_layers - 1}
+    after the first, which runs unconditionally (its normal equations, then
+    its step; the solve between them runs outside, lio/esikf.py), and one a
+    refinement level."""
+    sites = {"esikf": cfg.lio.max_iterations - 1,
+             "esikf_step": cfg.lio.max_iterations - 1,
+             "level": cfg.voxel_map.max_layers - 1}
+    return {k: n for k, n in sites.items() if n > 0}
+
+
+def lio_launches(cfg) -> dict:
+    """The set launches of a captured LIO step by site: one an ESIKF body
+    after the first (both its nodes), one a refinement level."""
+    return {k: n for k, n in lio_sites(cfg).items() if k != "esikf_step"}
 
 
 def check_sites(what: str, graphs, rows, cfg) -> dict:
@@ -4238,23 +4492,29 @@ def check_sites(what: str, graphs, rows, cfg) -> dict:
     levels and chunks skipped on the device a replayed frame."""
     replayed = rows[1:]
     n = len(replayed)
-    iterations = sum(r["iterations"] for r in replayed)
+    # the first ESIKF body runs with no IF node
+    iterations = sum(max(r["iterations"] - 1, 0) for r in replayed)
     want = {"esikf": iterations, "esikf_step": iterations,
             "level": sum(r["levels"] for r in replayed)}
     nodes = if_nodes(graphs)
+    launches = set_launches(graphs)
     if "chunks" in rows[0]:
         want["chunk"] = sum(r["chunks"] for r in replayed)
+    want = {k: v for k, v in want.items() if k in nodes["nodes"]}
     got = site_runs(graphs)
     if {k: got.get(k, 0) for k in want} != want:
         raise AssertionError(f"{what}: the IF nodes' bodies ran {got} times "
                              f"on the device, diag says {want}")
     skipped = {k: (nodes["nodes"][k] * n - want[k]) / n for k in want}
-    log(f"[graph] {what}: IF nodes by site {nodes['nodes']}, their bodies' "
+    log(f"[graph] {what}: IF nodes by site {nodes['nodes']}, set launches "
+        f"by site {launches} (one a predicate), their bodies' "
         f"node types {nodes['body_node_types']} (no allocation, free or "
         f"event node); bodies run on the device over the {n} replayed "
-        f"frames {got}, as diag says; skipped on the device a frame: "
+        f"frames {got}, as diag says (the first ESIKF body runs with no "
+        f"node); skipped on the device a frame: "
         + ", ".join(f"{k} {v:.2f}" for k, v in skipped.items()))
-    return {"if_nodes": nodes, "runs": got, "skipped_a_frame": skipped}
+    return {"if_nodes": nodes, "set_launches": launches, "runs": got,
+            "skipped_a_frame": skipped}
 
 
 def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
@@ -4620,22 +4880,16 @@ def phase_graph(dev, main_info, scatters) -> dict:
     (graph,) = cap.captured.graphs
     path_counts("graph_kitti", counts, graphs=[graph], kernels=LIO_KERNELS)
     sites = check_sites("KITTI LioPipeline", [graph], rows, cfg)
-    if sites["if_nodes"]["nodes"] != lio_sites(cfg):
+    if sites["if_nodes"]["nodes"] != lio_sites(cfg) \
+            or sites["set_launches"] != lio_launches(cfg):
         raise AssertionError(f"graph: the KITTI LIO graph's IF nodes "
-                             f"{sites['if_nodes']['nodes']}")
+                             f"{sites['if_nodes']['nodes']}, set launches "
+                             f"{sites['set_launches']}")
     forms = captured_forms([graph], "graph")
     nodes = graph.nodes()
-    # launches and copies, the IF nodes' bodies included: a recorder's copy
-    # inside phase 4's capture would add memcpy (or copy-kernel) nodes
-    same = ("kernel", "memcpy", "memset", "conditional")
-    if [nodes.get(k, 0) for k in same] != [
-            main_info["graph_nodes"].get(k, 0) for k in same] \
-            or recorded_launches(graph) != main_info["graph_captured"]:
-        raise AssertionError(
-            f"graph: the KITTI LioPipeline's graph holds {nodes} nodes and "
-            f"{recorded_launches(graph)} kernel launches, phase 4's "
-            f"(recorders on) {main_info['graph_nodes']} and "
-            f"{main_info['graph_captured']}")
+    # phase 17 holds the two-graph frame's LIO graph to this one
+    main_info["lio_graph_nodes"] = nodes
+    main_info["lio_graph_captured"] = recorded_launches(graph)
     kitti = graph_summary("KITTI LioPipeline", rows, 3, cfg)
     R0, p0 = main_info["R0"], main_info["p0"]
     err = float(np.linalg.norm(R0 @ cap.state.pos.cpu().numpy() + p0
@@ -4652,8 +4906,7 @@ def phase_graph(dev, main_info, scatters) -> dict:
                              f"card: {prof['captured']}")
     log(f"[graph] KITTI: {smi}; one step under torch.profiler (the last "
         f"frame again): eager {prof['eager']}, captured {prof['captured']}; "
-        f"the graph's nodes {nodes}, its kernels, copies and sets as "
-        f"phase 4's {main_info['graph_nodes']}; per frame "
+        f"the graph's nodes {nodes}; per frame "
         f"{counts['runs']['scatter_drop'] / len(frames):.2f} scatter_drop "
         f"and {counts['runs']['hash_insert'] / len(frames):.2f} hash_insert "
         f"runs on the device on the captured path ({counts}; the inserts "
@@ -4681,9 +4934,11 @@ def phase_graph(dev, main_info, scatters) -> dict:
     asites = check_sites("Avia ImMeshRuntime", pipe_graphs(acap), arows,
                          acfg)
     (alio,) = acap.lio.captured.graphs
-    if if_nodes([alio])["nodes"] != lio_sites(acfg):
+    if if_nodes([alio])["nodes"] != lio_sites(acfg) \
+            or set_launches([alio]) != lio_launches(acfg):
         raise AssertionError(f"graph: the Avia LIO graph's IF nodes "
-                             f"{if_nodes([alio])['nodes']}")
+                             f"{if_nodes([alio])['nodes']}, set launches "
+                             f"{set_launches([alio])}")
     avia = graph_summary("Avia ImMeshRuntime (LIO and mesh)", arows, 3, acfg)
     _, aprof = profile_counts(lambda: acap.lio.advance(aframes[-1]))
     if aprof["syncs"] != 0:
@@ -4719,228 +4974,323 @@ def phase_graph(dev, main_info, scatters) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the captured mesh step against the eager one
+# phase 17: the captured frame and mesh step against the eager ones
 # ---------------------------------------------------------------------------
-def run_mesh_pair(dev, make, frames, compact_at, mesh_compact_at):
-    """Two pipelines from make() (JointPipelines or ImMeshRuntimes, the
-    LIO step captured in both), the first given an eager mesh step (a
-    MeshPipeline with graph=False in place of its own, before any step),
-    stepped in turns over `frames`.  Every frame: the point map, the store,
-    the work list, the active count and every drop counter, the filter
-    state and the plane map bit for bit, both maps' compaction counts and
+def run_frames(pipes: dict, frames, compact_at, mesh_compact_at,
+               counted: str):
+    """Pipelines (`pipes`, {name: JointPipeline or ImMeshRuntime}, made from
+    the same start) stepped in turns over `frames`; the first is the
+    reference.  Every frame: each other pipeline's point map, store, work
+    list, active count, every drop counter, filter state and plane map bit
+    for bit as the reference's, both maps' compaction counts and
     (JointPipeline) the hi/lo budget equal; a JointPipeline is primed for
     the hi budget after frame 0, as phase 4's.  After the frames in
-    `compact_at` both compact their plane map to half, after those in
-    `mesh_compact_at` their mesh map.  Returns per-frame rows,
-    the captured pipeline's counts (path_now, its steps only) and the two
-    pipelines."""
+    `compact_at` all compact their plane map to half, after those in
+    `mesh_compact_at` their mesh map.  Returns per-frame rows (ms a frame
+    of each pipeline, the frame's diag counts of pipeline `counted`: ESIKF
+    iterations, levels, the chunks with an active voxel; compactions; the
+    budget) and the counts (path_now) of `counted`'s steps alone."""
     import immesh_tpu_torch.runtime.joint as joint
-    from immesh_tpu_torch.mesh.pipeline import MeshPipeline
-    eager, cap = make(), make()
-    eager.mesh = MeshPipeline(eager.cfg, device=dev, graph=False)
-    runtime = not isinstance(cap, joint.JointPipeline)
-    chunk = cap.cfg.mesh.mesh_chunk
+    names = list(pipes)
+    ref = pipes[names[0]]
+    runtime = not isinstance(ref, joint.JointPipeline)
+    chunk = ref.cfg.mesh.mesh_chunk
     counts = {part: dict.fromkeys(COUNTED, 0)
               for part in ("launches", "recorded", "runs")}
-    budgets, half = [], joint._mesh_half
+    budgets, frame = {n: [] for n in names}, joint._frame
+    by_id = {id(p): n for n, p in pipes.items()}
 
     def recorded(*args):
-        budgets.append(args[-1].mesh.active_voxels_per_frame)
-        return half(*args)
+        budgets[by_id[id(args[0])]].append(
+            args[-1].mesh.active_voxels_per_frame)
+        return frame(*args)
 
     def run(p, k, b):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if runtime:
-            n = p.process_frame(b, t=0.1 * k)["n_active_voxels"]
-            diag = dict(p.mesh.last_drops, n_active_voxels=n)
+            out = p.process_frame(b, t=0.1 * k)
+            diag = dict(p.mesh.last_drops,
+                        **{n: out[n] for n in ("n_active_voxels",
+                                               "iterations", "levels")})
         else:
             _, diag = p.step(b)
         torch.cuda.synchronize()
         return diag, 1e3 * (time.perf_counter() - t0)
 
-    def differs(what):
-        slots = [(n, x, y) for n, x, y in zip(
-            ("slots", "smask"), eager.mesh.last_active, cap.mesh.last_active)]
-        bad = mesh_differs(eager.mesh, cap.mesh, slots) + lio_differs(
-            eager.lio.state, cap.lio.state, eager.lio.vm, cap.lio.vm)
-        comp = [(p.lio.n_compactions, p.mesh.n_compactions)
-                for p in (eager, cap)]
-        if bad or comp[0] != comp[1]:
-            raise AssertionError(f"mesh graph: frame {k}: {what} the "
-                                 f"captured and the eager pipeline differ "
-                                 f"in {bad}, compactions {comp}")
-        return comp[1]
+    def differs(k, what):
+        comp = {n: (p.lio.n_compactions, p.mesh.n_compactions)
+                for n, p in pipes.items()}
+        for n in names[1:]:
+            p = pipes[n]
+            slots = [(x, y, z) for x, y, z in zip(
+                ("slots", "smask"), ref.mesh.last_active,
+                p.mesh.last_active)]
+            bad = mesh_differs(ref.mesh, p.mesh, slots) + lio_differs(
+                ref.lio.state, p.lio.state, ref.lio.vm, p.lio.vm)
+            if bad or comp[n] != comp[names[0]]:
+                raise AssertionError(f"mesh graph: frame {k}: {what} {n} and "
+                                     f"{names[0]} differ in {bad}, "
+                                     f"compactions {comp}")
+        return comp[counted]
 
     rows = []
-    joint._mesh_half = recorded
+    joint._frame = recorded
     try:
         for k, b in enumerate(frames):
-            de, ms_e = run(eager, k, b)
-            before = path_now()
-            dc, ms_c = run(cap, k, b)
-            after = path_now()
-            for part, n in counts.items():
-                for name in n:
-                    n[name] += after[part][name] - before[part][name]
-            bad = [n for n in de if not same_bits(de[n], dc[n])]
-            if bad:
-                raise AssertionError(f"mesh graph: frame {k}: diag {bad}")
-            comp = differs("after the step,")
+            diags, ms = {}, {}
+            for n, p in pipes.items():
+                if n == counted:
+                    before = path_now()
+                diags[n], ms[n] = run(p, k, b)
+                if n == counted:
+                    after = path_now()
+                    for part, c in counts.items():
+                        for name in c:
+                            c[name] += after[part][name] - before[part][name]
+            for n in names[1:]:
+                bad = [x for x in diags[n]
+                       if not same_bits(diags[names[0]][x], diags[n][x])]
+                if bad:
+                    raise AssertionError(f"mesh graph: frame {k}: {n}'s diag "
+                                         f"{bad}")
+            comp = differs(k, "after the step,")
             if k == 0 and not runtime:
-                for p in (eager, cap):
+                for p in pipes.values():
                     p.prime_adaptive()
             if k in compact_at or k in mesh_compact_at:
-                for p in (eager, cap):
+                for p in pipes.values():
                     if k in compact_at:
                         compact_half(p.lio.vm, p.lio.state.pos)
                     if k in mesh_compact_at:
                         compact_mesh_half(p.mesh, p.lio.state.pos)
-                differs("after the forced compaction,")
-            rows.append({"ms_eager": ms_e, "ms_graph": ms_c,
-                         "compactions": comp,
-                         "chunks": active_chunks(cap.mesh.last_active[1],
-                                                 chunk)})
+                differs(k, "after the forced compaction,")
+            d = diags[counted]
+            rows.append({"ms": ms, "compactions": comp,
+                         "iterations": int(d["iterations"]),
+                         "levels": int(d["levels"]),
+                         "chunks": active_chunks(
+                             pipes[counted].mesh.last_active[1], chunk)})
     finally:
-        joint._mesh_half = half
-    if budgets[0::2] != budgets[1::2]:
-        raise AssertionError(f"mesh graph: hi/lo budgets differ: eager "
-                             f"{budgets[0::2]}, captured {budgets[1::2]}")
-    for r, n in zip(rows, budgets[1::2]):
-        r["budget"] = n
-    if cap.mesh.captured.replays != len(frames) - 1:
-        raise AssertionError(f"mesh graph: {cap.mesh.captured.replays} "
-                             f"replays of {len(frames)} frames")
-    return rows, counts, (eager, cap)
+        joint._frame = frame
+    if not runtime:
+        if any(budgets[n] != budgets[names[0]] for n in names):
+            raise AssertionError(f"mesh graph: hi/lo budgets differ: "
+                                 f"{budgets}")
+        for r, n in zip(rows, budgets[names[0]]):
+            r["budget"] = n
+    for n, p in pipes.items():
+        reps = sum(g.replays for g in pipe_graphs(p))
+        want = sum(len(frames) - 1 for part in
+                   ((p,) if getattr(p, "captured", None) else (p.lio, p.mesh))
+                   if part.captured is not None)
+        if reps != want:
+            raise AssertionError(f"mesh graph: {n}: {reps} replays of "
+                                 f"{len(frames)} frames, expected {want}")
+    return rows, counts
 
 
-def mesh_graph_summary(name, rows, warmup, eager, cap, frame) -> dict:
-    """Median and p90 ms a frame with the mesh eager and captured over the
-    timed frames; the frames where a map compacted and where the budget
-    went hi; the chunk bodies run on the device (the set kernel's taken
-    counts) against the chunks with an active voxel, and the chunks skipped
-    a replayed frame; one mesh step of each pipeline again on `frame`'s
-    inputs (world scan, mask, position) under torch.profiler (0 syncs in
-    the captured one); the graph's nodes and IF nodes."""
-    from immesh_tpu_torch.utils.timers import profile_counts
-    t = rows[warmup:]
-    out = {f"frame_{k}_{q}": (statistics.median if q == "median" else
-                              lambda v: float(np.percentile(v, 90)))(
-                                  [r[f"ms_{k}"] for r in t])
-           for k in ("eager", "graph") for q in ("median", "p90")}
-    comp = [r["compactions"] for r in rows]
-    out["lio_compaction_frames"] = [
-        k for k in range(1, len(rows)) if comp[k][0] > comp[k - 1][0]]
-    out["mesh_compaction_frames"] = [
-        k for k in range(1, len(rows)) if comp[k][1] > comp[k - 1][1]]
-    out["hi_budget_frames"] = [k for k, r in enumerate(rows)
-                               if r.get("budget", 0)
-                               > cap.cfg.mesh.active_voxels_per_frame]
-    (g,) = cap.mesh.captured.graphs
-    out["nodes"], out["captured"] = g.nodes(), g.captured
-    out["if_nodes"] = if_nodes([g])
-    n_chunks = out["if_nodes"]["nodes"]["chunk"]
-    ran, want = site_runs([g])["chunk"], sum(r["chunks"] for r in rows[1:])
+def ms_summary(rows, warmup, name) -> dict:
+    """Median and p90 ms a frame of pipeline `name` over the timed frames."""
+    t = [r["ms"][name] for r in rows[warmup:]]
+    return {"median": statistics.median(t),
+            "p90": float(np.percentile(t, 90))}
+
+
+def chunk_sites(name, rows, graphs) -> dict:
+    """The chunk IF nodes of `graphs` (a mesh graph or a frame graph): the
+    chunk bodies run on the device (the set kernel's taken counts) against
+    the chunks with an active voxel over the replayed frames, and the
+    chunks skipped a replayed frame."""
+    n_chunks = if_nodes(graphs)["nodes"]["chunk"]
+    ran, want = site_runs(graphs)["chunk"], sum(r["chunks"] for r in rows[1:])
     if ran != want:
         raise AssertionError(f"mesh graph: {name}: {ran} chunk bodies ran on "
                              f"the device, {want} chunks had an active voxel")
-    out["chunks_skipped_a_frame"] = (n_chunks * (len(rows) - 1) - ran) / (
-        len(rows) - 1)
-    prof = {}
-    for what, p in (("eager", eager), ("captured", cap)):
-        _, prof[what] = profile_counts(lambda: p.mesh.advance(*frame))
-    if prof["captured"]["syncs"] != 0:
-        raise AssertionError(f"mesh graph: {name}: the captured mesh step "
-                             f"waited on the card: {prof['captured']}")
-    out["profiled"] = prof
-    log(f"[mesh graph] {name}: {len(rows)} frames ({warmup} warm-up), eager "
-        f"and captured mesh step bit-identical every frame; ms a frame with "
-        f"the mesh eager {out['frame_eager_median']:.2f} median / "
-        f"{out['frame_eager_p90']:.2f} p90, captured "
-        f"{out['frame_graph_median']:.2f} / {out['frame_graph_p90']:.2f}; "
-        f"compactions (plane map / mesh map) after frames "
-        f"{out['lio_compaction_frames']} / {out['mesh_compaction_frames']}, "
-        f"hi budget on frames {out['hi_budget_frames']}; {n_chunks} IF "
-        f"nodes (chunks), their bodies' node types "
-        f"{out['if_nodes']['body_node_types']}, {ran} chunk bodies run on "
-        f"the device as the chunks with an active voxel say, "
-        f"{out['chunks_skipped_a_frame']:.2f} chunks skipped on the device a "
-        f"replayed frame; the graph's nodes {out['nodes']}, its kernel "
-        f"launches outside the IF nodes {g.captured}; one mesh step under "
-        f"torch.profiler: eager {prof['eager']}, captured {prof['captured']}")
-    return out
+    return {"chunk_nodes": n_chunks, "chunk_runs": ran,
+            "chunks_skipped_a_frame": (n_chunks * (len(rows) - 1) - ran)
+            / (len(rows) - 1)}
+
+
+def frame_split(rows, warmup, name, steps) -> dict:
+    """The frame's wall time (host clock, synchronised), the device span of
+    its graph replays (CUDA events around each replay of `steps`'
+    CapturedSteps, recorded since their first replay) and the time outside
+    them, median over the timed frames: frame k ≥ 1 is replay k − 1 of
+    each step."""
+    spans = []
+    for step in steps:
+        ev = step.replay_events
+        spans.append([s.elapsed_time(e) for s, e in ev])
+    wall = [r["ms"][name] for r in rows]
+    inside = [sum(sp[k - 1] for sp in spans) for k in range(1, len(rows))]
+    t = range(max(warmup, 1), len(rows))
+    return {"wall_median": statistics.median(wall[k] for k in t),
+            "graphs_median": statistics.median(inside[k - 1] for k in t),
+            "outside_median": statistics.median(wall[k] - inside[k - 1]
+                                                for k in t),
+            "graphs_p90": float(np.percentile([inside[k - 1] for k in t],
+                                              90))}
 
 
 def phase_mesh_graph(dev, main_info) -> dict:
     """Phase 17.  The KITTI JointPipeline (phase 4's 3 + 40 scans, its
-    adaptive budget) and the Avia ImMeshRuntime (3 + 30 frames), each with
-    the mesh step eager and captured from the same start, in turns
-    (run_mesh_pair), the plane maps compacted to half after
-    GRAPH_COMPACT_AT and the KITTI mesh maps on their own (Avia: both maps
-    forced after GRAPH_AVIA_COMPACT_AT); the KITTI mesh graph's
-    kernel, memcpy and memset nodes and recorded launches equal to phase
-    4's; 0 syncs in a captured mesh step; the dead chunks the captured
-    step ran and the device ms of one."""
+    adaptive budget) three ways from the same start, in turns (run_frames):
+    eager (graph=False), the frame as one captured graph (the default on
+    the card), and the two-graph composition (a captured LioPipeline and a
+    captured MeshPipeline chained by a graph=False JointPipeline), the
+    plane maps compacted to half after GRAPH_COMPACT_AT and the mesh maps
+    on their own; then the Avia ImMeshRuntime (3 + 30 frames) with its mesh
+    step eager and captured (both maps forced after GRAPH_AVIA_COMPACT_AT).
+    The frame graph's kernel, memcpy, memset and conditional nodes and
+    recorded launches equal to phase 4's, its kernel and conditional nodes
+    to the two graphs' sum, the two-graph LIO graph to phase 16's; IF nodes
+    and set launches by site; the bodies run on the device against diag;
+    0 syncs in a captured frame or mesh step; ms a frame each way and the
+    frame split: wall, the graphs' device span, the time outside them, and
+    the frame graph's device-busy time under torch.profiler."""
+    import immesh_tpu_torch.runtime.joint as joint
+    from immesh_tpu_torch.lio.pipeline import LioPipeline
+    from immesh_tpu_torch.mesh.pipeline import MeshPipeline
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
-    from immesh_tpu_torch.runtime.joint import JointPipeline
+    from immesh_tpu_torch.utils.timers import profile_counts
     t_phase = time.perf_counter()
     smi = smi_line()
     cfg = kitti_config()
     gt = main_info["gt"]
     frames = [bundle(f, cfg, dev) for f in gt]
 
-    def make_joint():
-        return JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
+    def make_joint(graph=True):
+        return joint.JointPipeline(cfg, adaptive_mesh_budget=2048,
+                                   device=dev, graph=graph)
 
+    two = make_joint(graph=False)
+    two.lio = LioPipeline(cfg, device=dev)
+    two.mesh = MeshPipeline(cfg, device=dev)
+    pipes = {"eager": make_joint(graph=False), "one_graph": make_joint(),
+             "two_graphs": two}
+    one = pipes["one_graph"]
+    for step in (one.captured, two.lio.captured, two.mesh.captured):
+        step.replay_events = []
     reset_counts()
     # the plane map compacted by force (it stays below its high-water
     # mark), the mesh map on its own (twice in phase 4)
-    rows, counts, (eager, cap) = run_mesh_pair(dev, make_joint, frames,
-                                               GRAPH_COMPACT_AT, ())
-    path_counts("mesh_graph_kitti", counts, graphs=pipe_graphs(cap))
-    forms = captured_forms(pipe_graphs(eager) + pipe_graphs(cap),
-                           "mesh graph")
-    log(f"[mesh graph] KITTI: per frame (the captured pipeline) "
+    rows, counts = run_frames(pipes, frames, GRAPH_COMPACT_AT, (),
+                              "one_graph")
+    (g,) = one.captured.graphs
+    lg, mg = pipe_graphs(two)
+    path_counts("mesh_graph_kitti", counts, graphs=[g])
+    forms = captured_forms([g, lg, mg], "mesh graph")
+    log(f"[mesh graph] KITTI: per frame (the one-graph pipeline) "
         + ", ".join(f"{counts['runs'][k] / len(frames):.2f} {k}"
-                    for k in PATH_KERNELS[1:])
+                    for k in COUNTED)
         + f" runs on the device ({counts}); the inserts recorded into the "
         f"three graphs by form {forms}")
-    (g,) = cap.mesh.captured.graphs
     same = ("kernel", "memcpy", "memset", "conditional")
-    nodes = g.nodes()
+    nodes, lnodes, mnodes = g.nodes(), lg.nodes(), mg.nodes()
     if [nodes.get(k, 0) for k in same] != [
-            main_info["mesh_graph_nodes"].get(k, 0) for k in same] \
-            or recorded_launches(g) != main_info["mesh_graph_captured"]:
+            main_info["graph_nodes"].get(k, 0) for k in same] \
+            or recorded_launches(g) != main_info["graph_captured"]:
         raise AssertionError(
-            f"mesh graph: the KITTI mesh graph holds {nodes} nodes and "
-            f"{recorded_launches(g)} kernel launches, phase 4's "
-            f"{main_info['mesh_graph_nodes']} and "
-            f"{main_info['mesh_graph_captured']}")
-    last = (frames[-1].mask, cap.lio.state.pos)
-    world = cap.lio.state.transform_points(frames[-1].pts)
-    kitti = mesh_graph_summary("KITTI JointPipeline", rows, 3, eager, cap,
-                               (world, *last))
+            f"mesh graph: the KITTI frame graph holds {nodes} nodes and "
+            f"{recorded_launches(g)} kernel launches, phase 4's (recorders "
+            f"on) {main_info['graph_nodes']} and "
+            f"{main_info['graph_captured']}")
+    if [lnodes.get(k, 0) for k in same] != [
+            main_info["lio_graph_nodes"].get(k, 0) for k in same] \
+            or recorded_launches(lg) != main_info["lio_graph_captured"]:
+        raise AssertionError(
+            f"mesh graph: the two-graph frame's LIO graph holds {lnodes} "
+            f"nodes and {recorded_launches(lg)} launches, phase 16's "
+            f"{main_info['lio_graph_nodes']} and "
+            f"{main_info['lio_graph_captured']}")
+    summed = {k: lnodes.get(k, 0) + mnodes.get(k, 0) for k in same}
+    launched = {k: recorded_launches(lg).get(k, 0)
+                + recorded_launches(mg).get(k, 0) for k in COUNTED}
+    if [nodes.get(k, 0) for k in ("kernel", "conditional")] != [
+            summed["kernel"], summed["conditional"]] or {
+                k: recorded_launches(g).get(k, 0) for k in COUNTED} \
+            != launched:
+        raise AssertionError(
+            f"mesh graph: the frame graph holds {nodes} nodes and "
+            f"{recorded_launches(g)} launches, the two graphs {summed} and "
+            f"{launched}")
+    sites = check_sites("KITTI JointPipeline, one graph", [g], rows, cfg)
+    two_sites = {"if_nodes": if_nodes([lg, mg])["nodes"],
+                 "set_launches": set_launches([lg, mg])}
+    mc = cfg.mesh
+    n_chunks = -(-mc.active_voxels_per_frame // mc.mesh_chunk)
+    want = {**lio_sites(cfg), "chunk": n_chunks}
+    if sites["if_nodes"]["nodes"] != want \
+            or two_sites["if_nodes"] != want \
+            or sites["set_launches"] != {**lio_launches(cfg),
+                                         "chunk": n_chunks} \
+            or two_sites["set_launches"] != sites["set_launches"]:
+        raise AssertionError(f"mesh graph: IF nodes and set launches by "
+                             f"site: one graph {sites}, two graphs "
+                             f"{two_sites}")
+    kitti = {k: ms_summary(rows, 3, k) for k in pipes}
+    kitti.update(chunk_sites("KITTI JointPipeline", rows, [g]))
+    comp = [r["compactions"] for r in rows]
+    kitti["mesh_compaction_frames"] = [
+        k for k in range(1, len(rows)) if comp[k][1] > comp[k - 1][1]]
+    kitti["hi_budget_frames"] = [k for k, r in enumerate(rows)
+                                 if r["budget"] > mc.active_voxels_per_frame]
     if not kitti["mesh_compaction_frames"]:
         raise AssertionError("mesh graph: the KITTI mesh map never "
                              "compacted on its own")
-    mc = cfg.mesh
-    if kitti["if_nodes"]["nodes"] != {
-            "chunk": -(-mc.active_voxels_per_frame // mc.mesh_chunk)}:
-        raise AssertionError(f"mesh graph: the KITTI mesh graph's IF nodes "
-                             f"{kitti['if_nodes']['nodes']}")
-    log(f"[mesh graph] KITTI: the mesh graph's kernel nodes "
-        f"{kitti['nodes']['kernel']}, device busy "
-        f"{kitti['profiled']['captured']['busy_ms']:.3f} ms and "
-        f"{kitti['profiled']['captured']['syncs']} syncs a captured mesh "
-        f"step (torch.profiler)")
+    kitti["split_one_graph"] = frame_split(rows, 3, "one_graph",
+                                           [one.captured])
+    kitti["split_two_graphs"] = frame_split(
+        rows, 3, "two_graphs", [two.lio.captured, two.mesh.captured])
+    kitti["nodes"], kitti["two_graph_nodes"] = nodes, summed
+    kitti["sites"] = sites
     R0, p0 = main_info["R0"], main_info["p0"]
-    err = float(np.linalg.norm(R0 @ cap.lio.state.pos.cpu().numpy() + p0
+    err = float(np.linalg.norm(R0 @ one.lio.state.pos.cpu().numpy() + p0
                                - gt[-1].gt_pos))
     if err > POSE_TOL_M:
         raise AssertionError(f"mesh graph: KITTI pose {err:.3f} m from "
                              f"ground truth (limit {POSE_TOL_M} m)")
-    log(f"[mesh graph] KITTI: {smi}; pose err {err:.3f} m")
-    del eager, cap
+    # one frame of each (the last scan again, the polls left out) under
+    # torch.profiler, and the frame graph replayed alone (its static
+    # inputs: the last frame again): the graph's device-busy time
+    prof = {}
+    for n, p in pipes.items():
+        _, prof[n] = profile_counts(lambda: joint._frame(p, frames[-1],
+                                                          p.cfg))
+    for n in ("one_graph", "two_graphs"):
+        if prof[n]["syncs"] != 0:
+            raise AssertionError(f"mesh graph: the {n} frame waited on the "
+                                 f"card: {prof[n]}")
+    torch.cuda.synchronize()
+    _, prof["frame_graph_replay"] = profile_counts(g.graph.replay)
+    kitti["profiled"] = prof
+    sp1, sp2 = kitti["split_one_graph"], kitti["split_two_graphs"]
+    log(f"[mesh graph] KITTI: {smi}; {len(rows)} frames (3 warm-up), the "
+        f"one-graph, eager and two-graph frames bit-identical every frame; "
+        f"ms a frame median / p90: " + ", ".join(
+            f"{n} {kitti[n]['median']:.2f} / {kitti[n]['p90']:.2f}"
+            for n in pipes)
+        + f"; compactions of the mesh map after frames "
+        f"{kitti['mesh_compaction_frames']}, hi budget on frames "
+        f"{kitti['hi_budget_frames']}; the frame graph's nodes {nodes} "
+        f"(phase 4's; the LIO and mesh graphs' kernel and conditional "
+        f"nodes summed {summed}); {kitti['chunk_nodes']} chunk IF nodes, "
+        f"{kitti['chunk_runs']} chunk bodies run on the device as the "
+        f"chunks with an active voxel say, "
+        f"{kitti['chunks_skipped_a_frame']:.2f} skipped a replayed frame; "
+        f"pose err {err:.3f} m")
+    log(f"[mesh graph] KITTI frame split (medians over the timed frames, "
+        f"ms): one graph: wall {sp1['wall_median']:.3f}, the graph's device "
+        f"span {sp1['graphs_median']:.3f} (p90 {sp1['graphs_p90']:.3f}), "
+        f"outside it {sp1['outside_median']:.3f}; two graphs: wall "
+        f"{sp2['wall_median']:.3f}, the graphs' spans "
+        f"{sp2['graphs_median']:.3f} (p90 {sp2['graphs_p90']:.3f}), outside "
+        f"them {sp2['outside_median']:.3f}; the frame graph replayed alone "
+        f"under torch.profiler: {prof['frame_graph_replay']}; one frame "
+        f"without the polls under torch.profiler: " + ", ".join(
+            f"{n} {prof[n]}" for n in pipes))
+    del pipes, one, two
 
     acfg = avia_config()
     sim = make_avia_sim(acfg)
@@ -4953,16 +5303,41 @@ def phase_mesh_graph(dev, main_info) -> dict:
         rt.static_init(*static)
         return rt
 
+    aeager, acap = make_runtime(), make_runtime()
+    aeager.mesh = MeshPipeline(acfg, device=dev, graph=False)
     reset_counts()
-    arows, acounts, (aeager, acap) = run_mesh_pair(
-        dev, make_runtime, aframes, (GRAPH_AVIA_COMPACT_AT,),
-        (GRAPH_AVIA_COMPACT_AT,))
+    arows, acounts = run_frames({"eager_mesh": aeager, "captured": acap},
+                                aframes, (GRAPH_AVIA_COMPACT_AT,),
+                                (GRAPH_AVIA_COMPACT_AT,), "captured")
     path_counts("mesh_graph_avia", acounts, graphs=pipe_graphs(acap))
     captured_forms(pipe_graphs(aeager) + pipe_graphs(acap), "mesh graph: Avia")
+    (amg,) = acap.mesh.captured.graphs
+    avia = {k: ms_summary(arows, 3, k) for k in ("eager_mesh", "captured")}
+    avia.update(chunk_sites("Avia ImMeshRuntime", arows, [amg]))
+    avia["if_nodes"] = if_nodes([amg])
+    avia["set_launches"] = set_launches([amg])
+    avia["nodes"] = amg.nodes()
     world = acap.lio.state.transform_points(aframes[-1].pts)
-    avia = mesh_graph_summary("Avia ImMeshRuntime", arows, 3, aeager, acap,
-                              (world, aframes[-1].mask, acap.lio.state.pos))
-    log(f"[mesh graph] Avia: phase 17 took "
+    mframe = (world, aframes[-1].mask, acap.lio.state.pos)
+    aprof = {}
+    for n, p in (("eager", aeager), ("captured", acap)):
+        _, aprof[n] = profile_counts(lambda: p.mesh.advance(*mframe))
+    if aprof["captured"]["syncs"] != 0:
+        raise AssertionError(f"mesh graph: Avia: the captured mesh step "
+                             f"waited on the card: {aprof['captured']}")
+    avia["profiled"] = aprof
+    log(f"[mesh graph] Avia ImMeshRuntime: {len(arows)} frames (3 warm-up), "
+        f"eager and captured mesh step bit-identical every frame; ms a frame "
+        f"with the mesh eager {avia['eager_mesh']['median']:.2f} median / "
+        f"{avia['eager_mesh']['p90']:.2f} p90, captured "
+        f"{avia['captured']['median']:.2f} / {avia['captured']['p90']:.2f}; "
+        f"the mesh graph's IF nodes {avia['if_nodes']['nodes']}, set "
+        f"launches {avia['set_launches']}, {avia['chunk_runs']} chunk bodies "
+        f"run on the device as the chunks with an active voxel say, "
+        f"{avia['chunks_skipped_a_frame']:.2f} skipped a replayed frame; "
+        f"the graph's nodes {avia['nodes']}; one mesh step under "
+        f"torch.profiler: eager {aprof['eager']}, captured "
+        f"{aprof['captured']}; phase 17 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"kitti": kitti, "avia": avia}
 

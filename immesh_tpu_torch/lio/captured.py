@@ -44,7 +44,7 @@ class CapturedLioStep(CapturedStep):
     per bundle shape and replayed.  Calls return (state, world_scan, diag)
     as fresh tensors; `vm` is updated in place."""
 
-    what = "the plane map"
+    parts = ("the plane map",)
 
     def __init__(self, cfg: ImMeshConfig, ext, device: torch.device):
         super().__init__(device)
@@ -54,7 +54,7 @@ class CapturedLioStep(CapturedStep):
         return self._run((vm,), (state, bundle))
 
     def _pointers(self, vm):
-        return map_pointers(vm)
+        return (map_pointers(vm),)
 
     def _step(self, vm, state, bundle):
         from immesh_tpu_torch.lio.pipeline import lio_step

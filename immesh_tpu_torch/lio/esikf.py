@@ -6,15 +6,19 @@ Information form:
     x ← x ⊞ δ,  and at convergence P⁺ = A⁻¹.
 
 The JAX `while_loop` (its cond and body, immesh_tpu/lio/esikf.py:51-81)
-runs here as `max_iterations` static bodies, each under
-utils/graphs.py::device_if on "not converged yet": in the captured LIO step
-(lio/captured.py) a body is two CUDA-graph IF nodes on that one predicate —
-its normal equations and Cholesky factor, then its step — with the
+runs here as `max_iterations` static bodies.  The first runs
+unconditionally: the loop's first test always holds (`converged` starts
+false, max_iterations ≥ 1).  Each later one is under
+utils/graphs.py::device_if on "not converged yet"
+(kernels/graph_cond.py's "not" form, read from the carry's `converged`):
+in the captured step a body is two CUDA-graph IF nodes that one set launch
+sets — its normal equations and Cholesky factor, then its step — with the
 Cholesky solve between them outside (torch.cholesky_solve makes graph
 memory nodes on the card, which a conditional body may not hold; where the
 body is skipped the solve runs on the last live factor and nothing reads
 it), so the bodies after convergence run nothing else on the card, as the
-while_loop ends; the eager step and the CPU read the test on the host.  The
+while_loop ends; the eager step and the CPU read the test on the host,
+once a body.  The
 loop's carry (the six mean fields, converged, n_effective, the last
 information matrix and the count, and the body's A, b, factor and row
 count) is allocated before the loop and each body writes it in place, the
@@ -36,6 +40,7 @@ import torch
 from immesh_tpu_torch.config import LioConfig, VoxelMapConfig
 from immesh_tpu_torch.core.ops import nan_where_failed
 from immesh_tpu_torch.core.state import STATE_DIM, EsikfState
+from immesh_tpu_torch.kernels import graph_cond
 from immesh_tpu_torch.lio.association import associate
 from immesh_tpu_torch.map.voxel_map import VoxelMap
 from immesh_tpu_torch.utils.graphs import device_if
@@ -133,9 +138,13 @@ def iterated_update(state_prop: EsikfState,
             A_last.copy_(A_cur)
             it.add_(1)
 
-        for _ in range(lio_cfg.max_iterations):
+        for k in range(lio_cfg.max_iterations):
+            if k == 0:  # the while_loop's first test holds: no node
+                normal_equations()
+                step(solve(b_cur, L_cur))
+                continue
             # the while_loop's test; it < max_iterations holds in every body
-            live = ~converged
+            live = graph_cond.negation(converged, uses=2)
             device_if(live, normal_equations, "esikf")
             delta = solve(b_cur, L_cur)
             device_if(live, functools.partial(step, delta), "esikf_step")

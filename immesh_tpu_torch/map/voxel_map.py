@@ -24,7 +24,7 @@ from immesh_tpu_torch.core.geometry import plane_from_moments
 from immesh_tpu_torch.core.ops import (add_drop_group, segment_sum,
                                       set_drop_group)
 from immesh_tpu_torch.device import resolve_device
-from immesh_tpu_torch.kernels import hash_probe
+from immesh_tpu_torch.kernels import graph_cond, hash_probe
 from immesh_tpu_torch.map.hash import (
     EMPTY, HashTable, frame_unique_coords, voxel_coords)
 from immesh_tpu_torch.utils.graphs import device_if
@@ -125,19 +125,23 @@ class VoxelMap:
         max_voxels = max_voxels or self.cfg.touched_voxels_per_scan
         self._update_level(pts_world, point_sigma2, mask, 0, max_voxels)
         m = mask
-        levels = torch.zeros((), dtype=torch.int32, device=mask.device)
+        if self.cfg.max_layers < 2:
+            return torch.zeros((), dtype=torch.int32, device=mask.device)
+        levels = torch.empty((), dtype=torch.int32, device=mask.device)
         for lvl in range(1, self.cfg.max_layers):
             # points whose full parent chain is subdivided feed level lvl
             # (reference cut_octo_tree recursion, voxel_loc.cpp:161-217);
             # the level update runs where the mask has a point, as the
             # reference's lax.cond: an IF node of the captured LIO step
-            # (utils/graphs.py::device_if), which writes the map in place
+            # (utils/graphs.py::device_if), which writes the map in place;
+            # its set launch counts the level into `levels` (set by the
+            # first, added by the others)
             m = self.parent_mask(pts_world, m, lvl)
-            taken = m.any()
-            levels = levels + taken.to(torch.int32)
-            device_if(taken, functools.partial(
-                self._update_level, pts_world, point_sigma2, m, lvl,
-                max_voxels), "level")
+            device_if(graph_cond.any_of(m, levels,
+                                        "set" if lvl == 1 else "add"),
+                      functools.partial(self._update_level, pts_world,
+                                        point_sigma2, m, lvl, max_voxels),
+                      "level")
         return levels
 
     def parent_mask(self, pts_world: torch.Tensor, m: torch.Tensor,

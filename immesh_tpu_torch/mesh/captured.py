@@ -33,10 +33,11 @@ from immesh_tpu_torch.utils.graphs import CapturedStep, tensors
 
 
 def mesh_pointers(gm: GlobalPointMap, store: TriangleStore
-                  ) -> Tuple[int, ...]:
-    """The addresses of every tensor of the point map and the store: a
+                  ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The addresses of every tensor of the point map, and of the store: a
     replay reads and writes them at the addresses it was captured with."""
-    return tuple(t.data_ptr() for t in tensors(gm) + tensors(store))
+    return (tuple(t.data_ptr() for t in tensors(gm)),
+            tuple(t.data_ptr() for t in tensors(store)))
 
 
 class CapturedMeshStep(CapturedStep):
@@ -45,7 +46,7 @@ class CapturedMeshStep(CapturedStep):
     shape and replayed.  Calls return (n_active, slots, smask, diag) as
     fresh tensors; `gm` and `store` are updated in place."""
 
-    what = "the point map or the triangle store"
+    parts = ("the point map", "the triangle store")
 
     def __call__(self, gm: GlobalPointMap, store: TriangleStore,
                  pts_world: torch.Tensor, mask: torch.Tensor,

@@ -32,6 +32,7 @@ from immesh_tpu_torch.config import MeshConfig
 from immesh_tpu_torch.core.ops import div, set_drop_group
 from immesh_tpu_torch.core.so3 import cross
 from immesh_tpu_torch.device import resolve_device
+from immesh_tpu_torch.kernels import graph_cond
 from immesh_tpu_torch.kernels.pairs_argmin import pairs_argmin
 from immesh_tpu_torch.mesh.delaunay import (
     angle_filter, compact_triangles, delaunay_pairs_w, pca_project)
@@ -267,5 +268,7 @@ def triangulate_voxels(gm: GlobalPointMap, slots: torch.Tensor,
 
     for c0 in range(0, A, chunk):
         sl = slice(c0, c0 + chunk)
-        device_if(pmask[sl].any(), functools.partial(body, sl), "chunk")
+        # the set launch reads the chunk's rows of the mask in place
+        device_if(graph_cond.any_of(pmask[sl]), functools.partial(body, sl),
+                  "chunk")
     return ids, counts, dropped

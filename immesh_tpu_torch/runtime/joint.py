@@ -4,11 +4,11 @@ Port of immesh_tpu/runtime/joint.py: lio_step then mesh_step on the same
 frame, with both pipelines' occupancy-triggered compaction after it.  The
 JAX reference donates the four persistent states (filter state, plane voxel
 map, global point map, triangle store) into one jitted program, joint_step;
-here `JointPipeline.step` composes the LioPipeline's and the
-MeshPipeline's steps, the maps and store are updated in place and the
-small filter state is replaced.  On a CUDA device the LIO step and the
-mesh step each run as one captured CUDA graph (lio/captured.py,
-mesh/captured.py), with the compactions between frames.
+here the maps and store are updated in place and the small filter state is
+replaced.  On a CUDA device `JointPipeline.step` replays that program's
+counterpart, the frame as one captured CUDA graph (runtime/captured.py),
+with the compactions between frames; `graph=False`, and the CPU, compose
+the LioPipeline's and the MeshPipeline's steps eagerly.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from immesh_tpu_torch.device import HostCopy, resolve_device
 from immesh_tpu_torch.frontend.types import ScanBundle
 from immesh_tpu_torch.lio.pipeline import LioPipeline
 from immesh_tpu_torch.mesh.pipeline import MeshPipeline
+from immesh_tpu_torch.runtime.captured import CapturedJointStep
 
 
 def _mesh_half(mesh: MeshPipeline, world_scan, bundle, state, diag, cfg):
@@ -33,6 +34,22 @@ def _mesh_half(mesh: MeshPipeline, world_scan, bundle, state, diag, cfg):
     the tests' budget recorders log it here."""
     n_active = mesh.advance(world_scan, bundle.mask, state.pos)
     return dict(diag, n_active_voxels=n_active, **mesh.last_drops)
+
+
+def _frame(pipe: "JointPipeline", bundle, cfg):
+    """JointPipeline.step's frame, before the polls: one replay of the
+    frame graph on the card, else the LIO step then _mesh_half.  Returns
+    (world_scan, diag).  `cfg` is the frame's config, as _mesh_half's."""
+    lio, mesh = pipe.lio, pipe.mesh
+    if pipe.captured is None:
+        world_scan, diag = lio.advance(bundle)
+        return world_scan, _mesh_half(mesh, world_scan, bundle, lio.state,
+                                      diag, cfg)
+    (lio.state, world_scan, diag, n_active, slots, smask,
+     mesh.last_drops) = pipe.captured(lio.state, lio.vm, mesh.gm, mesh.store,
+                                      bundle)
+    mesh.last_active = (slots, smask)
+    return world_scan, dict(diag, n_active_voxels=n_active, **mesh.last_drops)
 
 
 class JointPipeline:
@@ -49,22 +66,28 @@ class JointPipeline:
     from the point map's own config (gm.cfg), not from the config the frame
     is given.
 
-    A step is the reference joint_step's composition: the LioPipeline's
-    step without its compaction trigger (LioPipeline.advance), then the
-    MeshPipeline's (_mesh_half).  On a CUDA device each is its captured
-    graph; neither reads a mesh budget from the frame's config, so one
-    graph of each serves both budgets.  `graph=False`, and the CPU, run
-    both eagerly."""
+    A step is the reference joint_step's composition.  On a CUDA device it
+    is one replay of the frame graph (runtime/captured.py), which neither
+    the inner LioPipeline nor the MeshPipeline captures a graph of their
+    own for; neither step reads a mesh budget from the frame's config, so
+    one graph serves both budgets.  `graph=False`, and the CPU, run the
+    LioPipeline's step without its compaction trigger
+    (LioPipeline.advance), then the MeshPipeline's (_mesh_half): eagerly,
+    or, where a caller replaced `lio` or `mesh` with a pipeline of its own
+    before the first step, as that pipeline runs it (a captured LioPipeline
+    and MeshPipeline chain the two graphs of one).  `_frame` is the hook
+    the budget recorders wrap."""
 
     def __init__(self, cfg: ImMeshConfig, adaptive_mesh_budget: int = 0,
                  adaptive_threshold: int = 0, device="cuda",
                  graph: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.lio = LioPipeline(cfg, device=self.device,  # state + voxel map
-                               graph=graph)
-        self.mesh = MeshPipeline(cfg, device=self.device,  # point map + store
-                                 graph=graph)
+        # state + voxel map, and point map + store
+        self.lio = LioPipeline(cfg, device=self.device, graph=False)
+        self.mesh = MeshPipeline(cfg, device=self.device, graph=False)
+        self.captured = (CapturedJointStep(cfg, self.lio.ext, self.device)
+                         if graph and self.device.type == "cuda" else None)
         self.frame_idx = 0
         self._cfg_hi = None
         if adaptive_mesh_budget > cfg.mesh.active_voxels_per_frame:
@@ -89,9 +112,7 @@ class JointPipeline:
         if self._cfg_hi is not None and len(self._backlog_q) >= 2 \
                 and self._backlog_q[0].value() > self.adaptive_threshold:
             cfg = self._cfg_hi
-        world_scan, diag = self.lio.advance(bundle)
-        diag = _mesh_half(self.mesh, world_scan, bundle, self.lio.state, diag,
-                          cfg)
+        world_scan, diag = _frame(self, bundle, cfg)
         if self._cfg_hi is not None:
             self._backlog_q = (self._backlog_q
                                + [HostCopy(diag["drop_deferred"])])[-2:]

@@ -29,14 +29,21 @@ cudaGraph_t, so its nodes can be counted by type (Graph.nodes).
 
 Device-side exits (`device_if`).  Where the reference skips work on the
 device (the ESIKF while_loop, an empty refinement level's or mesh chunk's
-lax.cond), the step calls device_if(pred, body):
+lax.cond), the step calls device_if(pred, body), `pred` a
+kernels/graph_cond.py Pred (the site's predicate: its form and the tensors
+it reads) or a one-element bool tensor:
 
   * under capture on the card the body is captured into the body graph of
-    an IF node (kernels/graph_cond.py): a one-thread kernel, launched on
-    the capture stream just before the node, sets the node from the
-    predicate at every replay, and a skipped body runs nothing;
+    an IF node: the set kernel, launched on the capture stream before the
+    predicate's first node, makes the predicate from its tensors and sets
+    every node on it (`pred.uses` of them: the ESIKF body's two) at every
+    replay, and a skipped body runs nothing;
   * outside capture (graph=False, the warm-up frame, the CPU) it is the
-    reference's semantics read on the host: `if bool(pred): body()`.
+    reference's semantics read on the host, once a predicate:
+    `if pred.value(): body()`.
+
+A site whose predicate is fixed (the ESIKF's first body: the while_loop's
+first test always holds) calls its body directly, with no node.
 
 A body writes its results only in place, into tensors allocated before the
 node (the carry): a tensor the body creates holds the previous replay's
@@ -145,6 +152,7 @@ class Body:
     """The body of one IF node of a captured graph (device_if)."""
     what: str                   # the site, as device_if was told
     slot: int                   # its taken counter (kernels/graph_cond.py)
+    launch: int                 # the slot of its set launch's first node
     graph: int                  # the body's cudaGraph_t
     captured: Dict[str, int]    # kernel launches recorded into the body
 
@@ -158,7 +166,7 @@ class Graph:
     graph: torch.cuda.CUDAGraph  # kept (keep_graph=True), instantiated
     inputs: tuple               # the static inputs the graph reads
     out: Any                    # what the step returned: graph-owned
-    ptrs: Tuple[int, ...]       # the persistent tensors' addresses
+    ptrs: tuple                 # each persistent part's tensors' addresses
     captured: Dict[str, int]    # kernel launches recorded outside the bodies
     bodies: List[Body] = dataclasses.field(default_factory=list)
     pool: Any = None            # the bodies' memory pool, kept with the graph
@@ -187,22 +195,28 @@ class _Step:
 _running: List[_Step] = []
 
 
-def device_if(pred: torch.Tensor, body: Callable[[], Any],
-              what: str = "body") -> None:
-    """Run body() where the one-element bool `pred` holds, as the
-    reference's lax.cond / while_loop test does on the device (the module's
-    docstring).  Under a CapturedStep's capture: an IF node whose body graph
-    holds body()'s launches.  Otherwise `if bool(pred): body()`, on the
-    step's body stream during its warm-up frame.  body() returns nothing
-    that is used: it writes its results in place."""
+def device_if(pred, body: Callable[[], Any], what: str = "body") -> None:
+    """Run body() where `pred` (a graph_cond.Pred, or a one-element bool
+    tensor) holds, as the reference's lax.cond / while_loop test does on
+    the device (the module's docstring).  Under a CapturedStep's capture:
+    an IF node whose body graph holds body()'s launches, set by the
+    predicate's one set launch.  Otherwise the predicate read on the host
+    once (graph_cond.taken_plain) and kept for its other uses, and
+    `if taken: body()`, on the step's body stream during its warm-up
+    frame.  body() returns nothing that is used: it writes its results in
+    place."""
+    pred = graph_cond.as_pred(pred)
+    dev = pred.x.device
     step = _running[-1] if _running else None
-    if pred.device.type != "cuda" or step is None or not step.capturing:
-        if not graph_cond.taken_plain(pred):
+    if dev.type != "cuda" or step is None or not step.capturing:
+        if not pred.pending:
+            pred.pending = [graph_cond.taken_plain(pred)] * pred.uses
+        if not pred.pending.pop():
             return
-        if pred.device.type != "cuda" or step is None:
+        if dev.type != "cuda" or step is None:
             body()
             return
-        cur = torch.cuda.current_stream(pred.device)
+        cur = torch.cuda.current_stream(dev)
         step.body_stream.wait_stream(cur)
         with torch.cuda.stream(step.body_stream):
             body()
@@ -210,8 +224,12 @@ def device_if(pred: torch.Tensor, body: Callable[[], Any],
         return
     if step.in_body:
         raise RuntimeError("device_if inside a conditional body")
-    slot = graph_cond.next_slot()
-    body_graph = graph_cond.if_begin(pred, slot, step.body_stream)
+    if not pred.pending:
+        first = graph_cond.next_slots(pred.uses)
+        pred.pending = [(first + i, h, first) for i, h in enumerate(
+            graph_cond.set_launch(pred, first))][::-1]
+    slot, handle, launch = pred.pending.pop()
+    body_graph = graph_cond.if_begin(handle, dev, step.body_stream)
     before = captured_launches()
     step.in_body = True
     try:
@@ -227,24 +245,27 @@ def device_if(pred: torch.Tensor, body: Callable[[], Any],
     step.in_body = False
     graph_cond.if_end(step.body_stream, body_graph)
     after = captured_launches()
-    step.bodies.append(Body(what, slot, body_graph,
+    step.bodies.append(Body(what, slot, launch, body_graph,
                             {k: n - before.get(k, 0)
                              for k, n in after.items()}))
 
 
 class CapturedStep:
     """A step, `_step(*persistent, *inputs)`, captured once per input shape
-    and replayed.  A subclass gives
-    `_step` and `_pointers(*persistent)`, the addresses of every tensor the
-    step updates in place; `what` names them in the error a moved tensor
-    raises."""
+    and replayed.  A subclass gives `_step` and `_pointers(*persistent)`:
+    for each part of the persistent state, the addresses of every tensor
+    of it the step updates in place; `parts` names them, in that order, in
+    the error a moved tensor raises."""
 
-    what = "the persistent state"
+    parts: Tuple[str, ...] = ("the persistent state",)
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.Stream(device)
         self.body_stream = torch.cuda.Stream(device)  # device_if's bodies
         self._graphs = {}   # key → Graph, or None once warmed up
+        # where a caller sets a list: a (start, end) CUDA event pair
+        # recorded around each replay, appended (the graph's device span)
+        self.replay_events = None
 
     @property
     def graphs(self) -> List[Graph]:
@@ -323,12 +344,21 @@ class CapturedStep:
                      outer, step.bodies, pool)
 
     def _replay(self, g: Graph, persistent, inputs):
-        if self._pointers(*persistent) != g.ptrs:
+        ptrs = self._pointers(*persistent)
+        if ptrs != g.ptrs:
+            moved = [n for n, a, b in zip(self.parts, ptrs, g.ptrs) if a != b]
             raise RuntimeError(
-                f"a tensor of {self.what} moved since the step was "
+                f"a tensor of {' and '.join(moved)} moved since the step was "
                 f"captured; it must be updated in place")
         for s, x in zip(tensors(g.inputs), tensors(inputs)):
             s.copy_(x)
-        g.graph.replay()
+        if self.replay_events is None:
+            g.graph.replay()
+        else:
+            span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            span[0].record()
+            g.graph.replay()
+            span[1].record()
+            self.replay_events.append(tuple(span))
         g.replays += 1
         return clone_tree(g.out)

@@ -33,12 +33,14 @@ body (the carry) before and after each call.  Then:
     that ran wrote some; the poisoning changes no result above.
 
 The `cuda` test (skips here) captures a step of IF nodes and the KITTI-
-shaped LIO and mesh steps on the card: the set kernel against its plain
-version (the host read) on true and false predicates, the graphs' IF
-nodes (two a body in max_iterations ESIKF bodies, one a level in
-max_layers − 1, in the LIO graph; one a chunk in the mesh graph), no body holding a mem_alloc, mem_free or event node, captured
-equal to eager bit for bit, and every kernel's device runs equal to the
-outer launches × replays plus each body's launches × the runs of its body.
+shaped frame (LIO and mesh steps in one graph) on the card: the set kernel
+against its plain version (the host read) on true and false predicates,
+the graph's IF nodes (two a body in the max_iterations − 1 ESIKF bodies
+after the first, which runs with no node, set by one launch; one a level
+in max_layers − 1; one a chunk), no body holding a mem_alloc, mem_free or
+event node, captured equal to eager bit for bit, and every kernel's device
+runs equal to the outer launches × replays plus each body's launches × the
+runs of its body.
 The reference is imported inside fixtures, so on the GPU machine (no JAX)
 
     python -m pytest --noconftest -m cuda tests/test_torch_conditional.py
@@ -174,11 +176,13 @@ def spy(monkeypatch):
     return log
 
 
-def _check_carry(log, site: str) -> None:
+def _check_carry(log, site: str, first_logged: bool = True) -> None:
     """A body skipped after one that ran left its carry unchanged; a body
-    that ran changed it."""
+    that ran changed it.  The first body that ran is the site's first
+    logged call, or (`first_logged` False: the ESIKF's first body, which
+    runs with no device_if) none of them."""
     calls = [(taken, same) for what, taken, same in log if what == site]
-    assert calls and calls[0][0], calls
+    assert calls and (calls[0][0] or not first_logged), calls
     for k, (taken, same) in enumerate(calls):
         assert same != taken, (site, k, calls)
 
@@ -280,12 +284,13 @@ def test_early_exit_esikf_matches_the_reference_while_loop(
     jc = np.asarray(js.cov)
     np.testing.assert_allclose(jc, ts.cov.numpy(), rtol=0,
                                atol=1e-3 * np.abs(jc).max())
-    # each body is two IF nodes on one predicate: its normal equations,
-    # then (after the solve) its step
+    # the first body runs unconditionally (the while_loop's first test
+    # holds); each later one is two IF nodes on one predicate: its normal
+    # equations, then (after the solve) its step
     for site in ("esikf", "esikf_step"):
         assert [taken for what, taken, _ in spy if what == site] == [
-            k < iterations for k in range(4)]
-        _check_carry(spy, site)
+            k < iterations for k in range(1, 4)]
+        _check_carry(spy, site, first_logged=False)
 
     # bit for bit the masked form (every body runs, the dead ones masked)
     ms, mdiag = tesikf.iterated_update(
@@ -505,48 +510,42 @@ def test_if_nodes_on_the_card():
             *zip(("slots", "smask"), e.mesh.last_active,
                  c.mesh.last_active)]) == []
         if k > 0:  # frame 0 is the eager warm-up
-            out = c.lio.captured.graphs[0].out[2]
-            iterations += int(out["iterations"])
-            levels += int(out["levels"])
+            # the first ESIKF body runs with no IF node
+            iterations += int(dc["iterations"]) - 1
+            levels += int(dc["levels"])
             smask = c.mesh.last_active[1]
             chunks += sum(bool(smask[i:i + cfg.mesh.mesh_chunk].any())
                           for i in range(0, smask.numel(),
                                          cfg.mesh.mesh_chunk))
-    (lg,) = pipes[1].lio.captured.graphs
-    (mg,) = pipes[1].mesh.captured.graphs
+    (fg,) = pipes[1].captured.graphs  # the frame: LIO and mesh in one
     sites = {}
-    for gr in (lg, mg):
-        for bd in gr.bodies:
-            sites[bd.what] = sites.get(bd.what, 0) + 1
-            kinds = bd.nodes()
-            assert not {"mem_alloc", "mem_free", "event_record",
-                        "wait_event"} & set(kinds), kinds
-    assert sites == {"esikf": cfg.lio.max_iterations,
-                     "esikf_step": cfg.lio.max_iterations,
+    for bd in fg.bodies:
+        sites[bd.what] = sites.get(bd.what, 0) + 1
+        kinds = bd.nodes()
+        assert not {"mem_alloc", "mem_free", "event_record",
+                    "wait_event"} & set(kinds), kinds
+    assert sites == {"esikf": cfg.lio.max_iterations - 1,
+                     "esikf_step": cfg.lio.max_iterations - 1,
                      "level": cfg.voxel_map.max_layers - 1,
                      "chunk": -(-cfg.mesh.active_voxels_per_frame
                                 // cfg.mesh.mesh_chunk)}
-    assert lg.nodes()["conditional"] == sum(
-        sites[s] for s in ("esikf", "esikf_step", "level"))
+    assert fg.nodes()["conditional"] == sum(sites.values())
+    # one set launch a predicate: an ESIKF body's two nodes share one
+    assert fg.captured["graph_cond"] == sum(sites.values()) - sites["esikf"]
     # the bodies that ran, by the set kernel's own counters and by diag
     ran = {}
-    for gr in (lg, mg):
-        for bd, t in zip(gr.bodies, graph_cond.taken(
-                [bd.slot for bd in gr.bodies])):
-            ran[bd.what] = ran.get(bd.what, 0) + t
+    for bd, t in zip(fg.bodies, graph_cond.taken(
+            [bd.slot for bd in fg.bodies])):
+        ran[bd.what] = ran.get(bd.what, 0) + t
     assert ran == {"esikf": iterations, "esikf_step": iterations,
                    "level": levels, "chunk": chunks}
     launches = {**hp.launches, "scatter_drop": sd.launches,
                 "pairs_argmin": pk.launches}
     runs = {**hp.runs(), "scatter_drop": sd.runs(),
             "pairs_argmin": pk.runs()}
+    taken = graph_cond.taken([bd.slot for bd in fg.bodies])
     for k in runs:
-        want = launches[k] + sum(
-            gr.replays * gr.captured.get(k, 0)
-            + sum(t * bd.captured.get(k, 0) for bd, t in zip(
-                gr.bodies, graph_cond.taken([bd.slot
-                                             for bd in gr.bodies])))
-            for gr in (lg, mg))
+        want = launches[k] + fg.replays * fg.captured.get(k, 0) + sum(
+            t * bd.captured.get(k, 0) for bd, t in zip(fg.bodies, taken))
         assert runs[k] == want, k
-    assert graph_cond.runs() == sum(gr.replays * len(gr.bodies)
-                                    for gr in (lg, mg))
+    assert graph_cond.runs() == fg.replays * fg.captured["graph_cond"]

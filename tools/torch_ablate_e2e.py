@@ -12,9 +12,10 @@ one JSON line per variant: ms per frame and ms of its mesh step (median and
 p90 over the timed frames), pairs_argmin launches per frame, live
 triangles and map points at the end.  The mesh step's time leaves the LIO
 step's jitter out of the difference between two cuts.  The LIO step runs as
-the pipeline runs it on the card (one captured CUDA graph); the mesh step
-runs eagerly (a MeshPipeline with graph=False), so the host timer around it
-splits it from the frame.  Chaining the
+a LioPipeline runs it on the card (one captured CUDA graph); the mesh step
+runs eagerly (a JointPipeline with graph=False composes that LioPipeline
+and its own eager MeshPipeline), so the host timer around it splits it
+from the frame.  Chaining the
 MeshConfig.ablate cuts (app_cell0 … app_active0, skip_tri … sort30) gives
 each stage of the mesh step its cost as the difference between two lines.
 `--device cuda` (the default) raises without a card.
@@ -109,8 +110,8 @@ def run_variant(name, kv, frames, warmup, device="cuda", scans=None):
     if lio_only:
         pipe = LioPipeline(cfg, device=dev)
     else:
-        pipe = joint.JointPipeline(cfg, device=dev)
-        pipe.mesh = mesh_pipeline.MeshPipeline(cfg, device=dev, graph=False)
+        pipe = joint.JointPipeline(cfg, device=dev, graph=False)
+        pipe.lio = LioPipeline(cfg, device=dev)  # captured on the card
     synchronize(dev)
     per_frame = []
     mesh_pipeline.mesh_step = timed_mesh_step

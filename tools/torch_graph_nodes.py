@@ -1,6 +1,6 @@
 """Which ops of the ESIKF body add graph memory nodes under CUDA-graph
-capture, and whether torch.cholesky_solve and two triangular solves give
-the same bits.
+capture, how many nodes the IF sites' torch predicates make, and whether
+torch.cholesky_solve and two triangular solves give the same bits.
 
     python3 tools/torch_graph_nodes.py [--device cuda|cpu] [--systems N]
 
@@ -10,7 +10,11 @@ its IF nodes.  On the card each op of the body's solve (cholesky_ex,
 cholesky_solve, two solve_triangular, inv_ex, the (N, 6) product, an 18×18
 matrix-vector product, a norm) runs once eagerly on a fresh stream and is
 then captured alone with torch.cuda.graph on it, twice; the captured
-graphs' nodes are printed by type (utils/graphs.py::graph_nodes).  Then, on
+graphs' nodes are printed by type (utils/graphs.py::graph_nodes).  So is
+each IF site's predicate as torch made it before the set kernel made it
+itself (the `site_` rows): the ESIKF's `~converged`, a refinement level's
+`levels + m.any().to(int32)` over 8,192 points, a KITTI chunk's
+`pmask[sl].any()` over 512 rows of 48.  Then, on
 --device, N random SPD 18×18 systems of the ESIKF's scale are solved both
 ways and the count whose solutions differ in bits is printed.  On the card
 it prints the card's name and power limit first; the last line is one JSON
@@ -52,6 +56,14 @@ def capture_nodes(dev) -> dict:
            "mm_8192x6": lambda: h6.T @ h6,
            "mv_18": lambda: A @ b[:, 0],
            "norm": lambda: torch.linalg.norm(b)}
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    m = torch.zeros(8192, dtype=torch.bool, device=dev)
+    levels = torch.zeros((), dtype=torch.int32, device=dev)
+    pmask = torch.zeros(1024, 48, dtype=torch.bool, device=dev)
+    ops.update({
+        "site_esikf_live": lambda: ~conv,
+        "site_level_taken_count": lambda: levels + m.any().to(torch.int32),
+        "site_chunk_any": lambda: pmask[512:1024].any()})
     out = {}
     for name, fn in ops.items():
         out[name] = []

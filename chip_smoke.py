@@ -39,14 +39,23 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 maps of the KITTI shape at 10 % and 90 % load and mesh
                 voxel tables (max_probe exhaustion, NaN, ±inf and
                 out-of-range points, reference behaviours 2 and 4 planted
-                and checked); an insert of more lanes than the card holds
-                threads (the grid form's grid-stride path); 0 host syncs a
-                call under torch.profiler; the LIO's costliest insert and
-                its planes and parent calls timed (device time, one wrapper
-                call, the plain version; for a form also the composition
-                it replaced as one captured graph, with its kernel nodes)
-                beside a bound of the distinct bytes the call must move
-                over the memory rate;
+                and checked); the coords form (no path calls it) on the
+                keys the reference's HashTable.lookup probes at the LIO's
+                costliest planes and parent calls and at the random calls,
+                also at max_probe 0 and 1, from a misaligned row view, for
+                n = 1 and replayed in a captured graph (check_coords); an
+                insert of more lanes than the card holds threads (the grid
+                form's grid-stride path, and a lookup of its keys); 0 host
+                syncs a call under torch.profiler; the LIO's costliest
+                insert, its planes and parent calls and the coords form on
+                their keys timed (device time, one wrapper call, the plain
+                version; for a form also the composition it replaced as one
+                captured graph, with its kernel nodes; for the coords form
+                one launch captured alone and a launch in a captured chain
+                of COORDS_CHAIN, with the chain's edges: a programmatic
+                edge is its programmatic dependent launch kept by the
+                capture) beside a bound of the distinct bytes the call must
+                move over the memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
                 for warm-up plus N timed frames, the frame (its LIO step,
@@ -78,7 +87,8 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 inserts) and of its last frame, recorded during phase 4,
                 replayed as in 3b; the last frame's costliest insert and
                 neighbours call timed for the `kernels` line (the latter
-                beside the composition it replaced), its costliest insert
+                beside the composition it replaced, and the coords form on
+                its keys, checked and timed as in 3b), its costliest insert
                 of every other
                 lane count (the LIO's 1,024, the mesh dedup's 10,000, the
                 voxel insert) and each compacting frame's costliest insert
@@ -263,8 +273,11 @@ pairs_argmin, the hash and scatter kernels and the set kernel "launches"
 by the wrapper — for the set kernel, which runs only in graphs, those it
 recorded — and "device_runs" by the kernel's device counter, on the main
 path and on each other path; for the lookup forms also the composition
-each replaced, its time as one captured graph and its kernel nodes); the
-last line is {"ok": true, "device": {...}}.
+each replaced, its time as one captured graph and its kernel nodes; for
+the coords form, which no path calls (OFF_PATH: 0 launches and runs on
+every path, or the path fails), one timing per key set: the LIO's planes
+and parent keys and the mesh's neighbour keys); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -448,6 +461,13 @@ LIO_KERNELS = ("hash_lookup_planes", "hash_lookup_parent", "hash_insert",
 # captured graphs, so path_counts checks it on every path that captures
 COND_KERNEL = "graph_cond"
 COUNTED = PATH_KERNELS + (COND_KERNEL,)
+# kernels that no path may launch, counted wherever path_now reads the
+# counts all the same: the lookup's coords form, whose callers all moved to
+# the three forms (path_counts fails if one ran)
+OFF_PATH = ("hash_lookup",)
+# the coords-form launches captured into one graph to read its edges and
+# time a launch inside a replayed chain (coords_graph)
+COORDS_CHAIN = 50
 # the lookup forms (kernels/hash_probe.py), by the kernel's name
 LOOKUP_FORMS = {"hash_lookup_planes": "planes",
                 "hash_lookup_parent": "parent",
@@ -891,11 +911,11 @@ def launch_counts() -> dict:
 
 
 def path_now() -> dict:
-    """The COUNTED kernels' counts since reset_counts(): "launches" by
-    their wrappers (launch_counts), "recorded" the launches they recorded
-    into CUDA graphs (kernels/build.py::captured_launches) and "runs" on
-    the device, eager and replayed in CUDA graphs, from the kernels' own
-    device counters (synchronises)."""
+    """The COUNTED and OFF_PATH kernels' counts since reset_counts():
+    "launches" by their wrappers (launch_counts), "recorded" the launches
+    they recorded into CUDA graphs (kernels/build.py::captured_launches)
+    and "runs" on the device, eager and replayed in CUDA graphs, from the
+    kernels' own device counters (synchronises)."""
     from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
@@ -904,8 +924,9 @@ def path_now() -> dict:
     launches, recorded = launch_counts(), captured_launches()
     runs = {"pairs_argmin": pk.runs(), **hp.runs(),
             "scatter_drop": sd.runs(), COND_KERNEL: gc.runs()}
-    return {part: {k: n[k] for k in COUNTED} for part, n in (
-        ("launches", launches), ("recorded", recorded), ("runs", runs))}
+    return {part: {k: n[k] for k in COUNTED + OFF_PATH}
+            for part, n in (("launches", launches), ("recorded", recorded),
+                            ("runs", runs))}
 
 
 def body_runs(graphs) -> list:
@@ -1006,12 +1027,19 @@ def path_counts(path: str, counts=None, graphs=None,
     into it outside its IF nodes and each IF node's body runs (the set
     kernel's taken counts) times the launches recorded into that body.
     The set kernel is recorded, never launched eagerly: its wrapper's count
-    is what it recorded, and its runs are the replays times its nodes."""
-    n = path_now() if counts is None else counts
+    is what it recorded, and its runs are the replays times its nodes.
+    The OFF_PATH kernels are kept too where the counts hold them (path_now's
+    do), and must be 0."""
+    src = path_now() if counts is None else counts
     if graphs:
         kernels = (*kernels, COND_KERNEL)
-    n = {part: {k: n[part].get(k, 0) for k in kernels}
-         for part in ("launches", "recorded", "runs") if part in n}
+    n = {part: {k: src[part].get(k, 0) for k in kernels}
+         for part in ("launches", "recorded", "runs") if part in src}
+    off = {part: {k: src[part][k] for k in OFF_PATH if k in src[part]}
+           for part in n}
+    if any(v for c in off.values() for v in c.values()):
+        raise AssertionError(f"{path}: a kernel that no path calls was "
+                             f"launched or ran there: {off}")
     bodies = body_runs(graphs) if graphs else []
     for k in kernels:
         launched, ran = n["launches"][k], n["runs"][k]
@@ -1025,6 +1053,7 @@ def path_counts(path: str, counts=None, graphs=None,
                 f"{path}: {k} launched {by_wrapper} times by its wrapper "
                 f"and run {ran} times on the device (the launches, the "
                 f"graphs' replays and their bodies' runs: {want})")
+    n = {part: {**c, **off[part]} for part, c in n.items()}
     old = PATH_COUNTS.get(path, {})
     PATH_COUNTS[path] = {part: {k: old.get(part, {}).get(k, 0) + v
                                 for k, v in c.items()}
@@ -1523,6 +1552,8 @@ def random_forms(dev) -> dict:
             exhausted += int(((hp.lookup_plain(keys, vm.table.fp, mp) < 0)
                               & (hp.lookup_plain(keys, vm.table.fp, 32)
                                  >= 0)).sum())
+            check_coords(keys, vm.table.fp, mp,
+                         f"random coords at {load:.0%} load", full=mp == 32)
         load_now = float((vm.table.fp != 0).float().mean())
         notes.append(f"{cfg.capacity} slots at {100 * load_now:.1f} % "
                      f"load: {exhausted} planes keys exhausted at max_probe "
@@ -1542,18 +1573,23 @@ def random_forms(dev) -> dict:
         slots = torch.randint(-mcap, mcap, (4096,), generator=g, device=dev,
                               dtype=torch.int32)
         for mp in (32, 4, 1):
-            check_form(FormCall("neighbors", dict(
-                slots=slots, keys=table.keys, fp=table.fp, max_probe=mp)),
-                f"random neighbours at {load:.0%} load")
+            c = FormCall("neighbors", dict(
+                slots=slots, keys=table.keys, fp=table.fp, max_probe=mp))
+            check_form(c, f"random neighbours at {load:.0%} load")
+            check_coords(*coords_call(c), f"random neighbour keys at "
+                         f"{load:.0%} load", full=mp == 32)
     log(f"[hash] random lookup-form calls: planes (near and not) and parent "
         f"(each level) on plane maps of the KITTI point's shape, "
         + "; ".join(notes) + f", neighbours on {mcap}-slot voxel tables "
         f"at 10 % and 90 %, max_probe 32, 4 and 1, NaN, ±inf and "
-        f"out-of-range points: each kernel bit-identical to its plain "
+        f"out-of-range points, and the coords form on the keys of the "
+        f"planes (near) and neighbours calls (check_coords: also at "
+        f"max_probe 0, misaligned, n = 1 and replayed in a graph at "
+        f"max_probe 32): each kernel bit-identical to its plain "
         f"version; reference behaviour 2 (a planted fingerprint collision "
         f"aliases the lookup) and 4 (an absent own voxel, a present near "
         f"one) hold; {time.perf_counter() - t0:.1f} s")
-    return dict.fromkeys(LOOKUP_FORMS, 0)
+    return dict.fromkeys(("hash_lookup", *LOOKUP_FORMS), 0)
 
 
 def form_bound_ms(c: FormCall) -> tuple:
@@ -1585,11 +1621,10 @@ def form_bound_ms(c: FormCall) -> tuple:
     return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes", rounds
 
 
-def captured_ms(fn, dev) -> tuple:
-    """fn() captured once into a CUDA graph (after a warm-up on the capture
-    stream): the graph's replay in device ms (device_ms) and its nodes by
-    type (utils/graphs.py::graph_nodes)."""
-    from immesh_tpu_torch.utils.graphs import graph_nodes
+def capture(fn, dev) -> tuple:
+    """fn() captured once into a CUDA graph (keep_graph=True, instantiated)
+    after a warm-up on the capture stream: the graph and what the captured
+    call returned, which each replay writes again."""
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(stream):
@@ -1597,8 +1632,17 @@ def captured_ms(fn, dev) -> tuple:
     torch.cuda.current_stream(dev).wait_stream(stream)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=stream):
-        fn()
+        out = fn()
     graph.instantiate()
+    return graph, out
+
+
+def captured_ms(fn, dev) -> tuple:
+    """fn() captured once into a CUDA graph (capture): the graph's replay
+    in device ms (device_ms) and its nodes by type
+    (utils/graphs.py::graph_nodes)."""
+    from immesh_tpu_torch.utils.graphs import graph_nodes
+    graph, _ = capture(fn, dev)
     return device_ms(graph.replay), graph_nodes(graph)
 
 
@@ -1660,6 +1704,135 @@ def time_form(lib, c: FormCall, what: str) -> dict:
             "slots": c.fp.shape[0], "old_composition_ms": old_ms,
             "old_composition_kernel_nodes": old_nodes["kernel"],
             "graph_ms": new_ms, "graph_kernel_nodes": new_nodes["kernel"],
+            "syncs_per_call": counts["syncs"],
+            "profiled_launches_per_call": counts["launches"]}
+
+
+def coords_call(c: FormCall) -> tuple:
+    """(keys, fp, max_probe) of the coords lookup that a form call's plain
+    version makes: the reference's HashTable.lookup at that call."""
+    keys, _ = c.keys()
+    return keys, c.fp, c.args["max_probe"]
+
+
+def check_coords(keys, fp, max_probe: int, what: str,
+                 full: bool = True) -> None:
+    """The coords form (lookup_cuda) against lookup_plain bit for bit on one
+    key set at `max_probe`; where `full`, also at max_probe 0 and 1, from a
+    misaligned row view (the rows copied into a flat buffer from its second
+    element), for the first key alone (n = 1) and as a captured CUDA
+    graph's second replay."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    cases = [(f"max_probe {max_probe}", keys, max_probe)]
+    if full:
+        flat = torch.empty(4 * keys.shape[0] + 1, dtype=torch.int32,
+                           device=keys.device)
+        odd = flat[1:].view(-1, 4)
+        odd.copy_(keys)
+        cases += [("max_probe 0", keys, 0), ("max_probe 1", keys, 1),
+                  ("a misaligned view", odd, max_probe),
+                  ("n = 1", keys[:1], max_probe)]
+    for label, k, mp in cases:
+        if not same_bits(hp.lookup_cuda(k, fp, mp),
+                         hp.lookup_plain(k, fp, mp)):
+            raise AssertionError(f"{what}: hash_lookup and its plain version "
+                                 f"differ ({label}, {k.shape[0]} keys into "
+                                 f"{fp.shape[0]} slots)")
+    if full:
+        graph, out = capture(lambda: hp.lookup_cuda(keys, fp, max_probe),
+                             keys.device)
+        out.fill_(-7)
+        graph.replay()
+        graph.replay()
+        if not same_bits(out, hp.lookup_plain(keys, fp, max_probe)):
+            raise AssertionError(f"{what}: hash_lookup replayed in a CUDA "
+                                 f"graph differs from its plain version")
+
+
+def chain_graph(chain, n_launches: int, outs, want, dev) -> tuple:
+    """chain(), whose coords lookups each write one of outs, captured as
+    one CUDA graph (capture): the graph, which a replay must leave with
+    every out bit for bit `want`, and the device time of one of its
+    n_launches inside the replayed chain."""
+    graph, _ = capture(chain, dev)
+    for o in outs:
+        o.fill_(-7)
+    graph.replay()
+    if not all(same_bits(o, want) for o in outs):
+        raise AssertionError("a replayed chain of coords lookups differs "
+                             "from the plain version")
+    return graph, device_ms(graph.replay, n=10) / n_launches
+
+
+def coords_graph(lib, keys, fp, max_probe: int) -> dict:
+    """COORDS_CHAIN coords-form launches back to back captured as one CUDA
+    graph (chain_graph): its dependency edges by kind
+    (utils/graphs.py::graph_edges; a programmatic edge is the launch's
+    programmatic dependency, kept by the capture), its kernel nodes and
+    the device time of a launch inside the replayed chain."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.utils.graphs import graph_edges, graph_nodes
+    outs = [torch.empty(keys.shape[0], dtype=torch.int32,
+                        device=keys.device) for _ in range(COORDS_CHAIN)]
+    graph, ms = chain_graph(
+        lambda: [hp._launch_lookup(lib, keys, fp, max_probe, o)
+                 for o in outs], COORDS_CHAIN, outs,
+        hp.lookup_plain(keys, fp, max_probe), keys.device)
+    return {"edges": graph_edges(graph),
+            "kernel_nodes": graph_nodes(graph)["kernel"],
+            "chain_graph_ms": ms}
+
+
+def coords_bound_ms(keys, slots, fp, max_probe: int) -> tuple:
+    """Least time of a coords lookup for this data, by bytes over the memory
+    rate: 16 B a key read and 4 B a slot written once, and each distinct
+    32-byte sector of fp that its probe rounds read.  Returns (ms, "bytes",
+    rounds)."""
+    cap = fp.shape[0]
+    rounds = probe_rounds(keys, slots, cap, max_probe, fp=fp)
+    nbytes = 20 * keys.shape[0] + 32 * sectors(
+        probe_slots(keys, rounds, cap), 4)
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes", rounds
+
+
+def time_coords(lib, keys, fp, max_probe: int, what: str) -> dict:
+    """Time the coords form on one key set: the device time of a launch in a
+    chain of 50 back to back (device_ms; each a programmatic dependent of
+    the one before), the launch captured alone as a graph and replayed
+    (captured_ms), a launch inside a captured chain (coords_graph), one
+    wrapper call, the plain version, its bound, and the host calls of one
+    wrapper call under torch.profiler (no sync)."""
+    from immesh_tpu_torch.kernels import hash_probe as hp
+    from immesh_tpu_torch.utils.timers import profile_counts
+    dev, n = keys.device, keys.shape[0]
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    _, counts = profile_counts(lambda: hp.lookup_cuda(keys, fp, max_probe))
+    ms = device_ms(lambda: hp._launch_lookup(lib, keys, fp, max_probe, slot))
+    graph_ms, _ = captured_ms(lambda: hp.lookup_cuda(keys, fp, max_probe),
+                              dev)
+    chain = coords_graph(lib, keys, fp, max_probe)
+    wrapper_ms = event_ms(lambda: hp.lookup_cuda(keys, fp, max_probe), 50)
+    plain_ms = event_ms(lambda: hp.lookup_plain(keys, fp, max_probe), 5)
+    bound_ms, bound_by, rounds = coords_bound_ms(
+        keys, hp.lookup_plain(keys, fp, max_probe), fp, max_probe)
+    log(f"[hash] {what}: hash_lookup (coords) at ({n}, 4) into "
+        f"{fp.shape[0]} slots, max_probe {max_probe}: kernel "
+        f"{1e3 * ms:.2f} us (device time, median of 5 x 50 launches), "
+        f"one launch as a captured graph {1e3 * graph_ms:.2f} us a replay, "
+        f"a launch in a captured chain of {COORDS_CHAIN} "
+        f"{1e3 * chain['chain_graph_ms']:.2f} us (the chain's edges "
+        f"{chain['edges']}), wrapper call {1e3 * wrapper_ms:.2f} us (median "
+        f"of 50), plain version "
+        f"{1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.3f} us "
+        f"({bound_by}); one wrapper call under torch.profiler: "
+        f"{counts['launches']} launches, {counts['syncs']} syncs, "
+        f"{counts['copies']} copies; probe rounds per key "
+        f"{{{histogram(rounds)}}}")
+    if counts["syncs"] != 0:
+        raise AssertionError(f"{what}: hash_lookup waited on the card")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n,
+            "slots": fp.shape[0], "captured_ms": graph_ms, **chain,
             "syncs_per_call": counts["syncs"],
             "profiled_launches_per_call": counts["launches"]}
 
@@ -1787,6 +1960,7 @@ def costliest(calls, rounds, kind: str):
 # the reference code each lookup kernel of the path replaces: the probe
 # loop, and the composition around it that the form took into the launch
 LOOKUP_REPLACES = {
+    "hash_lookup": ("immesh_tpu/map/hash.py:127", None),
     "hash_lookup_planes": (
         "immesh_tpu/map/hash.py:127",
         "immesh_tpu/lio/association.py:27 (_lookup_with_neighbors), "
@@ -1805,10 +1979,13 @@ def phase_hash(dev, gt) -> tuple:
     """Phase 3b.  The KITTI LIO on phase 4's scans up to the map load phase
     4 reaches, its last frame's probes and lookup-form calls recorded and
     replayed (replay_probes, replay_forms); random form calls
-    (random_forms); the grid-stride case (phase_strided); 0 host syncs a
-    call; the times of the LIO's costliest insert, and of its planes and
-    parent calls beside the compositions they replaced.  Returns each kernel's largest difference from
-    its plain version, and the timed entries by kernel."""
+    (random_forms); the coords form on the keys of the costliest planes
+    and parent calls (check_coords); the grid-stride case (phase_strided);
+    0 host syncs a call; the times of the LIO's costliest insert, of its
+    planes and parent calls beside the compositions they replaced, and of
+    the coords form on their keys (time_coords).  Returns each kernel's
+    largest difference from its plain version, and the timed entries by
+    kernel."""
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.lio.pipeline import LioPipeline
 
@@ -1828,6 +2005,18 @@ def phase_hash(dev, gt) -> tuple:
     probes, forms = split_calls(calls)
     err, rounds = replay_probes(probes, what)
     err.update(replay_forms(forms, what))
+    # the coords form on the keys the reference's HashTable.lookup probes
+    # at the LIO's costliest planes and parent calls
+    coords = {f"lio_{kind}": coords_call(costliest_form(forms, kind))
+              for kind in ("planes", "parent")}
+    for name, call in coords.items():
+        check_coords(*call, f"{what}: the {name} keys")
+    log(f"[hash] {what}: the coords form bit-identical to its plain version "
+        f"on the keys of the costliest planes and parent calls "
+        + ", ".join(f"({c[0].shape[0]}, 4) into {c[1].shape[0]} slots"
+                    for c in coords.values())
+        + ", at their max_probe, at 0 and 1, from a misaligned view, for "
+        f"n = 1 and replayed in a captured graph")
     rand = random_forms(dev)
     strided = phase_strided(dev)
     lib = hp._library()
@@ -1836,6 +2025,9 @@ def phase_hash(dev, gt) -> tuple:
     entries = {f"hash_lookup_{kind}": time_form(
         lib, costliest_form(forms, kind), f"the LIO's costliest {kind} call")
         for kind in ("planes", "parent")}
+    entries["hash_lookup"] = {"by_shape": {
+        name: time_coords(lib, *call, f"the {name} keys")
+        for name, call in coords.items()}}
     log(f"[hash] phase 3b took {time.perf_counter() - t_phase:.1f} s")
     err = {k: max(err.get(k, 0), rand.get(k, 0), strided.get(k, 0))
            for k in hp.KERNELS}
@@ -1847,7 +2039,8 @@ def phase_hash_path(dev, frames, err, entries) -> list:
     frames (each frame that compacted: its append at the tables' fullest,
     then the rebuild; and the last frame) replayed as phase 3b's; the last
     frame's costliest insert and neighbours call timed for the `kernels`
-    line, the costliest insert of a compacting frame timed as well.
+    line, and the coords form checked and timed on that call's keys, the
+    costliest insert of a compacting frame timed as well.
     Returns the hash kernels' entries of the `kernels` line, with phase
     3b's (`entries`)."""
     from immesh_tpu_torch.kernels import hash_probe as hp
@@ -1868,6 +2061,14 @@ def phase_hash_path(dev, frames, err, entries) -> list:
         entries["hash_lookup_neighbors"] = time_form(
             lib, costliest_form(forms, "neighbors"),
             f"frame {k}'s costliest neighbours call")
+        # the coords form on the keys of the same call; its entry reads
+        # the largest key set, the LIO planes call's
+        call = coords_call(costliest_form(forms, "neighbors"))
+        check_coords(*call, f"{what}: the mesh neighbour keys")
+        coords = entries["hash_lookup"]
+        coords["by_shape"]["mesh_neighbors"] = time_coords(
+            lib, *call, f"frame {k}'s mesh neighbour keys")
+        coords.update(coords["by_shape"]["lio_planes"])
         # each insert shape of the frame, on every form
         last = t["lanes"]
         t["by_lanes"] = {last: dict(t)}

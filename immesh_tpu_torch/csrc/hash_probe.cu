@@ -24,9 +24,23 @@
 // returned (kernels/hash_probe.py keeps that code as each form's plain
 // version):
 //   * hash_lookup_kernel (the coords form): (n, 4) int32 keys -> slots, a
-//     thread a key.  No path of the port calls it since the other forms
-//     took its callers; it stays as it was, HashTable.lookup's kernel and
-//     the probe loop of the compositions the forms replaced;
+//     thread a key: HashTable.lookup's kernel and the probe loop of the
+//     compositions the forms replaced (no path of the port calls it since
+//     the other forms took its callers).  At its callers' sizes (8,192 to
+//     65,536 keys) its work is two or three dependent L2 round trips a key
+//     and most of a launch is the launch itself and the grid's ramp, so:
+//       - it is launched as a programmatic dependent of the stream's
+//         previous kernel (cudaLaunchKernelEx with
+//         cudaLaunchAttributeProgrammaticStreamSerialization): its blocks
+//         may be scheduled while that kernel drains.  Nothing touches global
+//         memory before griddepcontrol.wait (the run counter, the key rows,
+//         fp and the slot written included: slot may reuse memory the
+//         previous kernel still reads), which returns once that kernel has
+//         completed and its writes are visible, and is a no-op in a launch
+//         without the attribute.  A thread releases its own dependents
+//         (griddepcontrol.launch_dependents) once its first loads are
+//         issued.  The result is the same bits either way;
+//       - the further rounds run through finish_chain, as in every form;
 //   * hash_lookup_planes_kernel: (n, 3) f32 points -> (found, slot) of the
 //     plane map's level descent, a thread a point.  It makes the point's
 //     keys itself (floor(p / size_l) at each of the L levels, the near
@@ -219,27 +233,33 @@ __device__ __forceinline__ Key voxel_key(const float p[3], float s, int level) {
           __float2int_rz(floorf(__fdiv_rn(p[2], s))), level};
 }
 
+// Programmatic dependent launch (PTX griddepcontrol, sm_90): wait until the
+// grid this one depends on has completed and its writes are visible (a no-op
+// in a launch without the programmatic attribute), and let this grid's own
+// dependents be scheduled.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
 __global__ void __launch_bounds__(kThreads)
 hash_lookup_kernel(const int32_t* __restrict__ coords,
                    const int32_t* __restrict__ fp, int n, uint32_t mask,
                    int max_probe, int32_t* __restrict__ slot) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[kRunLookup], 1ULL);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  grid_dependency_wait();
+  if (i == 0) atomicAdd(&g_runs[kRunLookup], 1ULL);
+  if (i >= n) return;  // an exited thread counts as released
   const Key k = load_key(coords, i);
-  const uint32_t h0 = slot_hash(k) & mask;
-  const uint32_t fpq = fingerprint(k);
-  int32_t out = -1;
-  for (int r = 0; r < max_probe; ++r) {
-    const uint32_t cand = (h0 + static_cast<uint32_t>(r) * fpq) & mask;
-    const int32_t f = __ldg(fp + cand);
-    if (f == static_cast<int32_t>(fpq)) {  // fpq is odd: a match is never empty
-      out = static_cast<int32_t>(cand);
-      break;
-    }
-    if (f == 0) break;  // an empty slot before a match: absent
-  }
-  slot[i] = out;
+  const Probe pr = probe_of(k, mask);
+  const int32_t f = max_probe > 0 ? __ldg(fp + pr.h0) : 0;
+  launch_dependents();
+  slot[i] = max_probe > 0 ? finish_chain(fp, pr.h0, pr.fpq, mask, max_probe, 0,
+                                         pr.h0, f)
+                          : -1;
 }
 
 // kP = 2: _lookup_with_neighbors (own voxel, then the near voxel, the near
@@ -642,19 +662,6 @@ int launch_cluster(int dev, int blocks, int per_block, const int32_t* coords,
 
 }  // namespace
 
-// coords (n, 4) int32, fp (capacity,) int32 -> slot (n,) int32.
-extern "C" int hash_lookup_launch(const int32_t* coords, const int32_t* fp,
-                                  int n, int capacity, int max_probe,
-                                  int32_t* slot, void* stream) {
-  if (n < 0 || capacity <= 0 || (capacity & (capacity - 1)) != 0 || max_probe < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  hash_lookup_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      coords, fp, n, static_cast<uint32_t>(capacity - 1), max_probe, slot);
-  return static_cast<int>(cudaGetLastError());
-}
-
 namespace {
 
 template <int kP, int kL>
@@ -697,6 +704,31 @@ bool table_ok(int capacity, int max_probe) {
 }
 
 }  // namespace
+
+// coords (n, 4) int32, fp (capacity,) int32 -> slot (n,) int32, launched
+// as a programmatic dependent of the stream's previous kernel.
+extern "C" int hash_lookup_launch(const int32_t* coords, const int32_t* fp,
+                                  int n, int capacity, int max_probe,
+                                  int32_t* slot, void* stream) {
+  if (n < 0 || !table_ok(capacity, max_probe))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3((n + kThreads - 1) / kThreads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, hash_lookup_kernel, coords, fp, n,
+                                     static_cast<uint32_t>(capacity - 1),
+                                     max_probe, slot);
+  cudaError_t last = cudaGetLastError();  // clears the launch's error, if any
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
 
 // The planes form's largest level count.
 extern "C" int hash_lookup_planes_max_levels() { return kMaxLevels; }

@@ -30,6 +30,8 @@ each form's plain version (`*_plain`), built on lookup_plain:
   * lookup_neighbors: the 3×3×3 neighbourhoods of a mesh voxel table's
     slots (GlobalPointMap._dilate_active, _neighborhood).
 On the card each is one launch that makes its keys, probes and reduces.
+The coords form's launch is a programmatic dependent of the stream's
+previous kernel.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel in csrc/hash_probe.cu or raises — there is no fallback.  An insert

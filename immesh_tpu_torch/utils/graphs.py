@@ -110,6 +110,50 @@ def raw_graph_nodes(raw: int) -> Dict[str, int]:
     return counts
 
 
+class _EdgeData(ctypes.Structure):
+    """The CUDA driver API's CUgraphEdgeData (CUDA 12.3)."""
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+# (CUgraphDependencyType, the edge's CUgraphKernelNodePort from port) names
+_EDGE_KINDS = {(0, 0): "default", (1, 1): "programmatic",
+               (1, 2): "launch_order"}
+
+
+def graph_edges(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
+    """The dependency edges of a graph captured with keep_graph=True, by
+    kind: "default" (the next node starts when the last one completed),
+    "programmatic" (a programmatic dependent launch kept by the capture:
+    the next kernel may start once every block of the last one released
+    it), "launch_order" or "type t port p"; read with each edge's data
+    through the CUDA driver API."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    get = getattr(cuda, "cuGraphGetEdges_v2", None)
+    if get is None:  # CUDA 13's driver: the edge data in the plain name
+        version = ctypes.c_int(0)
+        cuda.cuDriverGetVersion(ctypes.byref(version))
+        if version.value < 13000:
+            raise RuntimeError("the CUDA driver reads no graph edge data")
+        get = cuda.cuGraphGetEdges
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = get(raw, None, None, None, ctypes.byref(n))
+    src = (ctypes.c_void_p * n.value)()
+    dst = (ctypes.c_void_p * n.value)()
+    data = (_EdgeData * n.value)()
+    if err == 0 and n.value:
+        err = get(raw, src, dst, data, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"reading the graph's edges failed: CUresult {err}")
+    counts: Dict[str, int] = {}
+    for e in data[:n.value]:
+        key = (e.type, e.from_port)
+        name = _EDGE_KINDS.get(key, f"type {e.type} port {e.from_port}")
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 def named_tensors(x, name: str = "") -> List[Tuple[str, torch.Tensor]]:
     """(path, tensor) of every tensor of x (a tensor, or tuples, lists,
     dicts and dataclasses of them), in a fixed order; a path joins the

@@ -247,27 +247,33 @@ def test_insert_kernel_schedule_gives_the_plain_result(capacity, n_keys,
 
 
 def test_lookup_kernel_schedule_gives_the_plain_result():
-    """Each lane's own loop, stopped at its first match or empty slot, is
-    the batched loop's result lane by lane."""
+    """Each lane's own chain, as the coords kernel runs it (its home slot's
+    load, then finish_chain's rounds; max_probe 0 gives -1 with no load),
+    stopped at its first match or empty slot or at max_probe, is the
+    batched loop's result lane by lane."""
     rng = np.random.default_rng(8)
     keys = torch.from_numpy(_unique_keys(rng, 400))
     table = HashTable.create(512, 32, device="cpu")
     table.insert(keys[:350], torch.ones(350, dtype=torch.bool))
     mask = 511
-    want = hp.lookup_plain(keys, table.fp, 32)
-    for i in range(keys.shape[0]):
-        h0 = int(hp._hash(keys[i], mask))
-        fq = int(hp._fingerprint(keys[i]))
-        got = -1
-        for r in range(32):
-            cand = (h0 + r * fq) % _M32 & mask
-            f = int(table.fp[cand])
-            if f == fq:
-                got = cand
-                break
-            if f == 0:
-                break
-        assert got == int(want[i])
+    words = table.fp.long() % _M32
+    for max_probe in (32, 1, 0):
+        want = hp.lookup_plain(keys, table.fp, max_probe)
+        for i in range(keys.shape[0]):
+            h0 = int(hp._hash(keys[i], mask)) % _M32
+            fq = int(hp._fingerprint(keys[i])) % _M32
+            got, r, cand = -1, 0, h0
+            f = int(words[cand]) if max_probe > 0 else None
+            while f is not None:  # finish_chain
+                if f == fq:
+                    got = cand
+                    break
+                r += 1
+                if f == 0 or r >= max_probe:
+                    break
+                cand = (h0 + r * fq) % _M32 & mask
+                f = int(words[cand])
+            assert got == int(want[i])
 
 
 # ---------------------------------------------------------------------------

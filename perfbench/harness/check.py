@@ -1,0 +1,140 @@
+"""The comparison that decides `correct`: frames of the program against the
+plain reference (perfbench/reference/), number by number, each against a
+limit the configuration file states.
+
+What is checked:
+  * the start: the reference runs the run's first frames from its own
+    initial state, made from the configuration and the static IMU samples
+    alone, and each is compared with the program's state after the frame;
+  * frames of the measured window: the reference takes the program's state
+    before the frame (its only input from the program, which it cannot
+    re-derive without running the whole window again) and the frame's
+    scan, runs the frame, and is compared with the program's state after
+    it.  The frames are drawn from the seed, and the window's first
+    compaction of either map is added where one falls in it.
+
+The numbers, each the largest over the frames checked:
+  pose_m      |p_program − p_reference| of the position, m
+  state_rel   the filter state's worst leaf (rot, pos, vel, bg, ba, grav,
+              cov): max |a − b| over max(max |b| of the leaf, the median
+              leaf's max |b|)
+  map_rel     the plane map's float leaves (moments, planes) the same way
+  map_ints    the share of plane-map slots whose key, fingerprint, plane
+              flag or subdivision flag differ
+  points_rel  the point map's float leaves (raw and smoothed positions)
+  mesh_ints   the worst share of rows that differ over the point map's and
+              the triangle store's integer and bool leaves (tables, slots,
+              counts, triangle ids)
+A NaN on one side only counts as an infinite gap."""
+
+from __future__ import annotations
+
+import contextlib
+import statistics
+from typing import Dict, Iterable
+
+import torch
+
+NUMBERS = ("pose_m", "state_rel", "map_rel", "map_ints", "points_rel",
+           "mesh_ints")
+
+
+def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| with NaN == NaN and NaN against a number infinite."""
+    a, b = a.double(), b.double()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if bool((na != nb).any()):
+        return float("inf")
+    d = torch.where(na, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _rel(prog: Dict, ref: Dict, names: Iterable[str]) -> float:
+    """The worst leaf's gap over max(its reference scale, the median
+    leaf's)."""
+    names = [n for n in names if n in ref]
+    scale = {n: float(ref[n].double().abs().nan_to_num().max())
+             if ref[n].numel() else 0.0 for n in names}
+    med = statistics.median(scale.values()) if scale else 0.0
+    worst = 0.0
+    for n in names:
+        g = _gap(prog[n], ref[n])
+        worst = max(worst, g / max(scale[n], med, 1e-30))
+    return worst
+
+
+def _rows_differ(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(rows,) bool: rows of a leaf that differ anywhere."""
+    if a.dim() == 0:
+        return (a != b).reshape(1)
+    return (a != b).reshape(a.shape[0], -1).any(dim=1)
+
+
+def _ints(prog: Dict, ref: Dict, names: Iterable[str]) -> float:
+    worst = 0.0
+    for n in names:
+        if n in ref:
+            d = _rows_differ(prog[n], ref[n])
+            worst = max(worst, float(d.sum()) / max(1, d.numel()))
+    return worst
+
+
+_STATE = ("rot", "pos", "vel", "bg", "ba", "grav", "cov")
+_VM_FLOAT = ("sum_p", "sum_ppT", "count", "sigma2_sum", "normal", "d",
+             "center", "cov_nn", "var_c", "lam")
+_GM_FLOAT = ("pts", "pts_smooth", "vox_pts", "vox_pts_sm")
+_GM_INT = ("pt_count", "dedup.keys", "dedup.fp", "vox.keys", "vox.fp",
+           "vox_pt_idx", "vox_n", "vox_new", "vox_meshed", "frame_no")
+_STORE_INT = ("tri_ids", "tri_n", "dirty")
+
+
+def compare(prog: Dict[str, Dict], ref: Dict[str, Dict]) -> Dict[str, float]:
+    """The numbers for one frame: `prog` and `ref` as {"state", "vm", "gm",
+    "store"} of flatten() dicts, on one device."""
+    ps, rs = prog["state"], ref["state"]
+    vm_p, vm_r = prog["vm"], ref["vm"]
+    slots = torch.zeros(vm_r["table.fp"].shape[0], dtype=torch.bool,
+                        device=vm_r["table.fp"].device)
+    for n in ("table.keys", "table.fp", "plane_valid", "subdivided"):
+        slots |= _rows_differ(vm_p[n], vm_r[n])
+    mesh = max(_ints(prog["gm"], ref["gm"], _GM_INT),
+               _ints(prog["store"], ref["store"], _STORE_INT))
+    return {
+        "pose_m": float(torch.linalg.norm(ps["pos"].double()
+                                          - rs["pos"].double())),
+        "state_rel": _rel(ps, rs, _STATE),
+        "map_rel": _rel(vm_p, vm_r, _VM_FLOAT),
+        "map_ints": float(slots.sum()) / slots.numel(),
+        "points_rel": _rel(prog["gm"], ref["gm"], _GM_FLOAT),
+        "mesh_ints": mesh,
+    }
+
+
+def worst(rows) -> Dict[str, float]:
+    """Each number's largest value over the frames' rows."""
+    return {n: max((r[n] for r in rows), default=0.0) for n in NUMBERS}
+
+
+@contextlib.contextmanager
+def precision(mode: str):
+    """float32 with TF32 off ("fp32", what the configurations state), or
+    with TF32 on ("tf32", the control: the nearest precision below)."""
+    m = torch.backends.cuda.matmul
+    old = (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+           torch.get_float32_matmul_precision())
+    on = mode == "tf32"
+    if mode not in ("fp32", "tf32"):
+        raise ValueError(f"precision {mode!r}")
+    m.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    torch.set_float32_matmul_precision("high" if on else "highest")
+    try:
+        yield
+    finally:
+        m.allow_tf32, torch.backends.cudnn.allow_tf32 = old[:2]
+        torch.set_float32_matmul_precision(old[2])
+
+
+def verdict(readings: Dict[str, float], limits: Dict[str, float]) -> bool:
+    """Every number at or under its limit (a NaN fails)."""
+    return all(readings[n] <= limits[n] for n in NUMBERS)

@@ -2099,6 +2099,7 @@ def phase_hash_path(dev, frames, err, entries) -> list:
 def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.runtime.joint import JointPipeline
+    from immesh_tpu_torch.utils.timers import trace
 
     cfg = kitti_config()
     N = cfg.preprocess.max_points
@@ -2106,6 +2107,10 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     frames = [bundle(f, cfg, dev) for f in gt]
     R0, p0 = sim.traj.pose(0.0)
 
+    # the frame trace on (its device spans' event nodes in the frame graph):
+    # the compactions are read from its `compact` spans
+    trace.clear()
+    trace.enable()
     pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev)
     reset_counts()
     ms, launches, errs, actives = [], [], [], []
@@ -2162,6 +2167,9 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         log(f"[main] frame {k:2d}: {dt:8.1f} ms, pose err {err:.3f} m, "
             f"{n_act} active voxels, {fired} pairs_argmin runs, backlog "
             f"{int(diag['drop_deferred'])}")
+    trace.disable()
+    compact_ms = [r.ms for fr in trace.frames() for r in fr
+                  if r.name == "compact"]
     (graph,) = pipe.captured.graphs
     if pipe.captured.replays != len(gt) - 1:
         raise AssertionError(f"main: {pipe.captured.replays} replays of the "
@@ -2224,7 +2232,8 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"{int(pipe.mesh.gm.vox.occupancy())}, LIO voxels "
         f"{int(pipe.lio.vm.n_voxels())}, compactions {n_comp} "
         f"(mesh {pipe.mesh.n_compactions}, lio {pipe.lio.n_compactions}, "
-        f"{pipe.mesh.compact_ms + pipe.lio.compact_ms:.1f} ms), drops {drops}")
+        f"{sum(compact_ms):.1f} ms in {len(compact_ms)} `compact` spans of "
+        f"the frame trace), drops {drops}")
     log(f"[main] the frame (LIO step and mesh step) ran as one captured "
         f"CUDA graph: {pipe.captured.replays} replays of {len(gt)} frames "
         f"(frame 0 eager, the warm-up), the graph's nodes {nodes}; "
@@ -2396,6 +2405,7 @@ def phase_runtime(dev, n_frames: int, warmup: int):
     from immesh_tpu_torch.kernels import incircle as ik
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
     from immesh_tpu_torch.runtime.export import _leaves, load_ply
+    from immesh_tpu_torch.utils.timers import trace
 
     cfg = avia_config()
     N = cfg.preprocess.max_points
@@ -2410,6 +2420,7 @@ def phase_runtime(dev, n_frames: int, warmup: int):
         f"{time.perf_counter() - t0:.1f} s (set-up)")
 
     log_dir = tempfile.mkdtemp(prefix="immesh_smoke_")
+    trace.clear()
     rt = ImMeshRuntime(cfg, log_dir=log_dir, device=dev)
     rt.static_init(*static)
     R0, p0 = sim.traj.pose(0.0)
@@ -2422,6 +2433,10 @@ def phase_runtime(dev, n_frames: int, warmup: int):
         st = rt.process_frame(b, t=k * sim.scan_T)
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t1)
+        # the frame's LIO and mesh device spans (the log directory turned
+        # the frame trace on); nan where the frame has none
+        lio, mesh = (trace.span_ms(k, n) for n in ("lio", "mesh"))
+        lio, mesh = (math.nan if x is None else x for x in (lio, mesh))
         pos = st["pos"].astype(np.float64)
         if not np.isfinite(pos).all():
             raise AssertionError(f"runtime frame {k}: non-finite pose")
@@ -2433,10 +2448,10 @@ def phase_runtime(dev, n_frames: int, warmup: int):
         errs.append(err)
         if k >= warmup:
             ms.append(dt)
-            lio_ms.append(st["lio_ms"])
-            mesh_ms.append(st["mesh_ms"])
-        log(f"[runtime] frame {k:2d}: {dt:7.1f} ms (lio {st['lio_ms']:6.1f}, "
-            f"mesh {st['mesh_ms']:6.1f}), pose err {err:.4f} m, "
+            lio_ms.append(lio)
+            mesh_ms.append(mesh)
+        log(f"[runtime] frame {k:2d}: {dt:7.1f} ms (lio {lio:6.1f}, "
+            f"mesh {mesh:6.1f} on the device), pose err {err:.4f} m, "
             f"{int(st['n_active_voxels'])} active voxels, "
             f"{int(st['n_effective'])} matches")
     # pairs_argmin's runs on the device: the mesh step is a captured graph
@@ -2495,8 +2510,9 @@ def phase_runtime(dev, n_frames: int, warmup: int):
     med = statistics.median(ms)
     p90 = float(np.percentile(ms, 90))
     log(f"[runtime] {n_frames} timed frames: {med:.1f} ms/frame median, "
-        f"{p90:.1f} ms p90 (lio {statistics.median(lio_ms):.1f} ms, mesh "
-        f"{statistics.median(mesh_ms):.1f} ms median, runtime Timer); "
+        f"{p90:.1f} ms p90 (lio {np.nanmedian(lio_ms):.1f} ms, mesh "
+        f"{np.nanmedian(mesh_ms):.1f} ms median, the frame trace's device "
+        f"spans); "
         f"pairs_argmin {launches} runs; pose err max {max(errs):.4f} m, "
         f"last {errs[-1]:.4f} m; ATE {ate['ate_rmse']:.4f} m RMSE over "
         f"{ate['n_pairs']} frames")

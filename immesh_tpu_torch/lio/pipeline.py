@@ -16,8 +16,6 @@ keeps the eager step, which reads those two tests on the host.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from immesh_tpu_torch.config import ImMeshConfig
@@ -31,6 +29,7 @@ from immesh_tpu_torch.lio.downsample import voxel_downsample
 from immesh_tpu_torch.lio.esikf import lio_update
 from immesh_tpu_torch.map.hash import EMPTY
 from immesh_tpu_torch.map.voxel_map import VoxelMap, _key_centers
+from immesh_tpu_torch.utils.timers import trace
 
 _IDENTITY_R = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
@@ -100,29 +99,35 @@ def lio_step(state: EsikfState, vm: VoxelMap, bundle: ScanBundle,
     scalars."""
     lio_cfg, map_cfg, imu_cfg = cfg.lio, cfg.voxel_map, cfg.imu
 
-    # 0. LiDAR→IMU extrinsics: points arrive in the LiDAR frame; express them
-    # once in the IMU/body frame the filter state lives in
-    pts_body = bundle.pts if ext is None else bundle.pts @ ext[0].T + ext[1]
+    # the frame trace's `lio` span: the step up to the map's growth
+    with trace.device_span("lio", bundle.pts.device):
+        # 0. LiDAR→IMU extrinsics: points arrive in the LiDAR frame;
+        # express them once in the IMU/body frame the filter state lives in
+        pts_body = (bundle.pts if ext is None
+                    else bundle.pts @ ext[0].T + ext[1])
 
-    # 1. propagate + deskew (reference Process2 → Forward/UndistortPcl)
-    state_prop, pts_end = propagate_and_deskew(state, bundle, pts_body,
-                                               imu_cfg)
+        # 1. propagate + deskew (reference Process2 → Forward/UndistortPcl)
+        state_prop, pts_end = propagate_and_deskew(state, bundle, pts_body,
+                                                   imu_cfg)
 
-    # 2. scan downsample for registration/map (reference downSizeFilterSurf)
-    down_pts, down_mask = voxel_downsample(
-        pts_end, bundle.mask, lio_cfg.downsample_voxel,
-        lio_cfg.map_update_points)
+        # 2. scan downsample for registration/map (reference
+        # downSizeFilterSurf)
+        down_pts, down_mask = voxel_downsample(
+            pts_end, bundle.mask, lio_cfg.downsample_voxel,
+            lio_cfg.map_update_points)
 
-    # 3. iterated ESIKF update (reference lio_state_estimation)
-    pcov = point_cov(down_pts, ext, map_cfg)
-    state_new, diag = lio_update(
-        state_prop, vm, down_pts, pcov, down_mask, lio_cfg, map_cfg)
+        # 3. iterated ESIKF update (reference lio_state_estimation)
+        pcov = point_cov(down_pts, ext, map_cfg)
+        state_new, diag = lio_update(
+            state_prop, vm, down_pts, pcov, down_mask, lio_cfg, map_cfg)
 
-    # 4. map growth with the posterior pose
-    if lio_cfg.update_map:
-        levels = grow_map(vm, state_new, down_pts, pcov, down_mask)
-    else:
-        levels = torch.zeros((), dtype=torch.int32, device=down_pts.device)
+        # 4. map growth with the posterior pose
+        if lio_cfg.update_map:
+            with trace.device_span("lio.map_update", down_pts.device):
+                levels = grow_map(vm, state_new, down_pts, pcov, down_mask)
+        else:
+            levels = torch.zeros((), dtype=torch.int32,
+                                 device=down_pts.device)
 
     world_scan = state_new.transform_points(pts_end)
     return state_new, vm, world_scan, dict(diag, levels=levels)
@@ -152,7 +157,6 @@ class LioPipeline:
                          if graph and self.device.type == "cuda" else None)
         self.frame_idx = 0
         self.n_compactions = 0
-        self.compact_ms = 0.0   # wall time spent inside compaction events
         self._occ_pending = None  # previous frame's occupancy (HostCopy)
 
     def static_init(self, acc, gyr) -> None:
@@ -219,22 +223,28 @@ class LioPipeline:
             return False
         self._occ_pending = None
         self.n_compactions += 1
-        t0 = time.perf_counter()
-        # hysteresis: compact down to the LOW water mark, radius solved in
-        # one pass as a distance quantile
-        low = int(mc.compact_low_water * mc.capacity)
-        radius = _keep_radius_vm(self.vm, self.state.pos, low,
-                                 mc.local_map_radius)
-        self.vm.compact(self.state.pos, radius)
-        r = float(radius) * 0.7
-        for _ in range(2):  # quantile-granularity guard, rarely taken
-            if int(self.vm.n_voxels()) <= high:
-                break
-            self.vm.compact(self.state.pos, torch.tensor(
-                r, dtype=torch.float32, device=self.device))
-            r *= 0.7
-        self.compact_ms += 1e3 * (time.perf_counter() - t0)
+        with trace.span("compact"):
+            # hysteresis: compact down to the LOW water mark, radius solved
+            # in one pass as a distance quantile
+            low = int(mc.compact_low_water * mc.capacity)
+            radius = _keep_radius_vm(self.vm, self.state.pos, low,
+                                     mc.local_map_radius)
+            self.vm.compact(self.state.pos, radius)
+            r = float(radius) * 0.7
+            for _ in range(2):  # quantile-granularity guard, rarely taken
+                if int(self.vm.n_voxels()) <= high:
+                    break
+                self.vm.compact(self.state.pos, torch.tensor(
+                    r, dtype=torch.float32, device=self.device))
+                r *= 0.7
         return True
+
+    def pending_occupancy(self):
+        """The plane map's live voxels after the last frame, as the pending
+        compaction poll holds them (the host copy maybe_compact reads on
+        the next frame), or None where no poll is pending."""
+        pending = self._occ_pending
+        return None if pending is None else pending.value()
 
 
 def _keep_radius_vm(vm: VoxelMap, center: torch.Tensor, low: int,

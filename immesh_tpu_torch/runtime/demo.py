@@ -8,7 +8,10 @@ Port of immesh_tpu/runtime/demo.py, the runnable counterpart of
 README.md:93-134), with the built-in simulator standing in for the sensor.
 `--device cpu` runs it without a card.  As in the reference demo, the
 printed |p-gt| is the raw filter position against the simulator's ground
-truth, without aligning the initial frame.
+truth, without aligning the initial frame.  The LIO and mesh times are
+the frame trace's device spans (utils/timers.py), which the log directory
+turns on; "-" where a frame has none (its stream was still busy as it
+began).
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ from __future__ import annotations
 import argparse
 import os
 from typing import Optional, Sequence
+
+
+def _ms(ms: Optional[float]) -> str:
+    return "     -" if ms is None else f"{ms:6.1f}"
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -32,6 +39,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from immesh_tpu_torch.frontend.sim import LidarImuSimulator
     from immesh_tpu_torch.frontend.types import ScanBundle
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
+    from immesh_tpu_torch.utils.timers import trace
 
     cfg = PRESETS[args.preset]()
     sim = LidarImuSimulator(n_rays=cfg.preprocess.max_points, seed=0)
@@ -47,8 +55,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         stats = rt.process_frame(b, t=k * sim.scan_T)
         err = np.linalg.norm(stats["pos"] - f.gt_pos)
         n_vox = stats["n_active_voxels"]
-        print(f"frame {k:3d}  lio {stats['lio_ms']:6.1f} ms  "
-              f"mesh {stats['mesh_ms']:6.1f} ms  "
+        lio_ms, mesh_ms = (trace.span_ms(k, n) for n in ("lio", "mesh"))
+        print(f"frame {k:3d}  lio {_ms(lio_ms)} ms  mesh {_ms(mesh_ms)} ms  "
               f"voxels {0 if n_vox is None else int(n_vox):4d}  "
               f"matches {int(stats['n_effective']):5d}  |p-gt| {err:.3f} m")
 
@@ -58,7 +66,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rt.close()
     print(f"mesh: {len(verts)} verts, {len(faces)} faces → {mesh_path}")
     print(f"trajectory: {os.path.join(args.out, 'kitti_log.txt')}")
-    print(f"timing:     {rt.timer.report()}")
+    print(f"timing:     {trace.report()}")
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from immesh_tpu_torch.frontend.types import ScanBundle
 from immesh_tpu_torch.lio.pipeline import LioPipeline
 from immesh_tpu_torch.mesh.pipeline import MeshPipeline
 from immesh_tpu_torch.runtime.captured import CapturedJointStep
+from immesh_tpu_torch.utils.timers import trace
 
 
 def _mesh_half(mesh: MeshPipeline, world_scan, bundle, state, diag, cfg):
@@ -108,19 +109,30 @@ class JointPipeline:
             self._backlog_q = [HostCopy(torch.tensor(1 << 30))] * 2
 
     def step(self, bundle: ScanBundle):
-        cfg = self.cfg
-        if self._cfg_hi is not None and len(self._backlog_q) >= 2 \
-                and self._backlog_q[0].value() > self.adaptive_threshold:
-            cfg = self._cfg_hi
-        world_scan, diag = _frame(self, bundle, cfg)
-        if self._cfg_hi is not None:
-            self._backlog_q = (self._backlog_q
-                               + [HostCopy(diag["drop_deferred"])])[-2:]
-        self.frame_idx += 1
-        self.lio.frame_idx = self.mesh.frame_idx = self.frame_idx
-        self.lio.maybe_compact()
-        self.mesh.maybe_compact(self.lio.state.pos)
-        return world_scan, diag
+        """One frame (the frame trace's `frame` span); returns (world_scan,
+        diag).  The pose stays on the device: read_pose copies it."""
+        with trace.frame(self.frame_idx, self.device):
+            cfg = self.cfg
+            if self._cfg_hi is not None and len(self._backlog_q) >= 2 \
+                    and self._backlog_q[0].value() > self.adaptive_threshold:
+                cfg = self._cfg_hi
+            world_scan, diag = _frame(self, bundle, cfg)
+            if self._cfg_hi is not None:
+                self._backlog_q = (self._backlog_q
+                                   + [HostCopy(diag["drop_deferred"])])[-2:]
+            self.frame_idx += 1
+            self.lio.frame_idx = self.mesh.frame_idx = self.frame_idx
+            self.lio.maybe_compact()
+            self.mesh.maybe_compact(self.lio.state.pos)
+            return world_scan, diag
+
+    def read_pose(self) -> torch.Tensor:
+        """The filter's position on the host, state.pos.cpu(): what an
+        odometry node publishes after each step.  The copy waits for the
+        frame's work on the stream; it is the frame trace's `pose_read`
+        span."""
+        with trace.pose_read():
+            return self.lio.state.pos.cpu()
 
     @property
     def state(self):

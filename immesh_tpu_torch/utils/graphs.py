@@ -14,7 +14,10 @@ and replayed (lio/captured.py, mesh/captured.py):
   * every call copies the inputs into the static buffers, checks that no
     persistent tensor (a map, a store) moved since the capture, replays,
     and clones out what the step returned, which the next replay would
-    overwrite.
+    overwrite.  With the frame trace on (utils/timers.py) these are its
+    `copy_in` (the shape key, the check and the copies), `launch`, `graph`
+    (the replay's device span) and `clone_out` spans, and the device
+    spans recorded inside the step are event-record nodes of its graph.
 
 A step must read no device value on the host, and must update its
 persistent tensors in place.  A capture or replay that fails raises;
@@ -70,6 +73,7 @@ import torch
 
 from immesh_tpu_torch.kernels import graph_cond
 from immesh_tpu_torch.kernels.build import captured_launches
+from immesh_tpu_torch.utils.timers import trace
 
 # the CUDA driver API's CUgraphNodeType values
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
@@ -215,6 +219,9 @@ class Graph:
     bodies: List[Body] = dataclasses.field(default_factory=list)
     pool: Any = None            # the bodies' memory pool, kept with the graph
     replays: int = 0
+    # the frame trace's device spans captured into the graph (timers.trace:
+    # name, parent, start and end event), read at each replay
+    spans: list = dataclasses.field(default_factory=list)
 
     def nodes(self) -> Dict[str, int]:
         """The graph's nodes by type, its IF nodes' bodies included (each
@@ -308,7 +315,8 @@ class CapturedStep:
         self.body_stream = torch.cuda.Stream(device)  # device_if's bodies
         self._graphs = {}   # key → Graph, or None once warmed up
         # where a caller sets a list: a (start, end) CUDA event pair
-        # recorded around each replay, appended (the graph's device span)
+        # recorded around each replay, appended (the graph's device span;
+        # the same pair is the frame trace's `graph` span)
         self.replay_events = None
 
     @property
@@ -328,8 +336,9 @@ class CapturedStep:
         raise NotImplementedError
 
     def _run(self, persistent: tuple, inputs: tuple):
-        key = tuple((tuple(t.shape), t.dtype, t.device)
-                    for t in tensors(inputs))
+        with trace.span("copy_in"):  # the inputs' shapes pick the graph
+            key = tuple((tuple(t.shape), t.dtype, t.device)
+                        for t in tensors(inputs))
         if key not in self._graphs:
             self._graphs[key] = None
             return self._warm_up(persistent, inputs)
@@ -360,7 +369,9 @@ class CapturedStep:
         step = _Step(self.body_stream, capturing=True)
         pool = torch.cuda.MemPool()
         dev = self.stream.device.index
-        with torch.cuda.graph(graph, stream=self.stream):
+        spans = []
+        with trace.capture(spans), torch.cuda.graph(graph,
+                                                     stream=self.stream):
             # the body stream's allocations, captured into the bodies, into
             # the pool kept with the graph (torch routes only the capture
             # stream's into the graph's own)
@@ -385,24 +396,30 @@ class CapturedStep:
                                                 for b in step.bodies)
                  for k, n in after.items()}
         return Graph(graph, static_in, out, self._pointers(*persistent),
-                     outer, step.bodies, pool)
+                     outer, step.bodies, pool, spans=spans)
 
     def _replay(self, g: Graph, persistent, inputs):
-        ptrs = self._pointers(*persistent)
-        if ptrs != g.ptrs:
-            moved = [n for n, a, b in zip(self.parts, ptrs, g.ptrs) if a != b]
-            raise RuntimeError(
-                f"a tensor of {' and '.join(moved)} moved since the step was "
-                f"captured; it must be updated in place")
-        for s, x in zip(tensors(g.inputs), tensors(inputs)):
-            s.copy_(x)
-        if self.replay_events is None:
-            g.graph.replay()
-        else:
+        with trace.span("copy_in"):
+            ptrs = self._pointers(*persistent)
+            if ptrs != g.ptrs:
+                moved = [n for n, a, b in zip(self.parts, ptrs, g.ptrs)
+                         if a != b]
+                raise RuntimeError(
+                    f"a tensor of {' and '.join(moved)} moved since the step "
+                    f"was captured; it must be updated in place")
+            for s, x in zip(tensors(g.inputs), tensors(inputs)):
+                s.copy_(x)
+        timed = self.replay_events is not None or trace.on
+        if timed:
             span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             span[0].record()
+        with trace.span("launch"):
             g.graph.replay()
+        if timed:
             span[1].record()
-            self.replay_events.append(tuple(span))
+            if self.replay_events is not None:
+                self.replay_events.append(tuple(span))
+            trace.replayed(span, g.spans)
         g.replays += 1
-        return clone_tree(g.out)
+        with trace.span("clone_out"):
+            return clone_tree(g.out)

@@ -252,6 +252,16 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 the time outside them, and the frame graph's device-busy
                 ms replayed alone.
 
+Phase 16b, after 16, holds segment_sum (csrc/segment_sum.cu) bit for bit
+to the parent's `values[order]` + torch.segment_reduce (one segment more,
+sliced off) and to its plain version on the CPU, on every call phase 16's
+eager KITTI and Avia runs made on their recorded frames and at the
+benchmark's call shapes (SUM_SHAPES), and times each call shape beside its
+bound, the library's call and the parent's composition; the KITTI path's
+costliest call also as a wrapper call and the plain version, one launch and
+0 syncs a call.  main() traps torch.segment_reduce: a call on a CUDA tensor
+outside that yardstick fails the run.
+
 Phase 16a, before 16, holds the IF sites' set kernel (csrc/graph_cond.cu)
 to its plain version, the predicate made by torch and read on the host: a
 graph of 64 IF nodes replayed on random predicates runs each body exactly
@@ -269,15 +279,16 @@ outside its IF nodes, and each body's runs (the set kernel's taken count)
 times the launches recorded into it (path_counts).
 
 The line before the last is a JSON object describing every kernel (for
-pairs_argmin, the hash and scatter kernels and the set kernel "launches"
-by the wrapper — for the set kernel, which runs only in graphs, those it
+pairs_argmin, the hash, scatter and segmented-sum kernels and the set
+kernel "launches" by the wrapper — for the set kernel, which runs only in graphs, those it
 recorded — and "device_runs" by the kernel's device counter, on the main
 path and on each other path; for the lookup forms also the composition
 each replaced, its time as one captured graph and its kernel nodes; for
 the coords form, which no path calls (OFF_PATH: 0 launches and runs on
 every path, or the path fails), one timing per key set: the LIO's planes
-and parent keys and the mesh's neighbour keys); the last line is
-{"ok": true, "device": {...}}.
+and parent keys and the mesh's neighbour keys; for segment_sum one timing
+per call shape under "by_shape" and the rows each caller read and dropped);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -300,7 +311,7 @@ import torch
 
 # the sources in immesh_tpu_torch/csrc
 KERNELS = ("pairs_argmin", "incircle", "hash_probe", "scatter_drop",
-           "graph_cond")
+           "graph_cond", "segment_sum")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -454,9 +465,10 @@ PATH_COUNTS = {}
 # lookups are the planes and parent forms, the mesh's the neighbours form;
 # the LIO-only paths count all but pairs_argmin and the neighbours
 PATH_KERNELS = ("pairs_argmin", "hash_lookup_planes", "hash_lookup_parent",
-                "hash_lookup_neighbors", "hash_insert", "scatter_drop")
+                "hash_lookup_neighbors", "hash_insert", "scatter_drop",
+                "segment_sum")
 LIO_KERNELS = ("hash_lookup_planes", "hash_lookup_parent", "hash_insert",
-               "scatter_drop")
+               "scatter_drop", "segment_sum")
 # the IF nodes' set kernel (kernels/graph_cond.py): it runs only inside the
 # captured graphs, so path_counts checks it on every path that captures
 COND_KERNEL = "graph_cond"
@@ -846,14 +858,15 @@ def phase_ints(dev):
         if not torch.equal(x, y.cpu()):
             raise AssertionError("frame_unique_coords: card and CPU differ")
     # segment sums (scan aggregates, downsampling) take no atomics: the
-    # same bits on every run
+    # sequential sum, the CPU's bits, on every run; ids outside [0, 1025)
+    # dropped
     vals = torch.from_numpy(rng.normal(size=(131072, 11)).astype(np.float32))
-    seg = torch.from_numpy(rng.integers(0, 1025, 131072))
+    seg = torch.from_numpy(rng.integers(-3, 1100, 131072))
     a = segment_sum(vals.to(dev), seg.to(dev), 1025)
     if not torch.equal(a, segment_sum(vals.to(dev), seg.to(dev), 1025)):
         raise AssertionError("segment_sum differs between two runs on the card")
-    torch.testing.assert_close(a.cpu(), segment_sum(vals, seg, 1025),
-                               rtol=1e-5, atol=1e-4)
+    if not same_bits(a.cpu(), segment_sum(vals, seg, 1025)):
+        raise AssertionError("segment_sum: card and CPU bits differ")
     # the hash kernels' own arithmetic: the same keys inserted and looked up
     # by the kernels on the card and by the plain versions on the CPU, in a
     # table at 50 % load (planted rows repeat: only the first is valid)
@@ -875,7 +888,8 @@ def phase_ints(dev):
         "bit-identical on the card and the CPU, and so are the hash_probe "
         "kernels' slots, new flags, keys and fingerprints (4,096 int32 keys "
         "over the full range into 8,192 slots) against the plain versions "
-        "on the CPU; segment_sum is run-to-run deterministic on the card")
+        "on the CPU; so are segment_sum's sums (131,072 rows of 11 into "
+        "1,025 segments, the ids outside them dropped)")
 
 
 # ---------------------------------------------------------------------------
@@ -888,10 +902,12 @@ def reset_counts() -> None:
     from immesh_tpu_torch.kernels import incircle as ik
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
+    from immesh_tpu_torch.kernels import segment_sum as ss
     pk.reset_launches()
     ik.reset_launches()
     hp.reset_launches()
     sd.reset_launches()
+    ss.reset_launches()
     gc.reset_launches()
 
 
@@ -905,9 +921,10 @@ def launch_counts() -> dict:
     from immesh_tpu_torch.kernels import incircle as ik
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
+    from immesh_tpu_torch.kernels import segment_sum as ss
     return {"pairs_argmin": pk.launches, "incircle": ik.launches,
             **hp.launches, "scatter_drop": sd.launches,
-            COND_KERNEL: gc.launches}
+            "segment_sum": ss.launches, COND_KERNEL: gc.launches}
 
 
 def path_now() -> dict:
@@ -920,10 +937,12 @@ def path_now() -> dict:
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
+    from immesh_tpu_torch.kernels import segment_sum as ss
     from immesh_tpu_torch.kernels.build import captured_launches
     launches, recorded = launch_counts(), captured_launches()
     runs = {"pairs_argmin": pk.runs(), **hp.runs(),
-            "scatter_drop": sd.runs(), COND_KERNEL: gc.runs()}
+            "scatter_drop": sd.runs(), "segment_sum": ss.runs(),
+            COND_KERNEL: gc.runs()}
     return {part: {k: n[k] for k in COUNTED + OFF_PATH}
             for part, n in (("launches", launches), ("recorded", recorded),
                             ("runs", runs))}
@@ -3760,6 +3779,7 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
+    from immesh_tpu_torch.kernels import segment_sum as ss
     from immesh_tpu_torch.lio.pipeline import LioPipeline
     from immesh_tpu_torch.map.hash import frame_unique_coords
 
@@ -3783,6 +3803,7 @@ def dist_rank(rank: int, world: int, job: dict) -> dict:
     pk.reset_launches()
     hp.reset_launches()
     sd.reset_launches()
+    ss.reset_launches()
     for b in local:
         before = pk.launches
         torch.cuda.synchronize()
@@ -3875,6 +3896,7 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
+    from immesh_tpu_torch.kernels import segment_sum as ss
     from immesh_tpu_torch.lio.pipeline import LioPipeline
 
     dev = torch.device("cuda", 0)
@@ -3889,6 +3911,7 @@ def nccl_rank(rank: int, world: int, job: dict) -> dict:
     pk.reset_launches()
     hp.reset_launches()
     sd.reset_launches()
+    ss.reset_launches()
     for f in _frames_of(job, NCCL_FRAMES):
         b = shard(bundle(f, cfg, dev))
         torch.cuda.synchronize()
@@ -4744,7 +4767,8 @@ def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
     every plane-map tensor bit for bit, and ESIKF iterations equal.
     Returns per-frame records, the captured pipeline's counts (path_now,
     its steps only), the two pipelines, and the eager pipeline's
-    set_drop/add_drop calls at the frames in `record_at`."""
+    set_drop/add_drop calls and segment_sum calls at the frames in
+    `record_at`."""
     from immesh_tpu_torch.lio.pipeline import LioPipeline
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
 
@@ -4761,7 +4785,7 @@ def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
     le, lc = (eager.lio, cap.lio) if runtime else (eager, cap)
     counts = {part: dict.fromkeys(COUNTED, 0)
               for part in ("launches", "recorded", "runs")}
-    rows, recorded = [], {}
+    rows, recorded, sums = [], {}, {}
     for k, b in enumerate(frames):
         def run(p):
             torch.cuda.synchronize()
@@ -4776,8 +4800,8 @@ def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
             return got, 1e3 * (time.perf_counter() - t0)
 
         if k in record_at:
-            ((we, de), ms_e), recorded[k] = record_scatters(
-                lambda: run(eager))
+            (((we, de), ms_e), recorded[k]), sums[k] = record_sums(
+                lambda: record_scatters(lambda: run(eager)))
         else:
             (we, de), ms_e = run(eager)
         before = path_now()
@@ -4813,7 +4837,7 @@ def run_lio_pair(dev, cfg, frames, warmup, compact_at, record_at=(),
     if lc.captured.replays != len(frames) - 1:
         raise AssertionError(f"graph: {lc.captured.replays} replays of "
                              f"{len(frames)} frames")
-    return rows, counts, (eager, cap), recorded
+    return rows, counts, (eager, cap), recorded, sums
 
 
 def graph_summary(name, rows, warmup, cfg) -> dict:
@@ -5074,6 +5098,235 @@ def costliest_scatter(calls, group=None):
                key=lambda c: scatter_bound_ms(c)[0])
 
 
+# ---------------------------------------------------------------------------
+# phase 16b: the segmented sum
+# ---------------------------------------------------------------------------
+# torch.segment_reduce as the library has it: the yardstick of the
+# segment_sum kernel (library_ms, parent_ms).  main() puts a trap in its
+# place that counts every call on a CUDA tensor; no path may make one
+SEGMENT_REDUCE = torch.segment_reduce
+SEGMENT_REDUCE_CALLS = []
+# the benchmark's call shapes, drawn (sum_synthetic): (what, rows, columns,
+# segments, the longest segment, rows dropped) — the kitti-hdl64 revisit
+# scan's downsample and the level whose most rows its mask drops
+SUM_SHAPES = (("downsample, revisit-like", 131072, 4, 8192, 3229, 32212),
+              ("level, revisit-like", 8192, 11, 4096, 60, 5920))
+
+
+def trap_segment_reduce() -> None:
+    """torch.segment_reduce counted into SEGMENT_REDUCE_CALLS wherever it
+    gets a CUDA tensor (and still computed)."""
+    def trap(data, *args, **kwargs):
+        if data.is_cuda:
+            SEGMENT_REDUCE_CALLS.append(tuple(data.shape))
+        return SEGMENT_REDUCE(data, *args, **kwargs)
+    torch.segment_reduce = trap
+
+
+class SumCall:
+    """A recorded segment_sum kernel call (kernels/segment_sum.py::sum_cuda):
+    what made it, and values, order and offsets as the call got them
+    (copies), with its rows read, rows dropped and longest segment."""
+
+    def __init__(self, what, values, order, offsets):
+        self.what, self.values = what, values
+        self.order, self.offsets = order, offsets
+        lens = offsets[1:] - offsets[:-1]
+        self.rows_read = int(offsets[-1] - offsets[0])
+        self.rows_dropped = values.shape[0] - self.rows_read
+        self.longest = int(lens.max()) if lens.numel() else 0
+
+    def label(self) -> str:
+        return (f"{self.what} {tuple(self.values.shape)} into "
+                f"{self.offsets.shape[0] - 1}")
+
+
+def record_sums(fn):
+    """Run fn() with every segment_sum kernel call on the card recorded as a
+    SumCall, named in call order within fn as the LIO step makes them: the
+    first (4 columns) "downsample", each later one (11 columns) "level l".
+    Returns (fn's result, the calls).  A call under capture is not recorded
+    (record_probes)."""
+    from immesh_tpu_torch.kernels import segment_sum as ss
+    calls, inner = [], ss.sum_cuda
+
+    def rec(values, order, offsets):
+        if not torch.cuda.is_current_stream_capturing():
+            levels = sum(c.what.startswith("level") for c in calls)
+            what = ("downsample" if values[0].numel() == 4
+                    else f"level {levels}")
+            calls.append(SumCall(what, values.clone(), order.clone(),
+                                 offsets.clone()))
+        return inner(values, order, offsets)
+
+    ss.sum_cuda = rec
+    try:
+        out = fn()
+    finally:
+        ss.sum_cuda = inner
+    return out, calls
+
+
+def sum_synthetic(dev, what, n, cols, S, longest, dropped, seed) -> SumCall:
+    """A call at one of SUM_SHAPES: n rows of `cols` f32 columns, one
+    segment `longest` rows long, `dropped` rows of id S (the callers'
+    discarded id), the rest uniform over [0, S); order and offsets as
+    core/ops.py::segment_sum makes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seg = torch.randint(1, S, (n,), generator=g, device=dev)
+    seg[:longest] = 0
+    seg[longest:longest + dropped] = S
+    seg = seg[torch.randperm(n, generator=g, device=dev)]
+    values = 50 * torch.randn((n, cols), generator=g, device=dev)
+    order = torch.argsort(seg, stable=True)
+    offsets = torch.searchsorted(seg[order], torch.arange(S + 1, device=dev))
+    return SumCall(what, values, order, offsets)
+
+
+def parent_sum(c: SumCall):
+    """The composition the kernel replaced, as the parent ran it: the rows
+    gathered in order and torch.segment_reduce over one more segment, the
+    callers' discarded one (every row from offsets[S] on), sliced off."""
+    n = torch.full((1,), c.values.shape[0], dtype=torch.int64,
+                   device=c.offsets.device)
+    offs = torch.cat([c.offsets, n])
+    return SEGMENT_REDUCE(c.values[c.order], "sum", offsets=offs, axis=0,
+                          unsafe=True)[:-1]
+
+
+def library_sum(c: SumCall):
+    """torch.segment_reduce on the same order and offsets: the one library
+    call that computes this sum (the discarded rows not read)."""
+    return SEGMENT_REDUCE(c.values[c.order], "sum", offsets=c.offsets,
+                          axis=0, unsafe=True)
+
+
+def check_sum(c: SumCall, what: str) -> float:
+    """The kernel on the call, bit for bit against the parent's composition
+    on the card and the plain version on the CPU.  Returns 0."""
+    from immesh_tpu_torch.kernels import segment_sum as ss
+    got = ss.sum_cuda(c.values, c.order, c.offsets)
+    plain = ss.sum_plain(c.values.cpu(), c.order.cpu(), c.offsets.cpu())
+    for name, want in (("the parent's composition", parent_sum(c)),
+                       ("the plain version on the CPU", plain)):
+        if not same_bits(got.cpu(), want.cpu()):
+            raise AssertionError(
+                f"{what}: segment_sum {c.label()} differs from {name} by "
+                f"{abs_err(got.cpu(), want.cpu())}")
+    return 0.0
+
+
+def sum_bound_ms(c: SumCall) -> tuple:
+    """Least time for the call, by bytes over the memory rate: the offsets
+    read once, each kept row's order entry and columns read once, the
+    sums written once."""
+    S = c.offsets.shape[0] - 1
+    row = c.values[0].numel() * 4
+    nbytes = 8 * (S + 1) + c.rows_read * (8 + row) + S * row
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
+
+
+def time_sum(c: SumCall, what: str, full: bool = False) -> dict:
+    """Device µs of one launch on a call, beside its bound, the library's
+    call on the same rows and the parent's composition; with `full` also a
+    wrapper call, the plain version on the card and the syncs of one call
+    (0; the profiler's event list holds torch's kernels, not this one)."""
+    from immesh_tpu_torch.kernels import segment_sum as ss
+    from immesh_tpu_torch.utils.timers import profile_counts
+    lib = ss._library()
+    v2 = ss.rows2d(c.values)
+    out = torch.empty((c.offsets.shape[0] - 1, v2.shape[1]),
+                      device=c.values.device)
+    bound_ms, bound_by = sum_bound_ms(c)
+    e = {"ms": device_ms(lambda: ss.launch(lib, v2, c.order, c.offsets,
+                                           out)),
+         "library_ms": device_ms(lambda: library_sum(c)),
+         "parent_ms": device_ms(lambda: parent_sum(c)),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "rows": c.values.shape[0], "columns": v2.shape[1],
+         "segments": out.shape[0], "rows_read": c.rows_read,
+         "rows_dropped": c.rows_dropped, "longest_segment": c.longest}
+    note = ""
+    if full:
+        _, counts = profile_counts(
+            lambda: ss.sum_cuda(c.values, c.order, c.offsets))
+        e["wrapper_ms"] = event_ms(
+            lambda: ss.sum_cuda(c.values, c.order, c.offsets), 50)
+        e["plain_ms"] = event_ms(
+            lambda: ss.sum_plain(c.values, c.order, c.offsets), 20)
+        e["syncs_per_call"] = counts["syncs"]
+        note = (f", wrapper call {1e3 * e['wrapper_ms']:.2f} us, plain "
+                f"version {1e3 * e['plain_ms']:.1f} us; one call under "
+                f"torch.profiler: {counts['syncs']} syncs, "
+                f"{counts['copies']} copies")
+        if counts["syncs"] != 0:
+            raise AssertionError(f"{what}: segment_sum waited on the card")
+    log(f"[segsum] {what}: {c.label()}, {c.rows_read} rows read, "
+        f"{c.rows_dropped} dropped, longest segment {c.longest}: kernel "
+        f"{1e3 * e['ms']:.2f} us (device time, median of 5 x 50 launches), "
+        f"the library's segment_reduce on the same rows "
+        f"{1e3 * e['library_ms']:.2f} us, the parent's composition "
+        f"{1e3 * e['parent_ms']:.2f} us, bound {1e3 * bound_ms:.3f} us "
+        f"({bound_by}){note}")
+    return e
+
+
+def phase_segment_sum(dev, main_info) -> dict:
+    """Phase 16b.  The segment_sum kernel on every call phase 16's eager
+    KITTI LioPipeline and Avia ImMeshRuntime made on their recorded frames
+    and at the benchmark's shapes (SUM_SHAPES), bit for bit against the
+    parent's composition and the plain version on the CPU; each distinct
+    call shape timed beside its bound, the library's call and the parent's
+    composition; the costliest call of the KITTI path timed in full for the
+    `kernels` line."""
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    calls = {"kitti": main_info.pop("sums_kitti"),
+             "avia": main_info.pop("sums_avia")}
+    synthetic = [sum_synthetic(dev, *shape, seed=11 + i)
+                 for i, shape in enumerate(SUM_SHAPES)]
+    n = 0
+    for path, by_frame in calls.items():
+        for k, cs in sorted(by_frame.items()):
+            for c in cs:
+                n += 1
+                check_sum(c, f"{path} frame {k}")
+    for c in synthetic:
+        check_sum(c, "the benchmark's shapes")
+    frames = ", ".join(f"{p} frames {sorted(f)}" for p, f in calls.items())
+    log(f"[segsum] {smi}; {n} recorded calls ({frames}) "
+        f"and {len(synthetic)} at the benchmark's shapes, each bit for bit "
+        f"the parent's composition and the plain version on the CPU")
+    by_shape, drops = {}, {}
+    for path, by_frame in calls.items():
+        last = by_frame[max(by_frame)]
+        for c in last:
+            by_shape[f"{path} {c.label()}"] = time_sum(
+                c, f"{path}'s last recorded frame")
+        for cs in by_frame.values():
+            for c in cs:
+                d = drops.setdefault(f"{path} {c.what}", [0, 0, 0])
+                d[0] += 1
+                d[1] += c.rows_read
+                d[2] += c.rows_dropped
+    for c in synthetic:
+        by_shape[c.label()] = time_sum(c, "the benchmark's shape")
+    top = max(calls["kitti"][max(calls["kitti"])],
+              key=lambda c: sum_bound_ms(c)[0])
+    entry = time_sum(top, "the KITTI path's costliest call", full=True)
+    log(f"[segsum] calls, rows read and rows dropped by caller over the "
+        f"recorded frames: {drops}; phase 16b took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "immesh_tpu_torch/csrc/segment_sum.cu",
+            "replaces": "immesh_tpu/lio/downsample.py:31",
+            "max_abs_err": 0.0, **entry, "call": top.label(),
+            "by_shape": by_shape,
+            "calls_rows_read_dropped": {k: dict(zip(
+                ("calls", "rows_read", "rows_dropped"), v))
+                for k, v in drops.items()}}
+
+
 def phase_graph(dev, main_info, scatters) -> dict:
     """Phase 16.  The KITTI LioPipeline and the Avia ImMeshRuntime eager
     and captured from the same start, bit for bit every frame (run_lio_pair),
@@ -5091,9 +5344,9 @@ def phase_graph(dev, main_info, scatters) -> dict:
     frames = [bundle(f, cfg, dev) for f in gt]
     last = len(frames) - 1
     reset_counts()
-    rows, counts, (eager, cap), lio_calls = run_lio_pair(
-        dev, cfg, frames, 3, GRAPH_COMPACT_AT,
-        record_at=(*GRAPH_COMPACT_AT, last))
+    rows, counts, (eager, cap), lio_calls, main_info["sums_kitti"] = \
+        run_lio_pair(dev, cfg, frames, 3, GRAPH_COMPACT_AT,
+                     record_at=(*GRAPH_COMPACT_AT, last))
     (graph,) = cap.captured.graphs
     path_counts("graph_kitti", counts, graphs=[graph], kernels=LIO_KERNELS)
     sites = check_sites("KITTI LioPipeline", [graph], rows, cfg)
@@ -5143,8 +5396,9 @@ def phase_graph(dev, main_info, scatters) -> dict:
     aframes = [bundle(sim.frame(k), acfg, dev)
                for k in range(3 + GRAPH_AVIA_FRAMES)]
     reset_counts()
-    arows, acounts, (aeager, acap), _ = run_lio_pair(
-        dev, acfg, aframes, 3, (GRAPH_AVIA_COMPACT_AT,), static=static,
+    arows, acounts, (aeager, acap), _, main_info["sums_avia"] = run_lio_pair(
+        dev, acfg, aframes, 3, (GRAPH_AVIA_COMPACT_AT,),
+        record_at=(GRAPH_AVIA_COMPACT_AT, len(aframes) - 1), static=static,
         runtime=True)
     path_counts("graph_avia", acounts, graphs=pipe_graphs(acap))
     captured_forms(pipe_graphs(acap), "graph: Avia")
@@ -5583,6 +5837,7 @@ def main() -> int:
 
     from immesh_tpu_torch.kernels import build
     from immesh_tpu_torch.kernels import graph_cond as gc
+    trap_segment_reduce()
     t0 = time.perf_counter()
     libs = build.build(KERNELS, force=True)
     versions = gc.check_versions(gc._library())
@@ -5619,11 +5874,12 @@ def main() -> int:
     cond = phase_cond(dev)
     scatter = phase_graph(dev, main_info, scatters)
     del scatters
+    segsum = phase_segment_sum(dev, main_info)
     pairs["mesh_graph"] = phase_mesh_graph(dev, main_info)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for e in (pairs, *hashes, scatter, cond):  # the main path's, then
+    for e in (pairs, *hashes, scatter, segsum, cond):  # the main path's, then
         # each other's.  launches: by the wrapper (eager; the set kernel's,
         # which runs only in graphs: those it recorded); device_runs: the
         # kernel's own device counter, eager and replayed in the captured
@@ -5640,7 +5896,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: x for k, x in e.items()
                                         if k not in keys}}
-        for e in (pairs, incircle, *hashes, scatter, cond)]}))
+        for e in (pairs, incircle, *hashes, scatter, segsum, cond)]}))
+    if SEGMENT_REDUCE_CALLS:
+        raise AssertionError(f"torch.segment_reduce ran on CUDA tensors "
+                             f"{len(SEGMENT_REDUCE_CALLS)} times outside "
+                             f"the yardstick: {SEGMENT_REDUCE_CALLS[:5]}")
+    log("[segsum] no path called torch.segment_reduce on a CUDA tensor")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

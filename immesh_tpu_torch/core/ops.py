@@ -6,9 +6,9 @@ The scatters are kernels/scatter_drop.py's: its plain version for CPU
 tensors, one launch of its CUDA kernel for CUDA tensors, with no host read;
 the _group forms write several fields that share one (idx, ok) in one
 launch.
-Segment sums are taken without atomics (a stable sort by segment, then a
-segmented reduction), so the f32 result is the same on every run instead of
-depending on the order in which CUDA atomics land.
+Segment sums are taken without atomics (a stable sort by segment, then
+kernels/segment_sum.py's segmented sum), so the f32 result is the same on
+every run instead of depending on the order in which CUDA atomics land.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from immesh_tpu_torch.kernels import scatter_drop
+from immesh_tpu_torch.kernels import segment_sum as segment_sum_k
 
 
 def div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -80,19 +81,23 @@ def nan_where_failed(x: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
 
 def segment_sum(values: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Σ of values (N, ...) rows per segment id in [0, num_segments).
+    """Σ of values (N, ...) rows per segment id in [0, num_segments); rows
+    with an id outside that range are dropped, as jax.ops.segment_sum drops
+    them.
 
-    On the CPU the rows of a segment are summed in input order from zero,
-    the order of a sequential scatter-add; on the card the segmented
-    reduction is deterministic as well.  The segment offsets come from a
-    search of the sorted ids, so nothing waits on the device (bincount and
-    segment_reduce's own checks would each read a value back)."""
+    The rows of a segment are summed in input order from zero, the order of
+    a sequential scatter-add, on the CPU and on the card alike
+    (kernels/segment_sum.py: its plain version on the CPU, one launch of its
+    kernel on the card).  The rows are put in segment order by a stable
+    sort and the segment offsets come from a search of the sorted ids, so
+    nothing waits on the device."""
     seg = seg.long()
     order = torch.argsort(seg, stable=True)
     bounds = torch.arange(num_segments + 1, device=seg.device)
     offsets = torch.searchsorted(seg[order], bounds)
-    return torch.segment_reduce(values[order], "sum", offsets=offsets,
-                                axis=0, unsafe=True)
+    if values.device.type == "cpu":
+        return segment_sum_k.sum_plain(values, order, offsets)
+    return segment_sum_k.sum_cuda(values, order, offsets)
 
 
 def compact_indices(keep: torch.Tensor, k: int) -> torch.Tensor:

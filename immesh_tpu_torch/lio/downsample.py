@@ -22,7 +22,7 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
 
     w = ok.to(pts.dtype)
     feats = torch.cat([pts * w[:, None], w[:, None]], dim=-1)
-    agg = segment_sum(feats, torch.where(ok, seg, k_out), k_out + 1)[:-1]
+    agg = segment_sum(feats, seg, k_out)  # rows of id k_out are dropped
     cnt = torch.clamp(agg[:, 3], min=1.0)
     out = agg[:, 0:3] / cnt[:, None]
     out_mask = (first < pts.shape[0]) & (agg[:, 3] > 0)

@@ -177,7 +177,7 @@ class VoxelMap:
             ],
             dim=-1,
         )
-        agg = segment_sum(feats, seg, max_voxels + 1)[:-1]
+        agg = segment_sum(feats, seg, max_voxels)  # id max_voxels dropped
 
         uniq_valid = first < n
         uniq_coords = coords[first.clamp(max=n - 1).long()]

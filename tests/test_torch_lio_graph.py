@@ -302,17 +302,18 @@ def test_compact_in_place_matches_the_reference(J, plane_map):
 def test_captured_step_equals_the_eager_step_on_the_card():
     """The KITTI-shaped LIO on the card, eager and captured from the same
     start: state, world scan, diag and every plane-map tensor bit for bit
-    on every frame, a compaction included.  The hash and scatter kernels'
-    device counters see the eager launches, every replay of the kernels
-    recorded into the graph outside its IF nodes, and every run of a body
-    (the set kernel's taken counts) times the kernels recorded into it; the
-    graph holds those kernels."""
+    on every frame, a compaction included.  The hash, scatter and
+    segmented-sum kernels' device counters see the eager launches, every
+    replay of the kernels recorded into the graph outside its IF nodes,
+    and every run of a body (the set kernel's taken counts) times the
+    kernels recorded into it; the graph holds those kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     import chip_smoke
     from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import scatter_drop as sd
+    from immesh_tpu_torch.kernels import segment_sum as ss
     from immesh_tpu_torch.lio.pipeline import LioPipeline
     dev = torch.device("cuda")
     cfg = chip_smoke.small_config()
@@ -320,6 +321,7 @@ def test_captured_step_equals_the_eager_step_on_the_card():
     pipes = [LioPipeline(cfg, device=dev, graph=g) for g in (False, True)]
     hp.reset_launches()
     sd.reset_launches()
+    ss.reset_launches()
     gc.reset_launches()
     for k in range(8):
         b = chip_smoke.bundle(sim.frame(k), cfg, dev)
@@ -333,8 +335,9 @@ def test_captured_step_equals_the_eager_step_on_the_card():
                                       pipes[0].vm, pipes[1].vm, extra) == []
     assert pipes[1].captured.replays == 7
     (g,) = pipes[1].captured.graphs
-    launches = {**hp.launches, "scatter_drop": sd.launches}
-    runs = {**hp.runs(), "scatter_drop": sd.runs()}
+    launches = {**hp.launches, "scatter_drop": sd.launches,
+                "segment_sum": ss.launches}
+    runs = {**hp.runs(), "scatter_drop": sd.runs(), "segment_sum": ss.runs()}
     # the graph's counts cover every counted kernel imported so far; the
     # LIO runs no pairs_argmin, and its lookups are the planes and parent
     # forms (no coords-form lookup, no neighbourhood)
@@ -347,7 +350,8 @@ def test_captured_step_equals_the_eager_step_on_the_card():
                              + cfg.voxel_map.max_layers - 1)
     assert captured.pop("graph_cond") == (cfg.lio.max_iterations - 1
                                           + cfg.voxel_map.max_layers - 1)
-    assert captured == {**hp.captured, "scatter_drop": sd.captured}
+    assert captured == {**hp.captured, "scatter_drop": sd.captured,
+                        "segment_sum": ss.captured}
     assert captured.pop("hash_lookup") == 0
     assert captured.pop("hash_lookup_neighbors") == 0
     assert all(n > 0 for n in captured.values())

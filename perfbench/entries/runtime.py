@@ -1,7 +1,12 @@
 """The system's own entry: immesh_tpu_torch.runtime.app.ImMeshRuntime.
 process_frame, which runs the LIO graph, then the mesh graph, and reads the
-pose to the host.  No log directory: the trajectory and cost logs write
-nothing.  Entry arguments: none."""
+pose to the host, then, with `ba.enabled`, hands the pose and world scan
+to the runtime's WindowBA.  No log directory: the trajectory and cost logs
+write nothing.  Entry arguments: none.
+
+With BA on, the window crosses into the check as the reference's `Window`
+(`parts()["ba"]`), and a frame's diag says whether it refined the window
+(`ba_refined`: process_frame returned a `ba_cost`)."""
 
 from __future__ import annotations
 
@@ -26,11 +31,20 @@ class Entry:
         self.k += 1
         return np.asarray(out["pos"]), {
             "iterations": out["iterations"],
-            "n_active_voxels": out["n_active_voxels"]}
+            "n_active_voxels": out["n_active_voxels"],
+            "ba_refined": out["ba_cost"] is not None}
 
     def parts(self) -> dict:
-        return {"state": self.lio.state, "vm": self.lio.vm,
-                "gm": self.mesh.gm, "store": self.mesh.store}
+        p = {"state": self.lio.state, "vm": self.lio.vm,
+             "gm": self.mesh.gm, "store": self.mesh.store}
+        if self.rt.ba is not None:
+            from perfbench.reference.lio.window import window_of
+            p["ba"] = window_of(self.rt.ba, self.rt.cfg.ba.pts_per_keyframe)
+        return p
+
+    def keyframes(self) -> int:
+        """Keyframes the BA window holds (BA on only)."""
+        return len(self.rt.ba.kf_rot)
 
     def captured(self) -> list:
         return [c for c in (self.lio.captured, self.mesh.captured)

@@ -51,15 +51,22 @@ def load(workload: str, bench_path: str = None) -> Cell:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json "
                          f"(it has {sorted(cells)})")
     w = cells[workload]
+    return assemble(workload, w["config"], w["traffic"], bench)
+
+
+def assemble(workload: str, config: str, traffic: str,
+             bench: dict = None) -> Cell:
+    """The cell `workload` of configs/<config>.json under
+    traffic/<traffic>.json, with the metrics `bench` (BENCHMARK.json by
+    default) gives it; the cell need not be in BENCHMARK.json."""
+    bench = bench or _json(os.path.join(ROOT, "BENCHMARK.json"))
     e2e = [m for m in bench["end_to_end"] if _reports(m, workload)]
     names = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"]
              if _reports(m, workload) and m["moves"] in names]
-    return Cell(workload, w["config"], w["traffic"],
-                _json(os.path.join(PERFBENCH, "configs",
-                                   w["config"] + ".json")),
-                _json(os.path.join(PERFBENCH, "traffic",
-                                   w["traffic"] + ".json")),
+    return Cell(workload, config, traffic,
+                _json(os.path.join(PERFBENCH, "configs", config + ".json")),
+                _json(os.path.join(PERFBENCH, "traffic", traffic + ".json")),
                 e2e, layer)
 
 

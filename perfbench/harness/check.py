@@ -11,10 +11,12 @@ What is checked:
     re-derive without running the whole window again) and the frame's
     scan, runs the frame, and is compared with the program's state after
     it.  The frames are drawn from the seed, and the window's first
-    compaction of either map is added where one falls in it.
+    compaction of either map is added where one falls in it, and with
+    window BA on its first refinement.
 
 The numbers, each the largest over the frames checked:
-  pose_m      |p_program − p_reference| of the position, m
+  pose_m      |p_program − p_reference| of the position, m; infinite
+              where the window's last pose is not finite
   state_rel   the filter state's worst leaf (rot, pos, vel, bg, ba, grav,
               cov): max |a − b| over max(max |b| of the leaf, the median
               leaf's max |b|)
@@ -25,11 +27,20 @@ The numbers, each the largest over the frames checked:
   mesh_ints   the worst share of rows that differ over the point map's and
               the triangle store's integer and bool leaves (tables, slots,
               counts, triangle ids)
-A NaN on one side only counts as an infinite gap."""
+and, with window BA on (the configuration's `ba.enabled`), whose limits
+then have to state it:
+  window_rel  the BA window's worst leaf (keyframe rotations, positions,
+              body points, the last window's cost) as state_rel takes its
+              leaves; a keyframe count, a refinement count or a point mask
+              that differs, a program window that is not finite, or a run
+              that checked no refinement frame counts as infinite
+A NaN on one side only counts as an infinite gap; a number that reads NaN
+on any frame reads infinite."""
 
 from __future__ import annotations
 
 import contextlib
+import math
 import statistics
 from typing import Dict, Iterable
 
@@ -86,11 +97,37 @@ _GM_FLOAT = ("pts", "pts_smooth", "vox_pts", "vox_pts_sm")
 _GM_INT = ("pt_count", "dedup.keys", "dedup.fp", "vox.keys", "vox.fp",
            "vox_pt_idx", "vox_n", "vox_new", "vox_meshed", "frame_no")
 _STORE_INT = ("tri_ids", "tri_n", "dirty")
+_WINDOW = ("rot", "pos", "pts", "last_cost")
+
+
+def _finite(w: Dict) -> bool:
+    """A window's poses, its kept points and, once it has refined, its
+    cost are finite."""
+    return bool(torch.isfinite(w["rot"]).all()
+                and torch.isfinite(w["pos"]).all()
+                and torch.isfinite(w["pts"][w["mask"]]).all()
+                and (w["n_refinements"] == 0
+                     or math.isfinite(w["last_cost"])))
+
+
+def window_rel(prog: Dict, ref: Dict) -> float:
+    """The BA windows' worst leaf; infinite where the keyframe count, the
+    refinement count or a point mask differs, or the program's window is
+    not finite."""
+    if (prog["rot"].shape != ref["rot"].shape
+            or prog["n_refinements"] != ref["n_refinements"]
+            or not torch.equal(prog["mask"], ref["mask"])
+            or not _finite(prog)):
+        return float("inf")
+    prog, ref = ({**x, "last_cost": torch.tensor(x["last_cost"])}
+                 for x in (prog, ref))
+    return _rel(prog, ref, _WINDOW)
 
 
 def compare(prog: Dict[str, Dict], ref: Dict[str, Dict]) -> Dict[str, float]:
     """The numbers for one frame: `prog` and `ref` as {"state", "vm", "gm",
-    "store"} of flatten() dicts, on one device."""
+    "store"} of flatten() dicts, on one device, and "ba" (on the host)
+    where the reference has a BA window: then window_rel too."""
     ps, rs = prog["state"], ref["state"]
     vm_p, vm_r = prog["vm"], ref["vm"]
     slots = torch.zeros(vm_r["table.fp"].shape[0], dtype=torch.bool,
@@ -99,7 +136,7 @@ def compare(prog: Dict[str, Dict], ref: Dict[str, Dict]) -> Dict[str, float]:
         slots |= _rows_differ(vm_p[n], vm_r[n])
     mesh = max(_ints(prog["gm"], ref["gm"], _GM_INT),
                _ints(prog["store"], ref["store"], _STORE_INT))
-    return {
+    out = {
         "pose_m": float(torch.linalg.norm(ps["pos"].double()
                                           - rs["pos"].double())),
         "state_rel": _rel(ps, rs, _STATE),
@@ -108,11 +145,16 @@ def compare(prog: Dict[str, Dict], ref: Dict[str, Dict]) -> Dict[str, float]:
         "points_rel": _rel(prog["gm"], ref["gm"], _GM_FLOAT),
         "mesh_ints": mesh,
     }
+    if "ba" in ref:
+        out["window_rel"] = window_rel(prog["ba"], ref["ba"])
+    return out
 
 
 def worst(rows) -> Dict[str, float]:
-    """Each number's largest value over the frames' rows."""
-    return {n: max((r[n] for r in rows), default=0.0) for n in NUMBERS}
+    """Each number's largest value over the frames' rows (the numbers the
+    first row has); a NaN on any row reads infinite."""
+    return {n: max(math.inf if math.isnan(r[n]) else r[n] for r in rows)
+            for n in rows[0]}
 
 
 @contextlib.contextmanager
@@ -136,5 +178,9 @@ def precision(mode: str):
 
 
 def verdict(readings: Dict[str, float], limits: Dict[str, float]) -> bool:
-    """Every number at or under its limit (a NaN fails)."""
-    return all(readings[n] <= limits[n] for n in NUMBERS)
+    """Every number read at or under its limit (a NaN fails); a number
+    whose limit the configuration does not state is an error."""
+    missing = sorted(set(readings) - set(limits))
+    if missing:
+        raise KeyError(f"the configuration's limits lack {missing}")
+    return all(readings[n] <= limits[n] for n in readings)

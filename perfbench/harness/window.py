@@ -121,15 +121,13 @@ def reference_rows(cell: Cell, stream, start, samples, dev, mode: str):
                 polls = (not polls[0] and R.lio_poll(fr, rcfg),
                          not polls[1] and R.mesh_poll(fr, rcfg))
             R.run_frame(rcfg, fr, R.bundle_of(stream.bundle(k)), polls)
-            out.append({n: R.flatten(getattr(fr, n))
-                        for n in ("state", "vm", "gm", "store")})
+            out.append(R.flat_frame(fr))
         for s in samples:
             fr = R.frame_from(rcfg, s.before)
             polls = (not s.prev_compacted[0] and R.lio_poll(fr, rcfg),
                      not s.prev_compacted[1] and R.mesh_poll(fr, rcfg))
             R.run_frame(rcfg, fr, R.bundle_of(stream.bundle(s.k)), polls)
-            out.append({n: R.flatten(getattr(fr, n))
-                        for n in ("state", "vm", "gm", "store")})
+            out.append(R.flat_frame(fr))
             del fr
     return out
 
@@ -174,6 +172,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             c.replay_events = []
     samples, done_compaction = [], [False, False]
     lat, diag_it, diag_act, compacted = [], [], [], []
+    # with BA on, the window's first refinement is checked: a frame is a
+    # candidate while the window holds one keyframe short of full
+    ba_at = (cfgd["ba"]["window_size"] - 1 if cfgd["ba"]["enabled"]
+             else None)
+    refined, ba_due, ba_checked = [], ba_at is not None, None
     k = n_setup
     setup_s = time.perf_counter() - t_start
     notes = [f"set-up {setup_s!r} s: imports and the device "
@@ -188,6 +191,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         for i in (0, 1):
             if polls[i] and not done_compaction[i]:
                 take = done_compaction[i] = True
+        ba_try = ba_due and entry.keyframes() == ba_at
+        take = take or ba_try
         s = None
         if take:
             while at and t - w0 >= at[0]:
@@ -196,11 +201,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             sync(dev)
         b = stream.bundle(k)
         t0 = time.perf_counter()
-        _, diag = entry.step(b)
+        pos, diag = entry.step(b)
         t = time.perf_counter()
         lat.append(1e3 * (t - t0))
         diag_it.append(diag["iterations"])
         diag_act.append(diag["n_active_voxels"])
+        if ba_at is not None:
+            refined.append(diag["ba_refined"])
+            if ba_try and diag["ba_refined"]:
+                ba_due, ba_checked = False, k
         now = compaction_counts(entry)
         prev = tuple(a > b for a, b in zip(now, counts))
         compacted.append(any(prev))
@@ -222,6 +231,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                  f"(points, voxels) {mesh_occ} of "
                  f"({cfgd['mesh']['points_capacity']}, "
                  f"{cfgd['mesh']['voxel_capacity']})")
+    if ba_at is not None:
+        notes.append(f"window BA: {sum(refined)} refinements in the window; "
+                     f"the first checked: frame {ba_checked}")
+    pose_finite = bool(torch.isfinite(torch.as_tensor(pos)).all())
+    if not pose_finite:
+        notes.append(f"the window's last pose is not finite: {pos}")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     sync(dev)
@@ -248,6 +263,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                 [torch.as_tensor(x) for x in diag_it]).cpu()],
             "n_active_voxels": [float(x) for x in torch.stack(
                 [torch.as_tensor(x) for x in diag_act]).cpu()]}
+    if ba_at is not None:
+        diag["ba_refined"] = refined
     # the program's state is freed before the reference runs
     prog_rows = start + [s.after for s in samples]
     entry.release()
@@ -261,6 +278,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     notes.append(f"reference {time.perf_counter() - t_ref!r} s")
     rows = [check.compare(p, r) for p, r in zip(prog_rows, ref)]
     readings = check.worst(rows)
+    if not pose_finite:
+        readings["pose_m"] = float("inf")
+    if ba_at is not None and ba_checked is None:
+        readings["window_rel"] = float("inf")   # no refinement checked
     limits = cell.config["limits"]
     correct = check.verdict(readings, limits)
     run = Run(cell.config, lat, window_s, spans, diag, compacted, nodes,
@@ -291,11 +312,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         result["breakdown"] = prof.breakdown()
     result["check"] = {name: {"value": readings[name],
                               "limit": limits[name]}
-                       for name in check.NUMBERS}
+                       for name in readings}
     lines = run.notes + [
         f"checked {len(start)} start frames and window frames "
         f"{[s.k for s in samples]} against the reference"
         + (f" (control: the reference in {control})" if control else "")]
     lines += [f"check {name} {readings[name]!r} limit {limits[name]!r}"
-              for name in check.NUMBERS]
+              for name in readings]
     return {"result": result, "lines": lines}

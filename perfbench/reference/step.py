@@ -1,5 +1,6 @@
-"""One frame of the plain reference: the LIO step, the mesh step and the two
-occupancy-triggered compactions, on state given as flat dicts of tensors.
+"""One frame of the plain reference: the LIO step, the mesh step, the two
+occupancy-triggered compactions and, where the configuration turns it on,
+the window BA, on state given as flat dicts of tensors.
 
 The program's state crosses into the reference only as `flatten` gives it:
 a dict from a dotted field path ("table.keys", "cov") to a tensor, or to a
@@ -8,7 +9,10 @@ dataclasses from such a dict, so nothing of the program is imported here.
 
 A frame is the composition both entries of the program run: lio_step, then
 mesh_step on the world scan and pose it made, then the plane map's
-compaction and the mesh maps' compaction where their polls call for one.
+compaction and the mesh maps' compaction where their polls call for one;
+with `cfg.ba.enabled`, then WindowBA.observe on the posterior pose and the
+world scan, and a refined window's correction left-applied to the filter
+(runtime/app.py's order).
 A poll reads the occupancy the previous frame left (the program copies it
 to the host one frame late), so the decision of frame k is known from the
 state before frame k and from whether frame k − 1 compacted: `poll`."""
@@ -16,8 +20,9 @@ state before frame k and from whether frame k − 1 compacted: `poll`."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from perfbench.reference.config import ImMeshConfig
@@ -25,6 +30,7 @@ from perfbench.reference.core.state import EsikfState
 from perfbench.reference.frontend.types import ScanBundle
 from perfbench.reference.lio.pipeline import (
     _keep_radius_vm, extrinsics, lio_step)
+from perfbench.reference.lio.window import Window, WindowBA
 from perfbench.reference.map.hash import HashTable
 from perfbench.reference.map.voxel_map import VoxelMap
 from perfbench.reference.mesh.global_map import GlobalPointMap
@@ -75,15 +81,30 @@ class Frame:
     vm: VoxelMap
     gm: GlobalPointMap
     store: TriangleStore
+    ba: Optional[WindowBA] = None   # the BA window, where BA is on
+
+
+PARTS = ("state", "vm", "gm", "store")
 
 
 def frame_from(cfg: ImMeshConfig, flat: Dict[str, Dict[str, object]]
                ) -> Frame:
-    """Frame from {"state": ..., "vm": ..., "gm": ..., "store": ...}."""
+    """Frame from {"state": ..., "vm": ..., "gm": ..., "store": ...}, and
+    the BA window from its "ba" where there is one."""
     return Frame(unflatten(EsikfState, flat["state"]),
                  unflatten(VoxelMap, flat["vm"], cfg.voxel_map),
                  unflatten(GlobalPointMap, flat["gm"], cfg.mesh),
-                 unflatten(TriangleStore, flat["store"], cfg.mesh))
+                 unflatten(TriangleStore, flat["store"], cfg.mesh),
+                 WindowBA(cfg, unflatten(Window, flat["ba"]))
+                 if "ba" in flat else None)
+
+
+def flat_frame(fr: Frame) -> Dict[str, Dict[str, object]]:
+    """flatten() of each part of `fr`, the BA window's under "ba"."""
+    out = {n: flatten(getattr(fr, n)) for n in PARTS}
+    if fr.ba is not None:
+        out["ba"] = flatten(fr.ba.window())
+    return out
 
 
 def initial_frame(cfg: ImMeshConfig, device, static_imu=None) -> Frame:
@@ -103,7 +124,8 @@ def initial_frame(cfg: ImMeshConfig, device, static_imu=None) -> Frame:
         state = static_init(acc, gyr, cfg.imu, state)
     return Frame(state, VoxelMap.create(cfg.voxel_map, device=device),
                  GlobalPointMap.create(cfg.mesh, device=device),
-                 TriangleStore.create(cfg.mesh, device=device))
+                 TriangleStore.create(cfg.mesh, device=device),
+                 WindowBA(cfg) if cfg.ba.enabled else None)
 
 
 def lio_poll(fr: Frame, cfg: ImMeshConfig) -> bool:
@@ -167,12 +189,30 @@ def bundle_of(t: Dict[str, torch.Tensor]) -> ScanBundle:
                          for f in dataclasses.fields(ScanBundle)})
 
 
+def observe_window(cfg: ImMeshConfig, fr: Frame, world: torch.Tensor,
+                   mask: torch.Tensor) -> bool:
+    """The frame's pose and world scan into the BA window; a refined
+    window's world-frame correction left-applied to the filter (velocity
+    rotates with the frame).  Whether the window was refined."""
+    pos = fr.state.pos.cpu().numpy()
+    corr = fr.ba.observe(fr.state.rot, pos, world, mask, fr.vm)
+    if corr is None:
+        return False
+    if cfg.ba.apply_correction:
+        st = fr.state
+        dR, dp = (torch.from_numpy(np.asarray(corr[key], np.float32)).to(
+            st.pos.device) for key in ("d_rot", "d_pos"))
+        fr.state = st.replace(rot=dR @ st.rot, pos=dR @ st.pos + dp,
+                              vel=dR @ st.vel)
+    return True
+
+
 def run_frame(cfg: ImMeshConfig, fr: Frame, bundle: ScanBundle,
               polls=(False, False)) -> dict:
     """One frame on `fr`, in place.  `polls` = (plane map, mesh maps): a
     compaction follows the frame where its poll, taken before it, called
-    for one.  Returns {"world": world scan, "diag": LIO diag,
-    "compacted": (lio, mesh)}."""
+    for one; the BA window follows the compactions.  Returns {"world":
+    world scan, "diag": LIO diag, "compacted": (lio, mesh), "ba_refined"}."""
     ext = extrinsics(cfg.imu, fr.state.pos)
     fr.state, fr.vm, world, diag = lio_step(fr.state, fr.vm, bundle, cfg,
                                             ext)
@@ -183,5 +223,7 @@ def run_frame(cfg: ImMeshConfig, fr: Frame, bundle: ScanBundle,
         compact_lio(fr, cfg)
     if polls[1]:
         compact_mesh(fr, cfg)
+    refined = (fr.ba is not None
+               and observe_window(cfg, fr, world, bundle.mask))
     return {"world": world, "diag": dict(diag, n_active_voxels=n_active),
-            "compacted": tuple(polls)}
+            "compacted": tuple(polls), "ba_refined": refined}

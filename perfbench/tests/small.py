@@ -1,14 +1,23 @@
 """Cells cut to a size a test run holds: the configuration's scans and
 capacities shrunk as chip_smoke.py's small_config and small_avia_config
-shrink them, a short lap, and few set-up frames."""
+shrink them, a short lap, few set-up frames, and a BA window of 3
+keyframes where BA is on."""
 
 from __future__ import annotations
 
 from perfbench.harness import cell as cells
 
 
-def small_cell(workload: str):
-    c = cells.load(workload)
+# window BA's cell, which BENCHMARK.json does not list yet (PERF.md, Open
+# questions): its name, configuration and traffic
+BA = ("avia-indoor-ba.ba-window", "avia-indoor-ba", "ba-window")
+
+
+def small_cell(workload, config: str = None, traffic: str = None):
+    """The cell `workload` of BENCHMARK.json, or of `config` under
+    `traffic` where they are given, cut to size."""
+    c = (cells.assemble(workload, config, traffic) if config
+         else cells.load(workload))
     cfg = c.config["config"]
     if c.config["entry"] == "joint":
         cfg["preprocess"]["max_points"] = 8192
@@ -28,4 +37,6 @@ def small_cell(workload: str):
                            active_voxels_per_frame=128,
                            file_voxels_per_frame=1024)
         c.traffic["lap_frames"] = 40
+        if cfg["ba"]["enabled"]:
+            cfg["ba"]["window_size"] = 3
     return c

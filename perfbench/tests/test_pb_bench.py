@@ -66,7 +66,8 @@ def _run(**kw):
     return Run(**base)
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]]
+                         + ["ba_refine_frame_ms"])
 def test_a_reader_with_nothing_to_read_returns_nothing(metric):
     assert cells.reader(metric)(_run()) is None
 
@@ -76,15 +77,17 @@ def test_readers_read():
     prof = Profile([("pairs_argmin_kernel", 0.0, 100.0),
                     ("x", 50.0, 100.0)], 1e-3, 150e-6, [], 1)
     run = _run(frame_ms=[10.0, 30.0], window_s=0.05, spans_ms=[8.0, 20.0],
-               diag={"iterations": [2, 3], "n_active_voxels": [4, 0]},
+               diag={"iterations": [2, 3], "n_active_voxels": [4, 0],
+                     "ba_refined": [False, True]},
                compacted=[False, True], graph_nodes={"kernel": 7},
                profile=prof)
-    r = {m["name"]: cells.reader(m["name"])(run)
-         for m in BENCH["per_layer"]}
+    r = {name: cells.reader(name)(run) for name in
+         [m["name"] for m in BENCH["per_layer"]] + ["ba_refine_frame_ms"]}
     assert r["outside_graph_ms"] == 6.0
     assert r["graph_kernel_nodes"] == 7
     assert r["esikf_iterations"] == 2.5 and r["remeshed_voxels"] == 2.0
     assert r["compact_frame_ms"] == 30.0
+    assert r["ba_refine_frame_ms"] == 30.0
     assert abs(r["device_idle"] - 44.0) < 1e-9
     assert 0 < r["roofline.pairs_argmin"] < 100
     assert abs(prof.busy_s - 150e-6) < 1e-12 and prof.gaps() == []

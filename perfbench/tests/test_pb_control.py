@@ -11,15 +11,18 @@ import pytest
 import torch
 
 from perfbench.harness.window import run_cell
-from perfbench.tests.small import small_cell
+from perfbench.tests.small import BA, small_cell
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["kitti-hdl64.loop-urban",
-                                      "avia-indoor.orbit-room"])
+                                      "avia-indoor.orbit-room", BA[0]])
 def test_tf32_reference_is_not_correct(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: TF32 exists only there")
-    out = run_cell(small_cell(workload), 21, 2.0, False, time.perf_counter(),
-                   device="cuda", control="tf32", setup_frames=4)["result"]
+    ba = workload == BA[0]
+    c = small_cell(*BA) if ba else small_cell(workload)
+    out = run_cell(c, 21, 2.5 if ba else 2.0, False, time.perf_counter(),
+                   device="cuda", control="tf32",
+                   setup_frames=10 if ba else 4)["result"]
     assert out["correct"] is False, out["check"]

@@ -33,7 +33,7 @@ def _sources(top):
 
 
 @pytest.mark.parametrize("part", ["harness", "sim", "entries", "metrics",
-                                  "reference", "run.py"])
+                                  "reference", "tools", "run.py"])
 def test_no_source_imports_jax_or_the_jax_package(part):
     path = os.path.join(PERFBENCH, part)
     paths = [path] if path.endswith(".py") else list(_sources(path))

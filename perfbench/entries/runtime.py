@@ -27,7 +27,10 @@ class Entry:
 
     def step(self, b: dict):
         """One frame; returns (pose on the host, the frame's diag)."""
-        out = self.rt.process_frame(self._bundle(**b), t=0.1 * self.k)
+        return self._frame(self._bundle(**b))
+
+    def _frame(self, bundle, imu_gap: bool = False):
+        out = self.rt.process_frame(bundle, t=0.1 * self.k, imu_gap=imu_gap)
         self.k += 1
         return np.asarray(out["pos"]), {
             "iterations": out["iterations"],

@@ -1,8 +1,9 @@
 """Finding a cell's parts by name: BENCHMARK.json's entry for the
 workload, its configuration (configs/<config>.json), its traffic mix
 (traffic/<traffic>.json), its entry adapter (entries/<entry>.py, named by
-the configuration), and each metric it reports (end-to-end ones measured
-here, per-layer ones read by metrics/<metric>.py)."""
+the configuration, or entries/wire.py where the traffic names a wire), and
+each metric it reports (end-to-end ones measured here, per-layer ones read
+by metrics/<metric>.py)."""
 
 from __future__ import annotations
 
@@ -33,10 +34,16 @@ class Cell:
     per_layer: List[dict]
 
     def entry(self):
-        """The configuration's entry adapter class."""
-        mod = importlib.import_module(
-            f"perfbench.entries.{self.config['entry']}")
-        return mod.Entry
+        """The configuration's entry adapter class; with a wire traffic,
+        entries/wire.py, which feeds the runtime entry through the
+        program's receiver."""
+        name = self.config["entry"]
+        if "wire" in self.traffic:
+            if name != "runtime":
+                raise ValueError(f"a wire traffic feeds the runtime entry, "
+                                 f"not {name!r}")
+            name = "wire"
+        return importlib.import_module(f"perfbench.entries.{name}").Entry
 
 
 def _reports(metric: dict, workload: str) -> bool:

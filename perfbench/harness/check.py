@@ -34,6 +34,12 @@ then have to state it:
               leaves; a keyframe count, a refinement count or a point mask
               that differs, a program window that is not finite, or a run
               that checked no refinement frame counts as infinite
+and, with a wire traffic (the frames fed through the program's receiver;
+the reference's bundle then made by the reference receiver from the same
+packets and IMU messages), whose limits then have to state it:
+  bundle_ints the share of the frame's bundle rows whose bits differ in
+              any field: point rows (points, times, mask), IMU rows
+              (stamps, accelerations, rates, mask) and the duration
 A NaN on one side only counts as an infinite gap; a number that reads NaN
 on any frame reads infinite."""
 
@@ -98,6 +104,9 @@ _GM_INT = ("pt_count", "dedup.keys", "dedup.fp", "vox.keys", "vox.fp",
            "vox_pt_idx", "vox_n", "vox_new", "vox_meshed", "frame_no")
 _STORE_INT = ("tri_ids", "tri_n", "dirty")
 _WINDOW = ("rot", "pos", "pts", "last_cost")
+_BUNDLE = (("pts", "t_rel", "mask"),
+           ("imu_stamps", "imu_acc", "imu_gyr", "imu_mask"),
+           ("scan_duration",))
 
 
 def _finite(w: Dict) -> bool:
@@ -124,10 +133,31 @@ def window_rel(prog: Dict, ref: Dict) -> float:
     return _rel(prog, ref, _WINDOW)
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A float32 leaf as the integers of its bits."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def bundle_ints(prog: Dict, ref: Dict) -> float:
+    """The share of a bundle's rows (its point rows, IMU rows and the
+    duration) whose bits differ in any of their fields."""
+    differ = rows = 0
+    for group in _BUNDLE:
+        d = None
+        for n in group:
+            r = _rows_differ(_bits(prog[n]), _bits(ref[n]))
+            d = r if d is None else d | r
+        differ += int(d.sum())
+        rows += d.numel()
+    return differ / rows
+
+
 def compare(prog: Dict[str, Dict], ref: Dict[str, Dict]) -> Dict[str, float]:
     """The numbers for one frame: `prog` and `ref` as {"state", "vm", "gm",
     "store"} of flatten() dicts, on one device, and "ba" (on the host)
-    where the reference has a BA window: then window_rel too."""
+    where the reference has a BA window: then window_rel too; and "bundle"
+    where the reference's bundle came from its receiver: then
+    bundle_ints."""
     ps, rs = prog["state"], ref["state"]
     vm_p, vm_r = prog["vm"], ref["vm"]
     slots = torch.zeros(vm_r["table.fp"].shape[0], dtype=torch.bool,
@@ -147,6 +177,8 @@ def compare(prog: Dict[str, Dict], ref: Dict[str, Dict]) -> Dict[str, float]:
     }
     if "ba" in ref:
         out["window_rel"] = window_rel(prog["ba"], ref["ba"])
+    if "bundle" in ref:
+        out["bundle_ints"] = bundle_ints(prog["bundle"], ref["bundle"])
     return out
 
 

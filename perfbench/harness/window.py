@@ -3,11 +3,12 @@
 
 The stream is closed-loop replay: scan k + 1 is handed to the entry once
 scan k's pose is on the host.  A frame's latency runs from handing its scan
-to the entry until its pose is on the host; `frame_ms` is the window's wall
-time over the frames it completed, `frame_ms_p95` the 95th percentile of
-every latency in the window, `setup_s` process start to the first timed
-frame (the program's kernels built on a checkout's first run, the scans
-made, the lead-in and warm-up frames run, the graphs captured)."""
+(with a wire traffic, its first message) to the entry until its pose is on
+the host; `frame_ms` is the window's wall time over the frames it
+completed, `frame_ms_p95` the 95th percentile of every latency in the
+window, `setup_s` process start to the first timed frame (the program's
+kernels built on a checkout's first run, the scans made, the lead-in and
+warm-up frames run, the graphs captured)."""
 
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ class Run:
     profile: object                  # trace.Profile, or None
     notes: List[str]                 # lines for standard error
     card: str = ""                   # the card's name and power limit
+    receive_ms: Optional[List[float]] = None  # each frame's receiver time
 
 
 @dataclasses.dataclass
@@ -105,6 +107,20 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def reference_input(rcfg, stream, k: int, dev):
+    """The reference's bundle of frame k, and what its row adds: the
+    stream's bundle; or with a wire, the reference receiver's bundle of the
+    frame's messages (frame k − 1's IMU messages before them, which hold
+    the sample at the scan's start), kept in the row as "bundle"."""
+    from perfbench.reference import step as R
+    if stream.wire is None:
+        return R.bundle_of(stream.bundle(k)), {}
+    from perfbench.reference.frontend.sync import receive
+    b = receive(rcfg, [stream.wire.frame(j) for j in (k - 1, k) if j >= 0],
+                dev)
+    return b, {"bundle": R.flatten(b)}
+
+
 def reference_rows(cell: Cell, stream, start, samples, dev, mode: str):
     """The reference's state after each checked frame, as flatten() dicts:
     the start frames from its own initial state, the window's from the
@@ -120,14 +136,16 @@ def reference_rows(cell: Cell, stream, start, samples, dev, mode: str):
             if k > 0:
                 polls = (not polls[0] and R.lio_poll(fr, rcfg),
                          not polls[1] and R.mesh_poll(fr, rcfg))
-            R.run_frame(rcfg, fr, R.bundle_of(stream.bundle(k)), polls)
-            out.append(R.flat_frame(fr))
+            b, extra = reference_input(rcfg, stream, k, dev)
+            R.run_frame(rcfg, fr, b, polls)
+            out.append({**R.flat_frame(fr), **extra})
         for s in samples:
             fr = R.frame_from(rcfg, s.before)
             polls = (not s.prev_compacted[0] and R.lio_poll(fr, rcfg),
                      not s.prev_compacted[1] and R.mesh_poll(fr, rcfg))
-            R.run_frame(rcfg, fr, R.bundle_of(stream.bundle(s.k)), polls)
-            out.append(R.flat_frame(fr))
+            b, extra = reference_input(rcfg, stream, s.k, dev)
+            R.run_frame(rcfg, fr, b, polls)
+            out.append({**R.flat_frame(fr), **extra})
             del fr
     return out
 
@@ -158,7 +176,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     start = []
     counts, prev = compaction_counts(entry), (False, False)
     for k in range(n_setup):
-        entry.step(stream.bundle(k))
+        entry.step(stream.feed(k))
         if k < START_FRAMES:
             sync(dev)
             start.append(flat_parts(entry))
@@ -182,6 +200,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     notes = [f"set-up {setup_s!r} s: imports and the device "
              f"{t_init - t_start!r} s, scans {t_scans - t_init!r} s, then "
              f"{n_setup} frames {time.perf_counter() - t_scans!r} s"]
+    if stream.wire is not None:
+        notes.append(f"wire: {stream.wire.layout} packets of "
+                     f"{stream.wire.nbytes()} bytes, made in set-up")
     w0 = time.perf_counter()
     t = w0
     while t - w0 < seconds:
@@ -199,7 +220,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                 at.pop(0)
             s = Sample(k, flat_parts(entry), prev_compacted=prev)
             sync(dev)
-        b = stream.bundle(k)
+        b = stream.feed(k)
         t0 = time.perf_counter()
         pos, diag = entry.step(b)
         t = time.perf_counter()
@@ -222,6 +243,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         k += 1
     window_s = t - w0
     n = len(lat)
+    recv = getattr(entry, "receive_ms", None)
+    recv = None if recv is None else recv[n_setup:n_setup + n]
+    failed = [j for j in getattr(entry, "failed", ())
+              if n_setup <= j < n_setup + n]
     notes.append(f"{n} frames in {window_s!r} s; compactions (plane map, "
                  f"mesh maps) {compaction_counts(entry)}, of them "
                  f"{sum(compacted)} frames in the window")
@@ -258,7 +283,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if trace and dev.type == "cuda":
         from perfbench.harness.trace import profile
         prof = profile(TRACE_FRAMES,
-                       lambda i: entry.step(stream.bundle(k + i)))
+                       lambda i: entry.step(stream.feed(k + i)))
     diag = {"iterations": [float(x) for x in torch.stack(
                 [torch.as_tensor(x) for x in diag_it]).cpu()],
             "n_active_voxels": [float(x) for x in torch.stack(
@@ -267,6 +292,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         diag["ba_refined"] = refined
     # the program's state is freed before the reference runs
     prog_rows = start + [s.after for s in samples]
+    no_bundle = list(getattr(entry, "failed", ()))
+    if no_bundle:
+        notes.append(f"frames whose receiver gave no bundle: {no_bundle}")
     entry.release()
     del entry, diag_it, diag_act
     gc.collect()
@@ -283,10 +311,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if ba_at is not None and ba_checked is None:
         readings["window_rel"] = float("inf")   # no refinement checked
     limits = cell.config["limits"]
-    correct = check.verdict(readings, limits)
+    # a frame that never got its bundle is an answer that never came
+    correct = check.verdict(readings, limits) and not no_bundle
     run = Run(cell.config, lat, window_s, spans, diag, compacted, nodes,
-              prof, notes, card_line() if dev.type == "cuda" else "cpu")
-    result = {"correct": correct, "attempted": n, "failed": 0}
+              prof, notes, card_line() if dev.type == "cuda" else "cpu",
+              recv)
+    result = {"correct": correct, "attempted": n, "failed": len(failed)}
     if trace:
         metrics, read = {}, readers(cell)
         for m in cell.per_layer:

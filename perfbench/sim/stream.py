@@ -15,6 +15,9 @@ lap's scans are made once and replayed, frame k ≥ lead_in being lap scan
            "pitch", "roll", "sway", "z0"} (the straight a from lap_frames:
            one lap is lap_frames scans at speed)
   lead_in, lap_frames, t_ramp, warmup (frames of set-up after the lead-in).
+  wire:   {"layout": "livox_custommsg"} (optional): each scan also
+          serialised to the sensor's packets and IMU messages
+          (sim/wire.py), which the entry then takes in place of the bundle.
 
 The sensor (config file's "sensor": rings, max_range, noise, IMU rate,
 clockwise) and the scan width (preprocess.max_points), the IMU capacity
@@ -32,6 +35,7 @@ import torch
 
 from perfbench.sim import routes, scene as scenes
 from perfbench.sim.lidar import Lidar
+from perfbench.sim.wire import Wire, make_wire
 
 BUNDLE_FIELDS = ("pts", "t_rel", "mask", "imu_stamps", "imu_acc", "imu_gyr",
                  "imu_mask", "scan_duration")
@@ -75,6 +79,7 @@ class Stream:
     lap_frames: int
     static_imu: Optional[Tuple[np.ndarray, np.ndarray]]
     lidar: Lidar
+    wire: Optional[Wire] = None           # the scans on the wire, if sent
 
     def bundle(self, k: int) -> Dict[str, torch.Tensor]:
         """Frame k of the run."""
@@ -82,6 +87,13 @@ class Stream:
             return self.lead[k]
         j = (k - len(self.lead)) % self.lap_frames
         return {n: t[j] for n, t in self.lap.items()}
+
+    def feed(self, k: int):
+        """What the entry takes for frame k: its bundle, or with a wire
+        its packets and IMU messages (a sim.wire.WireFrame)."""
+        if self.wire is None:
+            return self.bundle(k)
+        return self.wire.frame(k)
 
 
 _BATCH_RAYS = 1 << 20  # rays cast in one batch of scans
@@ -170,6 +182,8 @@ def make_stream(cfg: dict, sensor: dict, traffic: dict, seed: int,
               if sensor["static_imu"] > 0 else None)
     n_pts, n_imu = cfg["preprocess"]["max_points"], imu["max_imu_per_scan"]
     lead = _stacked(lidar, 0, lead_in, n_pts, n_imu, gen, rng)
-    lead = [{n: t[k] for n, t in lead.items()} for k in range(lead_in)]
     stacked = _stacked(lidar, lead_in, lap_frames, n_pts, n_imu, gen, rng)
-    return Stream(lead, stacked, lap_frames, static, lidar)
+    wire = (make_wire(traffic["wire"], lead, stacked, lidar)
+            if "wire" in traffic else None)
+    lead = [{n: t[k] for n, t in lead.items()} for k in range(lead_in)]
+    return Stream(lead, stacked, lap_frames, static, lidar, wire)

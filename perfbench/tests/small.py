@@ -8,9 +8,10 @@ from __future__ import annotations
 from perfbench.harness import cell as cells
 
 
-# window BA's cell, which BENCHMARK.json does not list yet (PERF.md, Open
-# questions): its name, configuration and traffic
+# cells BENCHMARK.json does not list yet (PERF.md, Open questions): their
+# names, configurations and traffic; window BA's, and the receiver's
 BA = ("avia-indoor-ba.ba-window", "avia-indoor-ba", "ba-window")
+WIRE = ("avia-indoor.wire", "avia-indoor", "wire")
 
 
 def small_cell(workload, config: str = None, traffic: str = None):

@@ -67,7 +67,7 @@ def _run(**kw):
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]]
-                         + ["ba_refine_frame_ms"])
+                         + ["ba_refine_frame_ms", "receive_ms"])
 def test_a_reader_with_nothing_to_read_returns_nothing(metric):
     assert cells.reader(metric)(_run()) is None
 
@@ -80,13 +80,15 @@ def test_readers_read():
                diag={"iterations": [2, 3], "n_active_voxels": [4, 0],
                      "ba_refined": [False, True]},
                compacted=[False, True], graph_nodes={"kernel": 7},
-               profile=prof)
+               profile=prof, receive_ms=[1.5, 2.5])
     r = {name: cells.reader(name)(run) for name in
-         [m["name"] for m in BENCH["per_layer"]] + ["ba_refine_frame_ms"]}
+         [m["name"] for m in BENCH["per_layer"]]
+         + ["ba_refine_frame_ms", "receive_ms"]}
     assert r["outside_graph_ms"] == 6.0
     assert r["graph_kernel_nodes"] == 7
     assert r["esikf_iterations"] == 2.5 and r["remeshed_voxels"] == 2.0
     assert r["compact_frame_ms"] == 30.0
+    assert r["receive_ms"] == 2.0
     assert r["ba_refine_frame_ms"] == 30.0
     assert abs(r["device_idle"] - 44.0) < 1e-9
     assert 0 < r["roofline.pairs_argmin"] < 100

@@ -24,7 +24,15 @@ BA_FAULTS, with window BA on:
   * `one_iteration_fewer`: one Gauss-Newton iteration fewer;
   * `points_before_correction`: the keyframe points sampled from the scan
     before the last window's correction (the world scan mapped back
-    through it)."""
+    through it).
+
+WIRE_FAULTS, in the receiver of a wire traffic (entries/wire.py):
+  * `last_point_dropped`: the preprocessor drops the scan's last valid
+    point;
+  * `boundary_imu_dropped`: the IMU window leaves out the sample at the
+    scan's start (sent with the scan before);
+  * `times_truncated_to_us`: the decode truncates each point's time to a
+    whole microsecond."""
 
 from __future__ import annotations
 
@@ -160,3 +168,40 @@ BA_FAULTS = {"correction_dropped": correction_dropped,
              "refinement_skipped": refinement_skipped,
              "one_iteration_fewer": one_iteration_fewer,
              "points_before_correction": points_before_correction}
+
+
+def last_point_dropped(monkeypatch):
+    from immesh_tpu_torch.frontend.preprocess import Preprocessor
+    inner = Preprocessor.process
+    monkeypatch.setattr(Preprocessor, "process", lambda self, scan: tuple(
+        x[:-1] for x in inner(self, scan)))
+
+
+def boundary_imu_dropped(monkeypatch):
+    from immesh_tpu_torch.frontend.sync import PacketSynchronizer
+    inner = PacketSynchronizer.next_bundle
+
+    def wrap(self):
+        if self.scans:
+            keep = [t != self.scans[0].stamp for t in self.imu_t]
+            for name in ("imu_t", "imu_acc", "imu_gyr"):
+                setattr(self, name, [x for x, k in zip(getattr(self, name),
+                                                       keep) if k])
+        return inner(self)
+    monkeypatch.setattr(PacketSynchronizer, "next_bundle", wrap)
+
+
+def times_truncated_to_us(monkeypatch):
+    import immesh_tpu_torch.frontend.native as nat
+    inner = nat.decode_filter
+
+    def wrap(*a, **k):
+        xyz, t, *rest = inner(*a, **k)
+        t = (np.floor(t.astype(np.float64) * 1e6) / 1e6).astype(np.float32)
+        return (xyz, t, *rest)
+    monkeypatch.setattr(nat, "decode_filter", wrap)
+
+
+WIRE_FAULTS = {"last_point_dropped": last_point_dropped,
+               "boundary_imu_dropped": boundary_imu_dropped,
+               "times_truncated_to_us": times_truncated_to_us}

@@ -10,7 +10,7 @@ from them (PERF.md §2).
         [--device cuda]
 
 From the root of a checkout.  A mode is `none`, `tf32` or a fault's name
-in perfbench/tools/faults.py's FAULTS or BA_FAULTS.  With --config and
+in perfbench/tools/faults.py's FAULTS, BA_FAULTS or WIRE_FAULTS.  With --config and
 --traffic the cell is configs/<config>.json under traffic/<traffic>.json,
 listed in BENCHMARK.json or not."""
 
@@ -48,7 +48,7 @@ def main(argv=None) -> int:
     from perfbench.tools import faults as F
 
     w = args.workload
-    faults = {**F.FAULTS, **F.BA_FAULTS}
+    faults = {**F.FAULTS, **F.BA_FAULTS, **F.WIRE_FAULTS}
     for seed in (int(x) for x in args.seeds.split(",")):
         for mode in args.modes.split(","):
             c = (cells.assemble(w, args.config, args.traffic)

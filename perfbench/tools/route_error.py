@@ -81,7 +81,7 @@ def main(argv=None) -> int:
     errs, lat, refined = [], [], []
     for k in range(args.frames):
         t0 = time.perf_counter()
-        pos, diag = entry.step(stream.bundle(k))
+        pos, diag = entry.step(stream.feed(k))
         lat.append(1e3 * (time.perf_counter() - t0))
         refined.append(bool(diag.get("ba_refined", False)))
         _, truth = route.pose(np.array([(k + 1) * T]))

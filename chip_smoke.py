@@ -58,13 +58,13 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 move over the memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
                 scans from the outdoor simulator, adaptive re-mesh budget)
-                for warm-up plus N timed frames, the frame (its LIO step,
-                then its mesh step) one captured CUDA graph (frame 0 eager,
-                frame 1 captured, then replayed; the other paths capture
-                their LIO and mesh steps as two graphs, but the ablation's
-                and the stage profilers' mesh step and dist/); the frame
-                graph's IF nodes and set launches by site and the bodies
-                it ran against each frame's diag (check_sites);
+                for warm-up plus N timed frames, the frame two captured
+                CUDA graphs, its LIO step's and its mesh step's, the mesh
+                half on its own stream (frame 0 eager, frame 1 captured,
+                then replayed; so on every path but the ablation's and the
+                stage profilers' mesh step and dist/); the two graphs' IF
+                nodes and set launches by site and the bodies they ran
+                against each frame's diag (check_sites);
                 checks that pairs_argmin ran on the device (its own device
                 counter) on every frame with active voxels and that every
                 path kernel (pairs_argmin, the planes, parent and
@@ -228,29 +228,31 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 `kernels` line, its costliest single call (a 768-byte
                 slot-row set) and the LIO's costliest group (the plane
                 refit's 8 fields, also timed as 8 single launches) too;
- 17. frame graph — the KITTI JointPipeline (phase 4's 3 + 40 scans,
-                adaptive budget) three ways from the same start, in turns:
-                eager (graph=False), the frame as one captured graph, and
-                the two-graph composition (a captured LioPipeline and
-                MeshPipeline chained); then the Avia ImMeshRuntime (3 + 30
-                frames) with its mesh step eager and captured: point map,
+ 17. frame graphs — the KITTI JointPipeline (phase 4's 3 + 40
+                scans, adaptive budget) two ways from the same start, in
+                turns: eager (graph=False, serial) and the frame's two
+                captured graphs, the mesh half on its own stream; then the
+                two again from a new start with the pose read alone (ms a
+                frame, the share of frames whose LIO step overlapped the
+                last mesh half), bit for bit at the end; then the Avia
+                ImMeshRuntime (3 + 30 frames) with its mesh step eager and
+                captured: point map,
                 store, work list, active count, every drop counter, filter
                 state and plane map bit for bit on every frame, the plane
                 maps compacted to half after GRAPH_COMPACT_AT and the KITTI
                 mesh maps on their own (Avia: both maps forced after
                 GRAPH_AVIA_COMPACT_AT); the compaction and hi/lo budget
-                frames equal; the frame graph's kernel, memcpy, memset and
+                frames equal; the two graphs' kernel, memcpy, memset and
                 conditional nodes and recorded launches equal to phase
-                4's, its kernel and conditional nodes and launches to the
-                two graphs' sum, the two-graph LIO graph to phase 16's;
+                4's, the LIO graph's to phase 16's;
                 the inserts of the cluster form; IF nodes and set launches
                 by site, the bodies run on the device against diag, the
                 chunks skipped a frame; one frame of each (the polls left
                 out) under torch.profiler, 0 syncs in the captured ones;
                 ms a frame each way, and the frame split: wall, the
-                graphs' device span (CUDA events around each replay) and
-                the time outside them, and the frame graph's device-busy
-                ms replayed alone.
+                frame's device span (CUDA events from the LIO replay's
+                start to the mesh replay's end) and the time outside it,
+                and the two graphs' device-busy ms replayed alone.
 
 Phase 16b, after 16, holds segment_sum (csrc/segment_sum.cu) bit for bit
 to the parent's `values[order]` + torch.segment_reduce (one segment more,
@@ -1001,12 +1003,36 @@ def recorded_launches(g) -> dict:
     return out
 
 
+def summed_nodes(graphs) -> dict:
+    """The nodes of `graphs` (utils/graphs.py's Graph) by type, summed."""
+    out = {}
+    for g in graphs:
+        for k, n in g.nodes().items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def summed_launches(graphs) -> dict:
+    """recorded_launches of `graphs`, summed by kernel."""
+    out = {}
+    for g in graphs:
+        for k, n in recorded_launches(g).items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def mesh_counters() -> dict:
+    """The mesh half's three counters (mesh/pipeline.py::MeshPipeline),
+    summed over the frame trace's ring: counted while the trace is on."""
+    from immesh_tpu_torch.utils.timers import trace
+    counts = trace.frame_counts()
+    return {k: sum(c.get(k, 0) for c in counts)
+            for k in ("pose_before_mesh", "lio_over_mesh", "mesh_joins")}
+
+
 def pipe_graphs(p) -> list:
-    """The captured graphs (utils/graphs.py's Graph) of a JointPipeline (its
-    frame graph, or the LIO and mesh graphs of the pipelines it composes
-    with graph=False) or of an ImMeshRuntime's LIO and mesh steps."""
-    if getattr(p, "captured", None) is not None:
-        return list(p.captured.graphs)
+    """The captured graphs (utils/graphs.py's Graph) of a JointPipeline or
+    an ImMeshRuntime: its LIO step's, then its mesh step's."""
     return [g for part in (p.lio, p.mesh)
             if part is not None and part.captured is not None
             for g in part.captured.graphs]
@@ -2189,14 +2215,18 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
     trace.disable()
     compact_ms = [r.ms for fr in trace.frames() for r in fr
                   if r.name == "compact"]
-    (graph,) = pipe.captured.graphs
-    if pipe.captured.replays != len(gt) - 1:
-        raise AssertionError(f"main: {pipe.captured.replays} replays of the "
-                             f"frame graph in {len(gt)} frames")
-    hashes = path_counts("main", graphs=[graph])
-    forms = captured_forms([graph], "main")
-    nodes = graph.nodes()
-    sites = check_sites("KITTI JointPipeline (phase 4)", [graph], rows, cfg)
+    # the frame's two graphs: the LIO's, then the mesh half's on its own
+    # stream
+    fgraphs = pipe.captured.graphs
+    if [g.replays for g in fgraphs] != [len(gt) - 1] * 2:
+        raise AssertionError(f"main: {[g.replays for g in fgraphs]} replays "
+                             f"of the LIO and mesh graphs in {len(gt)} "
+                             f"frames")
+    hashes = path_counts("main", graphs=fgraphs)
+    forms = captured_forms(fgraphs, "main")
+    nodes = summed_nodes(fgraphs)
+    recorded = summed_launches(fgraphs)
+    sites = check_sites("KITTI JointPipeline (phase 4)", fgraphs, rows, cfg)
     n_chunks = -(-cfg.mesh.active_voxels_per_frame // cfg.mesh.mesh_chunk)
     if sites["if_nodes"]["nodes"] != {**lio_sites(cfg), "chunk": n_chunks} \
             or sites["set_launches"] != {**lio_launches(cfg),
@@ -2232,14 +2262,14 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"{p90:.1f} ms p90; pairs_argmin {timed_launches} runs "
         f"(~{100 * share:.2f} % of frame time at the phase-2 kernel time); "
         f"pose err max {max(errs):.3f} m, last {errs[-1]:.3f} m")
-    def in_bodies(g, k):
-        return sum(b.captured.get(k, 0) for b in g.bodies)
+    def in_bodies(k):
+        return sum(b.captured.get(k, 0) for g in fgraphs for b in g.bodies)
 
     log("[main] over all " + str(len(gt)) + " frames: " + ", ".join(
         f"{k} {n} wrapper launches and {hashes['runs'][k]} runs on the "
         f"device ({hashes['runs'][k] / len(gt):.1f} a frame; recorded "
-        f"{graph.captured.get(k, 0)} + {in_bodies(graph, k)} in IF bodies "
-        f"into the frame graph)"
+        f"{recorded.get(k, 0) - in_bodies(k)} + {in_bodies(k)} in IF "
+        f"bodies into the LIO and mesh graphs)"
         for k, n in hashes["launches"].items())
         + f"; hash_insert launches recorded into the graph by form {forms}; "
         f"the set kernel recorded {hashes['recorded'][COND_KERNEL]} times "
@@ -2253,9 +2283,11 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"(mesh {pipe.mesh.n_compactions}, lio {pipe.lio.n_compactions}, "
         f"{sum(compact_ms):.1f} ms in {len(compact_ms)} `compact` spans of "
         f"the frame trace), drops {drops}")
-    log(f"[main] the frame (LIO step and mesh step) ran as one captured "
-        f"CUDA graph: {pipe.captured.replays} replays of {len(gt)} frames "
-        f"(frame 0 eager, the warm-up), the graph's nodes {nodes}; "
+    log(f"[main] the frame ran as two captured CUDA graphs, the LIO step "
+        f"and the mesh step on the mesh half's own stream: "
+        f"{pipe.captured.replays} replays of {len(gt)} frames (frame 0 "
+        f"eager, the warm-up), the graphs' nodes {nodes}; the mesh half's "
+        f"counters (the frame trace's) {mesh_counters()}; "
         f"probe, set_drop and add_drop calls outside it recorded (copies "
         f"of the tables and targets they found, taken in every frame's "
         f"time, none inside a capture)")
@@ -2268,7 +2300,7 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
         f"{sum(map(len, probes.values()))} probes and "
         f"{sum(map(len, scatters.values()))} scatters")
     return {"gt": gt, "pos": positions, "scans": scans, "R0": R0, "p0": p0,
-            "graph_nodes": nodes, "graph_captured": recorded_launches(graph),
+            "graph_nodes": nodes, "graph_captured": recorded,
             "sites": sites}, probes, scatters
 
 
@@ -5552,8 +5584,7 @@ def run_frames(pipes: dict, frames, compact_at, mesh_compact_at,
             r["budget"] = n
     for n, p in pipes.items():
         reps = sum(g.replays for g in pipe_graphs(p))
-        want = sum(len(frames) - 1 for part in
-                   ((p,) if getattr(p, "captured", None) else (p.lio, p.mesh))
+        want = sum(len(frames) - 1 for part in (p.lio, p.mesh)
                    if part.captured is not None)
         if reps != want:
             raise AssertionError(f"mesh graph: {n}: {reps} replays of "
@@ -5604,24 +5635,44 @@ def frame_split(rows, warmup, name, steps) -> dict:
                                               90))}
 
 
+def pose_only(pipe, frames) -> dict:
+    """A JointPipeline stepped over `frames` with the pose read alone, as a
+    replay or a live run without the benchmark's polls: ms a frame (wall,
+    the host clock, no synchronize but the pose read) median over the
+    frames after the first 3, and the share of frames whose LIO step was
+    launched while the previous mesh half still ran (lio_over_mesh, found
+    as the pipeline counts it: one query of the last half's event)."""
+    over, ms = 0, []
+    for b in frames:
+        done = pipe.mesh.done
+        over += done is not None and not done.query()
+        t0 = time.perf_counter()
+        pipe.step(b)
+        pipe.state.pos.cpu()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return {"median": statistics.median(ms[3:]),
+            "lio_over_mesh_share": over / (len(frames) - 1)}
+
+
 def phase_mesh_graph(dev, main_info) -> dict:
     """Phase 17.  The KITTI JointPipeline (phase 4's 3 + 40 scans, its
-    adaptive budget) three ways from the same start, in turns (run_frames):
-    eager (graph=False), the frame as one captured graph (the default on
-    the card), and the two-graph composition (a captured LioPipeline and a
-    captured MeshPipeline chained by a graph=False JointPipeline), the
-    plane maps compacted to half after GRAPH_COMPACT_AT and the mesh maps
-    on their own; then the Avia ImMeshRuntime (3 + 30 frames) with its mesh
-    step eager and captured (both maps forced after GRAPH_AVIA_COMPACT_AT).
-    The frame graph's kernel, memcpy, memset and conditional nodes and
-    recorded launches equal to phase 4's, its kernel and conditional nodes
-    to the two graphs' sum, the two-graph LIO graph to phase 16's; IF nodes
-    and set launches by site; the bodies run on the device against diag;
-    0 syncs in a captured frame or mesh step; ms a frame each way and the
-    frame split: wall, the graphs' device span, the time outside them, and
-    the frame graph's device-busy time under torch.profiler."""
+    adaptive budget) two ways from the same start, in turns (run_frames):
+    eager (graph=False, serial) and the frame's two captured graphs with
+    the mesh half on its own stream (the default on the card), the plane
+    maps compacted to half after GRAPH_COMPACT_AT and the mesh maps on
+    their own; then the same two from a new start with the pose read alone
+    (pose_only), bit for bit at the end; then the Avia ImMeshRuntime (3 +
+    30 frames) with its mesh step eager and captured (both maps forced
+    after GRAPH_AVIA_COMPACT_AT).  The two graphs' kernel, memcpy, memset
+    and conditional nodes and recorded launches equal to phase 4's, the
+    LIO graph's to phase 16's; IF nodes and set launches by site; the
+    bodies run on the device against diag; 0 syncs in a captured frame or
+    mesh step; ms a frame each way and the frame split: wall, the frame's
+    device span from the LIO replay's start to the mesh replay's end, the
+    time outside it, and the two graphs' device-busy time replayed alone
+    under torch.profiler."""
     import immesh_tpu_torch.runtime.joint as joint
-    from immesh_tpu_torch.lio.pipeline import LioPipeline
     from immesh_tpu_torch.mesh.pipeline import MeshPipeline
     from immesh_tpu_torch.runtime.app import ImMeshRuntime
     from immesh_tpu_torch.utils.timers import profile_counts
@@ -5635,73 +5686,52 @@ def phase_mesh_graph(dev, main_info) -> dict:
         return joint.JointPipeline(cfg, adaptive_mesh_budget=2048,
                                    device=dev, graph=graph)
 
-    two = make_joint(graph=False)
-    two.lio = LioPipeline(cfg, device=dev)
-    two.mesh = MeshPipeline(cfg, device=dev)
-    pipes = {"eager": make_joint(graph=False), "one_graph": make_joint(),
-             "two_graphs": two}
-    one = pipes["one_graph"]
-    for step in (one.captured, two.lio.captured, two.mesh.captured):
-        step.replay_events = []
+    pipes = {"eager": make_joint(graph=False), "pipelined": make_joint()}
+    piped = pipes["pipelined"]
+    piped.captured.replay_events = []
     reset_counts()
     # the plane map compacted by force (it stays below its high-water
     # mark), the mesh map on its own (twice in phase 4)
     rows, counts = run_frames(pipes, frames, GRAPH_COMPACT_AT, (),
-                              "one_graph")
-    (g,) = one.captured.graphs
-    lg, mg = pipe_graphs(two)
-    path_counts("mesh_graph_kitti", counts, graphs=[g])
-    forms = captured_forms([g, lg, mg], "mesh graph")
-    log(f"[mesh graph] KITTI: per frame (the one-graph pipeline) "
+                              "pipelined")
+    fgraphs = piped.captured.graphs
+    lg, mg = fgraphs
+    path_counts("mesh_graph_kitti", counts, graphs=fgraphs)
+    forms = captured_forms(fgraphs, "mesh graph")
+    log(f"[mesh graph] KITTI: per frame (the pipelined frame) "
         + ", ".join(f"{counts['runs'][k] / len(frames):.2f} {k}"
                     for k in COUNTED)
         + f" runs on the device ({counts}); the inserts recorded into the "
-        f"three graphs by form {forms}")
+        f"two graphs by form {forms}")
     same = ("kernel", "memcpy", "memset", "conditional")
-    nodes, lnodes, mnodes = g.nodes(), lg.nodes(), mg.nodes()
+    nodes, lnodes = summed_nodes(fgraphs), lg.nodes()
     if [nodes.get(k, 0) for k in same] != [
             main_info["graph_nodes"].get(k, 0) for k in same] \
-            or recorded_launches(g) != main_info["graph_captured"]:
+            or summed_launches(fgraphs) != main_info["graph_captured"]:
         raise AssertionError(
-            f"mesh graph: the KITTI frame graph holds {nodes} nodes and "
-            f"{recorded_launches(g)} kernel launches, phase 4's (recorders "
-            f"on) {main_info['graph_nodes']} and "
+            f"mesh graph: the KITTI frame's graphs hold {nodes} nodes and "
+            f"{summed_launches(fgraphs)} kernel launches, phase 4's "
+            f"(recorders on) {main_info['graph_nodes']} and "
             f"{main_info['graph_captured']}")
     if [lnodes.get(k, 0) for k in same] != [
             main_info["lio_graph_nodes"].get(k, 0) for k in same] \
             or recorded_launches(lg) != main_info["lio_graph_captured"]:
         raise AssertionError(
-            f"mesh graph: the two-graph frame's LIO graph holds {lnodes} "
-            f"nodes and {recorded_launches(lg)} launches, phase 16's "
+            f"mesh graph: the frame's LIO graph holds {lnodes} nodes and "
+            f"{recorded_launches(lg)} launches, phase 16's "
             f"{main_info['lio_graph_nodes']} and "
             f"{main_info['lio_graph_captured']}")
-    summed = {k: lnodes.get(k, 0) + mnodes.get(k, 0) for k in same}
-    launched = {k: recorded_launches(lg).get(k, 0)
-                + recorded_launches(mg).get(k, 0) for k in COUNTED}
-    if [nodes.get(k, 0) for k in ("kernel", "conditional")] != [
-            summed["kernel"], summed["conditional"]] or {
-                k: recorded_launches(g).get(k, 0) for k in COUNTED} \
-            != launched:
-        raise AssertionError(
-            f"mesh graph: the frame graph holds {nodes} nodes and "
-            f"{recorded_launches(g)} launches, the two graphs {summed} and "
-            f"{launched}")
-    sites = check_sites("KITTI JointPipeline, one graph", [g], rows, cfg)
-    two_sites = {"if_nodes": if_nodes([lg, mg])["nodes"],
-                 "set_launches": set_launches([lg, mg])}
+    sites = check_sites("KITTI JointPipeline, two graphs", fgraphs, rows,
+                        cfg)
     mc = cfg.mesh
     n_chunks = -(-mc.active_voxels_per_frame // mc.mesh_chunk)
-    want = {**lio_sites(cfg), "chunk": n_chunks}
-    if sites["if_nodes"]["nodes"] != want \
-            or two_sites["if_nodes"] != want \
+    if sites["if_nodes"]["nodes"] != {**lio_sites(cfg), "chunk": n_chunks} \
             or sites["set_launches"] != {**lio_launches(cfg),
-                                         "chunk": n_chunks} \
-            or two_sites["set_launches"] != sites["set_launches"]:
+                                         "chunk": n_chunks}:
         raise AssertionError(f"mesh graph: IF nodes and set launches by "
-                             f"site: one graph {sites}, two graphs "
-                             f"{two_sites}")
+                             f"site: {sites}")
     kitti = {k: ms_summary(rows, 3, k) for k in pipes}
-    kitti.update(chunk_sites("KITTI JointPipeline", rows, [g]))
+    kitti.update(chunk_sites("KITTI JointPipeline", rows, [mg]))
     comp = [r["compactions"] for r in rows]
     kitti["mesh_compaction_frames"] = [
         k for k in range(1, len(rows)) if comp[k][1] > comp[k - 1][1]]
@@ -5710,58 +5740,73 @@ def phase_mesh_graph(dev, main_info) -> dict:
     if not kitti["mesh_compaction_frames"]:
         raise AssertionError("mesh graph: the KITTI mesh map never "
                              "compacted on its own")
-    kitti["split_one_graph"] = frame_split(rows, 3, "one_graph",
-                                           [one.captured])
-    kitti["split_two_graphs"] = frame_split(
-        rows, 3, "two_graphs", [two.lio.captured, two.mesh.captured])
-    kitti["nodes"], kitti["two_graph_nodes"] = nodes, summed
-    kitti["sites"] = sites
+    kitti["split"] = frame_split(rows, 3, "pipelined", [piped.captured])
+    piped.captured.replay_events = None
+    kitti["nodes"], kitti["sites"] = nodes, sites
     R0, p0 = main_info["R0"], main_info["p0"]
-    err = float(np.linalg.norm(R0 @ one.lio.state.pos.cpu().numpy() + p0
+    err = float(np.linalg.norm(R0 @ piped.lio.state.pos.cpu().numpy() + p0
                                - gt[-1].gt_pos))
     if err > POSE_TOL_M:
         raise AssertionError(f"mesh graph: KITTI pose {err:.3f} m from "
                              f"ground truth (limit {POSE_TOL_M} m)")
-    # one frame of each (the last scan again, the polls left out) under
-    # torch.profiler, and the frame graph replayed alone (its static
-    # inputs: the last frame again): the graph's device-busy time
+    # one frame of each (the last scan again, no poll pending: the mesh
+    # poll only copies) under torch.profiler, and the two graphs replayed
+    # alone (their static inputs: the last frame again): their device-busy
+    # time
     prof = {}
     for n, p in pipes.items():
+        p.mesh._occ_pending = None
         _, prof[n] = profile_counts(lambda: joint._frame(p, frames[-1],
                                                           p.cfg))
-    for n in ("one_graph", "two_graphs"):
-        if prof[n]["syncs"] != 0:
-            raise AssertionError(f"mesh graph: the {n} frame waited on the "
-                                 f"card: {prof[n]}")
+    if prof["pipelined"]["syncs"] != 0:
+        raise AssertionError(f"mesh graph: the pipelined frame waited on "
+                             f"the card: {prof['pipelined']}")
     torch.cuda.synchronize()
-    _, prof["frame_graph_replay"] = profile_counts(g.graph.replay)
+    _, prof["graphs_replay"] = profile_counts(
+        lambda: [g.graph.replay() for g in fgraphs])
     kitti["profiled"] = prof
-    sp1, sp2 = kitti["split_one_graph"], kitti["split_two_graphs"]
+    del pipes, piped
+    # the pose alone, each way from a new start, bit for bit at the end
+    pose = {"eager": make_joint(graph=False), "pipelined": make_joint()}
+    kitti["pose_only"] = {n: pose_only(p, frames) for n, p in pose.items()}
+    bad = mesh_differs(pose["eager"].mesh, pose["pipelined"].mesh) \
+        + lio_differs(pose["eager"].lio.state, pose["pipelined"].lio.state,
+                      pose["eager"].lio.vm, pose["pipelined"].lio.vm)
+    if bad or pose["eager"].mesh.n_compactions \
+            != pose["pipelined"].mesh.n_compactions:
+        raise AssertionError(f"mesh graph: the pose-only runs differ in "
+                             f"{bad}")
+    del pose
+    sp, po = kitti["split"], kitti["pose_only"]
     log(f"[mesh graph] KITTI: {smi}; {len(rows)} frames (3 warm-up), the "
-        f"one-graph, eager and two-graph frames bit-identical every frame; "
-        f"ms a frame median / p90: " + ", ".join(
+        f"pipelined and eager frames bit-identical every frame; ms a frame "
+        f"median / p90: " + ", ".join(
             f"{n} {kitti[n]['median']:.2f} / {kitti[n]['p90']:.2f}"
-            for n in pipes)
+            for n in ("eager", "pipelined"))
         + f"; compactions of the mesh map after frames "
         f"{kitti['mesh_compaction_frames']}, hi budget on frames "
-        f"{kitti['hi_budget_frames']}; the frame graph's nodes {nodes} "
-        f"(phase 4's; the LIO and mesh graphs' kernel and conditional "
-        f"nodes summed {summed}); {kitti['chunk_nodes']} chunk IF nodes, "
+        f"{kitti['hi_budget_frames']}; the two graphs' nodes {nodes} "
+        f"(phase 4's); {kitti['chunk_nodes']} chunk IF nodes, "
         f"{kitti['chunk_runs']} chunk bodies run on the device as the "
         f"chunks with an active voxel say, "
         f"{kitti['chunks_skipped_a_frame']:.2f} skipped a replayed frame; "
         f"pose err {err:.3f} m")
     log(f"[mesh graph] KITTI frame split (medians over the timed frames, "
-        f"ms): one graph: wall {sp1['wall_median']:.3f}, the graph's device "
-        f"span {sp1['graphs_median']:.3f} (p90 {sp1['graphs_p90']:.3f}), "
-        f"outside it {sp1['outside_median']:.3f}; two graphs: wall "
-        f"{sp2['wall_median']:.3f}, the graphs' spans "
-        f"{sp2['graphs_median']:.3f} (p90 {sp2['graphs_p90']:.3f}), outside "
-        f"them {sp2['outside_median']:.3f}; the frame graph replayed alone "
-        f"under torch.profiler: {prof['frame_graph_replay']}; one frame "
-        f"without the polls under torch.profiler: " + ", ".join(
-            f"{n} {prof[n]}" for n in pipes))
-    del pipes, one, two
+        f"ms, each frame synchronised): wall {sp['wall_median']:.3f}, the "
+        f"frame's device span (the LIO replay's start to the mesh replay's "
+        f"end) {sp['graphs_median']:.3f} (p90 {sp['graphs_p90']:.3f}), "
+        f"outside it {sp['outside_median']:.3f}; the two graphs replayed "
+        f"alone under torch.profiler: {prof['graphs_replay']}; one frame "
+        f"with no poll pending under torch.profiler: " + ", ".join(
+            f"{n} {prof[n]}" for n in ("eager", "pipelined")))
+    log(f"[mesh graph] KITTI pose-only loop ({len(frames)} frames from a "
+        f"new start, ms a frame median over the last {len(frames) - 3}): "
+        f"eager {po['eager']['median']:.3f}, pipelined "
+        f"{po['pipelined']['median']:.3f}; lio_over_mesh in "
+        f"{100 * po['pipelined']['lio_over_mesh_share']:.1f} % of the "
+        f"pipelined frames (eager "
+        f"{100 * po['eager']['lio_over_mesh_share']:.1f} %); the two "
+        f"bit-identical at the end")
 
     acfg = avia_config()
     sim = make_avia_sim(acfg)

@@ -7,11 +7,25 @@ place.  On a CUDA device `MeshPipeline` runs the step as one captured CUDA
 graph, replayed every frame, empty chunks skipped on the device by IF nodes
 (mesh/captured.py); `graph=False` and the CPU run `mesh_step` eagerly,
 with the host-side skip of empty chunks.
+
+The mesh half of a frame (`MeshPipeline.half`: the step, the compaction
+poll and what a caller adds) runs on a CUDA stream of the pipeline's own
+where the step is a captured graph, as the reference runs meshing on a
+worker thread beside the odometry (SURVEY.md §3.3).  It starts after the
+work its caller's stream holds, the LIO half that made its world scan and
+pose, and an event recorded after it marks its end, so the caller's stream
+goes on (the pose's read) without it.  Whoever reads what the half writes
+outside it joins first (`join`: the caller's stream waits on that event,
+the host does not): the `gm`, `store`, `last_active` and `last_drops`
+properties do; the active-voxel count that `step` and `advance` return is
+read after a `join` too.  The eager step and the CPU stay on the caller's
+stream, serial.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,32 +70,133 @@ class MeshPipeline:
     """Host-side wrapper holding the global map + triangle store.
 
     On a CUDA device the step is one captured CUDA graph (`graph=True`,
-    mesh/captured.py); `graph=False` runs mesh_step eagerly there, as the
-    CPU always does."""
+    mesh/captured.py) run on the pipeline's own stream (`half`);
+    `graph=False` runs mesh_step eagerly there, as the CPU always does, on
+    the caller's stream.
+
+    While the frame trace is on, it counts three events of the half
+    (utils/timers.py::FrameTrace.count), each found with one query of the
+    last half's event, which never waits: `pose_before_mesh`, frames whose
+    pose was read while their mesh half still ran (`count_pending`);
+    `lio_over_mesh`, frames whose LIO step was launched while the previous
+    mesh half still ran (`count_pending`); `mesh_joins`, joins of a reader
+    outside the half that found it still running.  None is counted where
+    the mesh is serial."""
 
     def __init__(self, cfg: ImMeshConfig, device="cuda", graph: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.gm = GlobalPointMap.create(cfg.mesh, device=self.device)
-        self.store = TriangleStore.create(cfg.mesh, device=self.device)
+        self._gm = GlobalPointMap.create(cfg.mesh, device=self.device)
+        self._store = TriangleStore.create(cfg.mesh, device=self.device)
         self.captured = (CapturedMeshStep(self.device)
                          if graph and self.device.type == "cuda" else None)
+        # the mesh half's stream, where the step is a captured graph
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.captured is not None else None)
+        self.done = None      # event recorded after the last half
+        self._caller = None   # the stream the open half was started from
         self.frame_idx = 0
-        self.last_active = None   # (slots, smask) of the most recent step
-        self.last_drops = None    # drop counters of the most recent step
+        self._last_active = None  # (slots, smask) of the most recent step
+        self._last_drops = None   # drop counters of the most recent step
         self.n_compactions = 0
         self._occ_pending = None  # previous frame's occupancy (HostCopy)
 
+    # the mesh state as a reader outside the half sees it: joined first
+    @property
+    def gm(self) -> GlobalPointMap:
+        self.join()
+        return self._gm
+
+    @gm.setter
+    def gm(self, gm: GlobalPointMap) -> None:
+        self._gm = gm
+
+    @property
+    def store(self) -> TriangleStore:
+        self.join()
+        return self._store
+
+    @store.setter
+    def store(self, store: TriangleStore) -> None:
+        self._store = store
+
+    @property
+    def last_active(self):
+        """(slots, smask) of the most recent step, or None."""
+        self.join()
+        return self._last_active
+
+    @last_active.setter
+    def last_active(self, active) -> None:
+        self._last_active = active
+
+    @property
+    def last_drops(self):
+        """The drop counters (device scalars) of the most recent step, or
+        None."""
+        self.join()
+        return self._last_drops
+
+    @contextlib.contextmanager
+    def half(self):
+        """The mesh half of a frame: on the pipeline's stream where the step
+        is a captured graph, after the work the caller's stream holds now,
+        with the event `done` recorded after it; elsewhere, and inside a
+        half already open, on the current stream as it is."""
+        if self.stream is None or self._caller is not None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        self._caller = caller
+        try:
+            with torch.cuda.stream(self.stream):
+                yield
+        finally:
+            self._caller = None
+        self.done = torch.cuda.Event()
+        self.done.record(self.stream)
+
+    def count_pending(self, counter: str) -> None:
+        """While the frame trace is on, count `counter` (pose_before_mesh or
+        lio_over_mesh) where the last mesh half still runs: one query of its
+        event, no wait."""
+        if trace.on and self.done is not None and not self.done.query():
+            trace.count(counter)
+
+    def join(self, done=None) -> None:
+        """Order the caller's current stream after the last mesh half (or
+        the half whose `done` event is given): one wait on its event, none
+        on the host.  Nothing inside the half, or where the mesh is
+        serial."""
+        done = self.done if done is None else done
+        if self._caller is not None or done is None:
+            return
+        if trace.on and not done.query():
+            trace.count("mesh_joins")
+        torch.cuda.current_stream(self.device).wait_event(done)
+
+    def _crossing(self, tensors, stream) -> None:
+        """Tensors that cross between the caller's stream and the half's:
+        their memory is not handed out again until `stream`'s work queued
+        at their release has run."""
+        if self._caller is not None:
+            for t in tensors:
+                if torch.is_tensor(t):
+                    t.record_stream(stream)
+
     def step(self, pts_world, mask, sensor_pos):
-        """Returns the active-voxel count as a device scalar."""
+        """Returns the active-voxel count as a device scalar, written by the
+        mesh half: read it after `join()`."""
         if pts_world.shape[0] == 0:  # static shapes need ≥1 row; mask it out
             pts_world = torch.zeros((1, 3), dtype=torch.float32)
             mask = torch.zeros(1, dtype=torch.bool)
-        n_active = self.advance(
-            torch.as_tensor(pts_world, device=self.device),
-            torch.as_tensor(mask, device=self.device),
-            torch.as_tensor(sensor_pos, device=self.device))
-        self.maybe_compact(sensor_pos)
+        with self.half():
+            n_active = self.advance(
+                torch.as_tensor(pts_world, device=self.device),
+                torch.as_tensor(mask, device=self.device),
+                torch.as_tensor(sensor_pos, device=self.device))
+            self.maybe_compact(sensor_pos)
         return n_active
 
     def advance(self, pts_world: torch.Tensor, mask: torch.Tensor,
@@ -89,16 +204,20 @@ class MeshPipeline:
         """The mesh step on this pipeline's map and store, without the
         compaction trigger: the captured graph, or mesh_step eagerly, at
         the map's mesh_chunk.  Sets last_active and last_drops; returns the
-        active-voxel count (a device scalar)."""
+        active-voxel count (a device scalar, read after `join()`)."""
         if self.captured is None:
-            (self.gm, self.store, n_active, slots, smask,
-             self.last_drops) = mesh_step(self.gm, self.store, pts_world,
+            (self._gm, self._store, n_active, slots, smask,
+             self._last_drops) = mesh_step(self._gm, self._store, pts_world,
                                           mask, sensor_pos,
-                                          self.gm.cfg.mesh_chunk)
+                                          self._gm.cfg.mesh_chunk)
         else:
-            n_active, slots, smask, self.last_drops = self.captured(
-                self.gm, self.store, pts_world, mask, sensor_pos)
-        self.last_active = (slots, smask)
+            with self.half():
+                self._crossing((pts_world, mask, sensor_pos), self.stream)
+                n_active, slots, smask, self._last_drops = self.captured(
+                    self._gm, self._store, pts_world, mask, sensor_pos)
+                self._crossing((n_active, slots, smask,
+                                *self._last_drops.values()), self._caller)
+        self._last_active = (slots, smask)
         self.frame_idx += 1
         return n_active
 
@@ -111,46 +230,51 @@ class MeshPipeline:
         As the reference's one-frame-delayed poll, the occupancy is copied
         to the host asynchronously after each frame and read on the next
         (device.HostCopy), so no frame waits on its own work and the
-        compactions fall on the same frames in both."""
+        compactions fall on the same frames in both.  Part of the mesh
+        half (`half`)."""
         mc = self.cfg.mesh
         if mc.compact_check_every <= 0:
             return False
-        high_p = mc.compact_high_water * mc.points_capacity
-        high_v = mc.compact_high_water * mc.voxel_capacity
-        pending = self._occ_pending
-        # a copy of pt_count's value now: the next frame writes it in place
-        self._occ_pending = HostCopy(torch.stack([
-            self.gm.n_points().to(torch.int64), self.gm.vox.occupancy()]))
-        if pending is None:
-            return False
-        n_p, n_v = pending.value()
-        if n_p <= high_p and n_v <= high_v:
-            return False
-        self._occ_pending = None  # state changes below invalidate the poll
-        self.n_compactions += 1
-        with trace.span("compact"):
-            # hysteresis: target the LOW water mark, radius solved in one
-            # pass
-            low_p = mc.compact_low_water * mc.points_capacity
-            low_v = mc.compact_low_water * mc.voxel_capacity
-            center = torch.as_tensor(sensor_pos, device=self.device)
-            radius = _keep_radius_mesh(self.gm, center, int(low_p),
-                                       int(low_v), mc.local_map_radius)
-            _compact_mesh(self.gm, self.store, center, radius)
-            r = float(radius) * 0.7
-            for _ in range(2):  # quantile-granularity guard, rarely taken
-                if (int(self.gm.n_points()) <= high_p
-                        and int(self.gm.vox.occupancy()) <= high_v):
-                    break
-                _compact_mesh(self.gm, self.store, center, torch.tensor(
-                    r, dtype=torch.float32, device=self.device))
-                r *= 0.7
-        return True
+        with self.half():
+            gm = self._gm
+            high_p = mc.compact_high_water * mc.points_capacity
+            high_v = mc.compact_high_water * mc.voxel_capacity
+            pending = self._occ_pending
+            # a copy of pt_count's value now: the next frame writes it in place
+            self._occ_pending = HostCopy(torch.stack([
+                gm.n_points().to(torch.int64), gm.vox.occupancy()]))
+            if pending is None:
+                return False
+            n_p, n_v = pending.value()
+            if n_p <= high_p and n_v <= high_v:
+                return False
+            self._occ_pending = None  # state changes below invalidate the poll
+            self.n_compactions += 1
+            with trace.span("compact"):
+                # hysteresis: target the LOW water mark, radius solved in one
+                # pass
+                low_p = mc.compact_low_water * mc.points_capacity
+                low_v = mc.compact_low_water * mc.voxel_capacity
+                center = torch.as_tensor(sensor_pos, device=self.device)
+                self._crossing((center,), self.stream)
+                radius = _keep_radius_mesh(gm, center, int(low_p),
+                                           int(low_v), mc.local_map_radius)
+                _compact_mesh(gm, self._store, center, radius)
+                r = float(radius) * 0.7
+                for _ in range(2):  # quantile-granularity guard, rarely taken
+                    if (int(gm.n_points()) <= high_p
+                            and int(gm.vox.occupancy()) <= high_v):
+                        break
+                    _compact_mesh(gm, self._store, center, torch.tensor(
+                        r, dtype=torch.float32, device=self.device))
+                    r *= 0.7
+            return True
 
     def pending_occupancy(self):
         """The mesh maps' (points, voxels) after the last frame, as the
         pending compaction poll holds them (the host copy maybe_compact
         reads on the next frame), or None where no poll is pending."""
+        self.join()
         pending = self._occ_pending
         return None if pending is None else tuple(pending.value())
 

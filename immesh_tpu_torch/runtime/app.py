@@ -5,7 +5,9 @@ the mesh step on each frame (the reference's LIO thread, frame queue and
 mesh thread pool, src/voxel_mapping.cpp:1660-2050 and
 ImMesh_mesh_reconstruction.cpp:272-326, collapsed into one loop).  Kernels
 on the card run asynchronously, so host prep of the next frame overlaps
-them.
+them, and the mesh step runs on a stream of its own, as the reference's
+mesh threads run beside its odometry: the pose is read once the LIO step
+is done.
 
   * static IMU init, per-frame step with the IMU-gap filter reset,
     pose/trajectory logging (kitti_log);
@@ -116,18 +118,29 @@ class ImMeshRuntime:
 
         `imu_gap` (a stream anomaly) re-initialises the filter before the
         step (reference m_flg_reset, src/voxel_mapping.cpp:1791-1797).  The
+        LIO step is launched, then the mesh step (on the MeshPipeline's
+        own stream on the card, mesh/pipeline.py::MeshPipeline.half), then
+        the pose is read, which waits for the LIO step alone.  The
         active-voxel count is a device scalar; it reaches the cost log one
-        frame late.  The frame is the frame trace's `frame` span, and its
-        pose reads (`pos`, and the quaternion) its `pose_read` spans."""
+        frame late, after a join of its own frame's mesh half.  The frame
+        is the frame trace's `frame` span, and its pose reads (`pos`, and
+        the quaternion) its `pose_read` spans."""
         with trace.frame(self.frame_idx, self.device):
             if imu_gap:
                 self.lio.reset_filter(keep_pose=True)
 
+            mesh = self.mesh
+            if mesh is not None:
+                mesh.count_pending("lio_over_mesh")
             world_scan, diag = self.lio.step(bundle)
-            n_active_dev = None
-            if self.mesh is not None:
-                n_active_dev = self.mesh.step(
-                    world_scan, bundle.mask, self.lio.state.pos)
+            n_active_dev = done = None
+            if mesh is not None:
+                # on the mesh's own stream where it is a captured graph:
+                # the pose below waits for the LIO step alone
+                n_active_dev = mesh.step(world_scan, bundle.mask,
+                                         self.lio.state.pos)
+                done = mesh.done
+                mesh.count_pending("pose_before_mesh")
 
             with trace.pose_read():
                 pos = self.lio.state.pos.cpu().numpy()
@@ -162,14 +175,15 @@ class ImMeshRuntime:
                     # voxel_mapping.cpp:947-1159): the LIO map's fitted
                     # planes beside the mesh regions
                     self._live.record_planes(extract_planes(self.lio.vm))
-            self._pending_cost.append((self.frame_idx, n_active_dev))
+            self._pending_cost.append((self.frame_idx, n_active_dev, done))
             # flush rows at least one frame old: their work has retired
             while len(self._pending_cost) > 1:
                 self._flush_cost()
             self.frame_idx += 1
         return {
             "pos": pos,
-            # device scalars — callers that want numbers int() them
+            # device scalars — callers that want numbers int() them; the
+            # mesh half writes this one: int() it after self.mesh.join()
             "n_active_voxels": n_active_dev,
             "n_effective": diag["n_effective"],
             "iterations": diag["iterations"], "levels": diag["levels"],
@@ -177,7 +191,9 @@ class ImMeshRuntime:
         }
 
     def _flush_cost(self) -> None:
-        fi, nact = self._pending_cost.popleft()
+        fi, nact, done = self._pending_cost.popleft()
+        if done is not None:  # the count's own mesh half, not a later one
+            self.mesh.join(done)
         # the trace's spans of frame fi; none while it is off (its ring may
         # hold another run's frames)
         mesh_ms, lio_ms = (trace.span_ms(fi, name) if trace.on else None

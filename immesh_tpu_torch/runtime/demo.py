@@ -55,6 +55,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         stats = rt.process_frame(b, t=k * sim.scan_T)
         err = np.linalg.norm(stats["pos"] - f.gt_pos)
         n_vox = stats["n_active_voxels"]
+        if rt.mesh is not None:   # written by the mesh half: join it first
+            rt.mesh.join()
         lio_ms, mesh_ms = (trace.span_ms(k, n) for n in ("lio", "mesh"))
         print(f"frame {k:3d}  lio {_ms(lio_ms)} ms  mesh {_ms(mesh_ms)} ms  "
               f"voxels {0 if n_vox is None else int(n_vox):4d}  "

@@ -5,15 +5,20 @@ frame, with both pipelines' occupancy-triggered compaction after it.  The
 JAX reference donates the four persistent states (filter state, plane voxel
 map, global point map, triangle store) into one jitted program, joint_step;
 here the maps and store are updated in place and the small filter state is
-replaced.  On a CUDA device `JointPipeline.step` replays that program's
-counterpart, the frame as one captured CUDA graph (runtime/captured.py),
-with the compactions between frames; `graph=False`, and the CPU, compose
-the LioPipeline's and the MeshPipeline's steps eagerly.
+replaced.  On a CUDA device `JointPipeline.step` replays the LIO step's
+captured graph on the caller's stream, then the mesh half on the
+MeshPipeline's own stream (mesh/pipeline.py::MeshPipeline.half): the mesh
+step's graph, the backlog's copy and the mesh compaction poll, after the
+LIO half that made its world scan and pose.  The pose is read as soon as
+the LIO half is done, and the mesh half's state is joined by whoever reads
+it (MeshPipeline.join).  `graph=False`, and the CPU, compose the
+LioPipeline's and the MeshPipeline's steps eagerly, serial.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -22,7 +27,7 @@ from immesh_tpu_torch.device import HostCopy, resolve_device
 from immesh_tpu_torch.frontend.types import ScanBundle
 from immesh_tpu_torch.lio.pipeline import LioPipeline
 from immesh_tpu_torch.mesh.pipeline import MeshPipeline
-from immesh_tpu_torch.runtime.captured import CapturedJointStep
+from immesh_tpu_torch.runtime.captured import FrameSteps
 from immesh_tpu_torch.utils.timers import trace
 
 
@@ -38,19 +43,21 @@ def _mesh_half(mesh: MeshPipeline, world_scan, bundle, state, diag, cfg):
 
 
 def _frame(pipe: "JointPipeline", bundle, cfg):
-    """JointPipeline.step's frame, before the polls: one replay of the
-    frame graph on the card, else the LIO step then _mesh_half.  Returns
-    (world_scan, diag).  `cfg` is the frame's config, as _mesh_half's."""
+    """JointPipeline.step's frame, before the plane map's poll: the LIO
+    step, then the mesh half (_mesh_half, the backlog's copy and the mesh
+    compaction poll, on the mesh stream where the mesh step is captured).
+    Returns (world_scan, diag).  `cfg` is the frame's config, as
+    _mesh_half's."""
     lio, mesh = pipe.lio, pipe.mesh
-    if pipe.captured is None:
-        world_scan, diag = lio.advance(bundle)
-        return world_scan, _mesh_half(mesh, world_scan, bundle, lio.state,
-                                      diag, cfg)
-    (lio.state, world_scan, diag, n_active, slots, smask,
-     mesh.last_drops) = pipe.captured(lio.state, lio.vm, mesh.gm, mesh.store,
-                                      bundle)
-    mesh.last_active = (slots, smask)
-    return world_scan, dict(diag, n_active_voxels=n_active, **mesh.last_drops)
+    mesh.count_pending("lio_over_mesh")
+    world_scan, diag = lio.advance(bundle)
+    with mesh.half():
+        diag = _mesh_half(mesh, world_scan, bundle, lio.state, diag, cfg)
+        if pipe._cfg_hi is not None:
+            pipe._backlog_q = (pipe._backlog_q
+                               + [HostCopy(diag["drop_deferred"])])[-2:]
+        mesh.maybe_compact(lio.state.pos)
+    return world_scan, diag
 
 
 class JointPipeline:
@@ -68,16 +75,18 @@ class JointPipeline:
     is given.
 
     A step is the reference joint_step's composition.  On a CUDA device it
-    is one replay of the frame graph (runtime/captured.py), which neither
-    the inner LioPipeline nor the MeshPipeline captures a graph of their
-    own for; neither step reads a mesh budget from the frame's config, so
-    one graph serves both budgets.  `graph=False`, and the CPU, run the
-    LioPipeline's step without its compaction trigger
-    (LioPipeline.advance), then the MeshPipeline's (_mesh_half): eagerly,
-    or, where a caller replaced `lio` or `mesh` with a pipeline of its own
-    before the first step, as that pipeline runs it (a captured LioPipeline
-    and MeshPipeline chain the two graphs of one).  `_frame` is the hook
-    the budget recorders wrap."""
+    replays the LioPipeline's graph, then, on the MeshPipeline's stream,
+    the mesh half with the MeshPipeline's graph (`captured` shows the two
+    as one, runtime/captured.py); neither step reads a mesh budget from the
+    frame's config, so one mesh graph serves both budgets.  The step
+    returns once both halves are launched, and `mesh.count_pending` counts
+    `pose_before_mesh` as it returns: its caller reads the pose then.
+    `graph=False`, and the CPU, run the LioPipeline's step without its
+    compaction trigger (LioPipeline.advance), then the MeshPipeline's
+    (_mesh_half), eagerly on the caller's stream, or, where a caller
+    replaced `lio` or `mesh` with a pipeline of its own before the first
+    step, as that pipeline runs it.  `_frame` is the hook the budget
+    recorders wrap."""
 
     def __init__(self, cfg: ImMeshConfig, adaptive_mesh_budget: int = 0,
                  adaptive_threshold: int = 0, device="cuda",
@@ -85,10 +94,8 @@ class JointPipeline:
         self.cfg = cfg
         self.device = resolve_device(device)
         # state + voxel map, and point map + store
-        self.lio = LioPipeline(cfg, device=self.device, graph=False)
-        self.mesh = MeshPipeline(cfg, device=self.device, graph=False)
-        self.captured = (CapturedJointStep(cfg, self.lio.ext, self.device)
-                         if graph and self.device.type == "cuda" else None)
+        self.lio = LioPipeline(cfg, device=self.device, graph=graph)
+        self.mesh = MeshPipeline(cfg, device=self.device, graph=graph)
         self.frame_idx = 0
         self._cfg_hi = None
         if adaptive_mesh_budget > cfg.mesh.active_voxels_per_frame:
@@ -97,6 +104,13 @@ class JointPipeline:
         self.adaptive_threshold = (adaptive_threshold or
                                    2 * cfg.mesh.active_voxels_per_frame)
         self._backlog_q = []  # drop_deferred of the last two frames (HostCopy)
+
+    @property
+    def captured(self) -> Optional[FrameSteps]:
+        """The frame's captured steps, the LIO's and the mesh's, as one;
+        None unless both halves are captured."""
+        lio, mesh = self.lio.captured, self.mesh.captured
+        return None if lio is None or mesh is None else FrameSteps(lio, mesh)
 
     def static_init(self, acc, gyr) -> None:
         """IMU static initialization of the filter (reference IMU_init)."""
@@ -110,20 +124,19 @@ class JointPipeline:
 
     def step(self, bundle: ScanBundle):
         """One frame (the frame trace's `frame` span); returns (world_scan,
-        diag).  The pose stays on the device: read_pose copies it."""
+        diag).  The pose stays on the device: read_pose copies it.  diag's
+        mesh entries (n_active_voxels, drop_*) are device scalars the mesh
+        half writes: read them after `self.mesh.join()`."""
         with trace.frame(self.frame_idx, self.device):
             cfg = self.cfg
             if self._cfg_hi is not None and len(self._backlog_q) >= 2 \
                     and self._backlog_q[0].value() > self.adaptive_threshold:
                 cfg = self._cfg_hi
             world_scan, diag = _frame(self, bundle, cfg)
-            if self._cfg_hi is not None:
-                self._backlog_q = (self._backlog_q
-                                   + [HostCopy(diag["drop_deferred"])])[-2:]
             self.frame_idx += 1
             self.lio.frame_idx = self.mesh.frame_idx = self.frame_idx
             self.lio.maybe_compact()
-            self.mesh.maybe_compact(self.lio.state.pos)
+            self.mesh.count_pending("pose_before_mesh")
             return world_scan, diag
 
     def read_pose(self) -> torch.Tensor:

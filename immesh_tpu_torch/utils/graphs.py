@@ -409,6 +409,7 @@ class CapturedStep:
                     f"was captured; it must be updated in place")
             for s, x in zip(tensors(g.inputs), tensors(inputs)):
                 s.copy_(x)
+        trace.replaying(g.spans)
         timed = self.replay_events is not None or trace.on
         if timed:
             span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]

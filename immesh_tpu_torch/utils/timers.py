@@ -23,9 +23,16 @@ of the last FRAMES frames, in memory:
     whose stream is still busy gets no anchor, and no device span); a
     device instant is the anchor's host time plus anchor.elapsed_time(ev).
     They are read once the frame's pose read has synchronised
-    (`pose_read`), or as the next frame begins, so no read waits.  On the
-    CPU, whose ops finish before they return, a device span is timed on
-    the host clock.
+    (`pose_read`), or as the next frame begins, so no read waits; a span
+    whose end has not completed as the next frame begins (a mesh half on
+    its own stream, still running) is read once it has, or, where a
+    replay of its graph would record its events again first, just before
+    that replay, after a wait for its end (`replaying`): the one wait the
+    trace makes, on the host only, for work the replay's stream runs
+    before it anyway.  On the CPU, whose ops finish before they return, a
+    device span is timed on the host clock;
+  * counters (`count`): a frame's count of a named event, such as the
+    mesh half's pose_before_mesh (mesh/pipeline.py::MeshPipeline).
 
 Off, a site costs one call that tests one attribute and returns a shared
 no-op context: no CUDA call, no allocation, no record_function.
@@ -42,7 +49,7 @@ from __future__ import annotations
 
 import math
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
@@ -79,7 +86,7 @@ _OFF = _Off()
 class _Frame:
     """One frame of the ring: its records, and its device spans until they
     are read (name, parent, start event, end event) against its anchor."""
-    __slots__ = ("id", "records", "anchor", "anchor_ns", "pending")
+    __slots__ = ("id", "records", "anchor", "anchor_ns", "pending", "counts")
 
     def __init__(self, frame_id: int):
         self.id = frame_id
@@ -87,6 +94,7 @@ class _Frame:
         self.anchor = None
         self.anchor_ns = 0
         self.pending: list = []
+        self.counts: Dict[str, int] = {}
 
 
 class _HostSpan:
@@ -207,6 +215,9 @@ class FrameTrace:
         self._frames: deque = deque(maxlen=frames)
         self._open: List[str] = []   # names of the open spans, innermost last
         self._capture: Optional[list] = None  # device spans being captured
+        # (frame, span): device spans whose end had not completed as their
+        # next frame began, read later (_read_device, replaying)
+        self._late: list = []
 
     def enable(self) -> None:
         self.on = True
@@ -217,6 +228,7 @@ class FrameTrace:
     def clear(self) -> None:
         self._frames.clear()
         self._open = []
+        self._late = []
 
     # the sites ---------------------------------------------------------
     def frame(self, frame_id: int, device: torch.device):
@@ -245,6 +257,27 @@ class FrameTrace:
         outermost parent "graph", for `replayed` to read at each replay."""
         return _Capture(self, spans) if self.on else _OFF
 
+    def count(self, name: str) -> None:
+        """One event `name` of the frame, counted."""
+        if self.on and self._frames:
+            counts = self._frames[-1].counts
+            counts[name] = counts.get(name, 0) + 1
+
+    def replaying(self, spans) -> None:
+        """Before a graph's replay records the events of its device spans
+        (`spans`, from its capture) again: its earlier replay's spans that
+        are late (_read_device) are waited for and read."""
+        if not self._late:
+            return
+        late = []
+        for fr, span in self._late:
+            if any(span is s for s in spans):
+                span[3].synchronize()
+                self._place(fr, span)
+            else:
+                late.append((fr, span))
+        self._late = late
+
     def replayed(self, events, spans) -> None:
         """A graph's replay: its `graph` span, the pair of events recorded
         around it, and the device spans captured into it."""
@@ -264,7 +297,7 @@ class FrameTrace:
             self._frames[-1].records.append(rec)
 
     def _begin_frame(self, frame_id: int, device: torch.device) -> None:
-        self._read_device(drop=True)
+        self._read_device(begin=True)
         fr = _Frame(frame_id)
         self._frames.append(fr)
         if device.type == "cuda":
@@ -274,22 +307,39 @@ class FrameTrace:
                 fr.anchor.record(stream)
                 fr.anchor_ns = time.perf_counter_ns()
 
-    def _read_device(self, drop: bool = False) -> None:
-        """Place the last frame's device spans on the host clock once their
-        events have completed; `drop` them where they have not (a frame
-        begins: a replay would record the graph's events again)."""
+    def _read_device(self, begin: bool = False) -> None:
+        """Place device spans on the host clock once their events have
+        completed: the late ones, then the last frame's, all at once.  As a
+        frame `begin`s, those of the last frame's that have not completed
+        become late: each is read once it has, or before its graph's next
+        replay (replaying)."""
+        late = []
+        for fr, span in self._late:
+            if span[3].query():
+                self._place(fr, span)
+            else:
+                late.append((fr, span))
+        self._late = late
         fr = self._frames[-1] if self._frames else None
         if fr is None or not fr.pending:
             return
-        if fr.anchor is not None and all(e1.query()
-                                          for _, _, _, e1 in fr.pending):
-            fr.records.extend(
-                Record(fr.id, name, parent, self._host_ns(fr, e0),
-                       self._host_ns(fr, e1))
-                for name, parent, e0, e1 in fr.pending)
-        elif not drop and fr.anchor is not None:
+        if fr.anchor is None:   # no anchor, no device span
+            fr.pending = []
             return
+        done = [span[3].query() for span in fr.pending]
+        if not all(done) and not begin:
+            return
+        for span, d in zip(fr.pending, done):
+            if d:
+                self._place(fr, span)
+            else:
+                self._late.append((fr, span))
         fr.pending = []
+
+    def _place(self, fr: _Frame, span) -> None:
+        name, parent, e0, e1 = span
+        fr.records.append(Record(fr.id, name, parent, self._host_ns(fr, e0),
+                                 self._host_ns(fr, e1)))
 
     @staticmethod
     def _host_ns(fr: _Frame, ev) -> int:
@@ -311,6 +361,11 @@ class FrameTrace:
                 return sum(ms) if ms else None
         return None
 
+    def frame_counts(self) -> List[Dict[str, int]]:
+        """Each ring frame's counters (`count`), oldest first, as frames()
+        lists the frames."""
+        return [dict(fr.counts) for fr in self._frames]
+
     def means(self) -> Dict[str, tuple]:
         """{name: (mean ms a frame that has it, frames)} over the ring."""
         tot: Dict[str, list] = {}
@@ -325,8 +380,14 @@ class FrameTrace:
         return {k: (s / n, n) for k, (s, n) in sorted(tot.items())}
 
     def report(self) -> str:
-        return ", ".join(f"{k}: {ms:.2f} ms (n={n})"
-                         for k, (ms, n) in self.means().items())
+        """Each span's mean ms a frame, then each counter's total, over the
+        ring."""
+        totals = Counter()
+        for counts in self.frame_counts():
+            totals.update(counts)
+        return ", ".join([f"{k}: {ms:.2f} ms (n={n})"
+                          for k, (ms, n) in self.means().items()]
+                         + [f"{k}: {n}" for k, n in sorted(totals.items())])
 
 
 trace = FrameTrace()

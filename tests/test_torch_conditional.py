@@ -33,7 +33,7 @@ body (the carry) before and after each call.  Then:
     that ran wrote some; the poisoning changes no result above.
 
 The `cuda` test (skips here) captures a step of IF nodes and the KITTI-
-shaped frame (LIO and mesh steps in one graph) on the card: the set kernel
+shaped frame (its LIO and mesh graphs) on the card: the set kernel
 against its plain version (the host read) on true and false predicates,
 the graph's IF nodes (two a body in the max_iterations − 1 ESIKF bodies
 after the first, which runs with no node, set by one launch; one a level
@@ -517,9 +517,11 @@ def test_if_nodes_on_the_card():
             chunks += sum(bool(smask[i:i + cfg.mesh.mesh_chunk].any())
                           for i in range(0, smask.numel(),
                                          cfg.mesh.mesh_chunk))
-    (fg,) = pipes[1].captured.graphs  # the frame: LIO and mesh in one
+    torch.cuda.synchronize()
+    fgs = pipes[1].captured.graphs  # the frame: its LIO and mesh graphs
+    bodies = [bd for fg in fgs for bd in fg.bodies]
     sites = {}
-    for bd in fg.bodies:
+    for bd in bodies:
         sites[bd.what] = sites.get(bd.what, 0) + 1
         kinds = bd.nodes()
         assert not {"mem_alloc", "mem_free", "event_record",
@@ -529,13 +531,15 @@ def test_if_nodes_on_the_card():
                      "level": cfg.voxel_map.max_layers - 1,
                      "chunk": -(-cfg.mesh.active_voxels_per_frame
                                 // cfg.mesh.mesh_chunk)}
-    assert fg.nodes()["conditional"] == sum(sites.values())
+    assert sum(fg.nodes()["conditional"] for fg in fgs) == sum(
+        sites.values())
     # one set launch a predicate: an ESIKF body's two nodes share one
-    assert fg.captured["graph_cond"] == sum(sites.values()) - sites["esikf"]
+    assert sum(fg.captured["graph_cond"] for fg in fgs) == sum(
+        sites.values()) - sites["esikf"]
     # the bodies that ran, by the set kernel's own counters and by diag
+    taken = graph_cond.taken([bd.slot for bd in bodies])
     ran = {}
-    for bd, t in zip(fg.bodies, graph_cond.taken(
-            [bd.slot for bd in fg.bodies])):
+    for bd, t in zip(bodies, taken):
         ran[bd.what] = ran.get(bd.what, 0) + t
     assert ran == {"esikf": iterations, "esikf_step": iterations,
                    "level": levels, "chunk": chunks}
@@ -543,9 +547,10 @@ def test_if_nodes_on_the_card():
                 "pairs_argmin": pk.launches}
     runs = {**hp.runs(), "scatter_drop": sd.runs(),
             "pairs_argmin": pk.runs()}
-    taken = graph_cond.taken([bd.slot for bd in fg.bodies])
     for k in runs:
-        want = launches[k] + fg.replays * fg.captured.get(k, 0) + sum(
-            t * bd.captured.get(k, 0) for bd, t in zip(fg.bodies, taken))
+        want = launches[k] + sum(fg.replays * fg.captured.get(k, 0)
+                                 for fg in fgs) + sum(
+            t * bd.captured.get(k, 0) for bd, t in zip(bodies, taken))
         assert runs[k] == want, k
-    assert graph_cond.runs() == fg.replays * fg.captured["graph_cond"]
+    assert graph_cond.runs() == sum(fg.replays * fg.captured["graph_cond"]
+                                    for fg in fgs)

@@ -18,21 +18,27 @@ On the CPU:
     tests/test_torch_conditional.py uses (converge at 1, 2, never): the
     iteration count EQUAL, the pose within that file's tolerances, and one
     host read a later body (its two device_if calls share one predicate);
-  * the frame pipeline on the CPU composes the two eager steps, and the
-    captured frame step's moved-tensor error names the part that moved.
+  * the frame pipeline on the CPU composes the two eager steps, its mesh
+    half serial (no CUDA stream or event, no counter in the frame trace,
+    the map and store read and assigned as before), and the frame's
+    captured steps' moved-tensor errors name the part that moved.
 
 On the card (`cuda`, skips here; the JAX reference is imported inside the
 CPU tests only, so on the GPU machine
 
     python -m pytest --noconftest -m cuda tests/test_torch_frame_graph.py
 
-runs them): the one-graph frame against the eager frame and against the
-two-graph composition (a captured LioPipeline and MeshPipeline chained) bit
-for bit over small_config frames; the frame graph's IF nodes and set
-launches by site; one set launch a predicate; every kernel's device runs
-equal the outer launches x replays plus each body's launches x its runs.
+runs them): the frame's two graphs (the mesh half on its own stream)
+against the eager frame bit for bit over small_config frames; the two
+graphs' IF nodes and set launches by site; one set launch a predicate;
+every kernel's device runs equal the outer launches x replays plus each
+body's launches x its runs; and the pipelined frame against the eager one
+over 26 frames of a compacting mesh map and 10 pose-only frames, the state
+read as the benchmark's check reads it, the mesh half's scalars read after
+a join, with the mesh half's counters in the frame trace.
 """
 
+import contextlib
 import dataclasses
 from types import SimpleNamespace
 
@@ -48,6 +54,7 @@ from immesh_tpu_torch.kernels import graph_cond as gc
 from immesh_tpu_torch.lio import esikf as tesikf
 from immesh_tpu_torch.map.voxel_map import VoxelMap
 from immesh_tpu_torch.utils import graphs
+from immesh_tpu_torch.utils.timers import trace
 
 # the level mask's points (KITTI's map_update_points) and the pull mask's
 # rows a voxel; chunks of the KITTI and Avia presets
@@ -298,61 +305,155 @@ def test_cpu_frame_composes_the_eager_steps(monkeypatch):
     assert pipe.mesh.last_active is not None and pipe.frame_idx == 1
 
 
-def test_moved_tensor_names_the_part():
-    """The frame step's replay checks every tensor of the plane map, the
-    point map and the store and names the one that moved (no replay)."""
+def test_cpu_mesh_half_is_serial(monkeypatch):
+    """On the CPU the mesh half stays on the caller's stream: a
+    JointPipeline and an ImMeshRuntime make no CUDA stream or event, the
+    frame trace counts none of the mesh half's counters, and the point map
+    and store read and assign as before, through extract() and the live
+    viewer's sync."""
     import chip_smoke
+    from immesh_tpu_torch.render.live import RegionCache
+    from immesh_tpu_torch.runtime.app import ImMeshRuntime
+    from immesh_tpu_torch.runtime.joint import JointPipeline
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a CUDA stream or event on the CPU path")
+
+    monkeypatch.setattr(torch.cuda, "Stream", refused)
+    monkeypatch.setattr(torch.cuda, "Event", refused)
+    cfg = chip_smoke.small_config()
+    cfg = cfg.replace(preprocess=dataclasses.replace(cfg.preprocess,
+                                                     max_points=1024))
+    sim = chip_smoke.make_sim(1024, 16)
+    bundles = [chip_smoke.bundle(sim.frame(k), cfg, "cpu") for k in (0, 1)]
+    pipe = JointPipeline(cfg, device="cpu")
+    rt = ImMeshRuntime(cfg, device="cpu")
+    with _traced():
+        for b in bundles:
+            pipe.step(b)
+            rt.process_frame(b)
+        for mesh in (pipe.mesh, rt.mesh):
+            mesh.count_pending("pose_before_mesh")
+            mesh.join()
+        assert trace.frame_counts() == [{}] * 4
+    for mesh in (pipe.mesh, rt.mesh):
+        assert mesh.stream is None and mesh.done is None
+        gm, store = mesh.gm, mesh.store
+        assert gm is mesh._gm and store is mesh._store
+        verts, faces = mesh.extract()
+        assert len(faces) > 0
+        np.testing.assert_array_equal(verts[faces], gm.pts.numpy()[
+            store.tri_ids.reshape(-1, 3)[
+                (store.tri_ids.reshape(-1, 3) >= 0).all(-1)].numpy()])
+        cache = RegionCache(cfg.mesh.region_size, cfg.mesh.voxel_resolution,
+                            cfg.mesh.display_smooth_lam)
+        mesh.store = cache.sync(mesh.gm, mesh.store)
+        assert mesh.store is store and not bool(store.dirty.any())
+    assert pipe.store is pipe.mesh.store
+    assert len(rt._pending_cost) == 1 and rt._pending_cost[0][2] is None
+    rt.close()
+
+
+def test_moved_tensor_names_the_part():
+    """The frame's two captured steps check, at each replay, every tensor
+    of the plane map (the LIO step), the point map and the store (the mesh
+    step) and name the one that moved (no replay)."""
+    import chip_smoke
+    from immesh_tpu_torch.lio.captured import CapturedLioStep
+    from immesh_tpu_torch.mesh.captured import CapturedMeshStep
     from immesh_tpu_torch.mesh.global_map import GlobalPointMap
     from immesh_tpu_torch.mesh.triangles import TriangleStore
-    from immesh_tpu_torch.runtime.captured import CapturedJointStep
     cfg = chip_smoke.small_config()
     vm = VoxelMap.create(cfg.voxel_map, device="cpu")
     gm = GlobalPointMap.create(cfg.mesh, device="cpu")
     store = TriangleStore.create(cfg.mesh, device="cpu")
-    step = CapturedJointStep.__new__(CapturedJointStep)
-    g = graphs.Graph(graph=None, inputs=(), out=None,
-                     ptrs=step._pointers(vm, gm, store), captured={})
-    for obj, name, what in ((vm, "count", "the plane map"),
-                            (gm, "pts", "the point map"),
-                            (store, "tri_ids", "the triangle store")):
-        old = getattr(obj, name)
-        setattr(obj, name, old.clone())
-        with pytest.raises(RuntimeError, match=f"a tensor of {what} moved"):
-            step._replay(g, (vm, gm, store), ())
-        setattr(obj, name, old)
+    lio = CapturedLioStep.__new__(CapturedLioStep)
+    mesh = CapturedMeshStep.__new__(CapturedMeshStep)
+    for step, parts, moves in (
+            (lio, (vm,), ((vm, "count", "the plane map"),)),
+            (mesh, (gm, store), ((gm, "pts", "the point map"),
+                                 (store, "tri_ids", "the triangle store")))):
+        g = graphs.Graph(graph=None, inputs=(), out=None,
+                         ptrs=step._pointers(*parts), captured={})
+        for obj, name, what in moves:
+            old = getattr(obj, name)
+            setattr(obj, name, old.clone())
+            with pytest.raises(RuntimeError,
+                               match=f"a tensor of {what} moved"):
+                step._replay(g, parts, ())
+            setattr(obj, name, old)
 
 
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-@pytest.mark.cuda
-def test_one_graph_frame_on_the_card():
-    """small_config on the card three ways from the same start: the frame
-    as one graph, eager, and two graphs chained, bit for bit every frame (a
-    forced compaction of both maps included); the frame graph's IF nodes
-    and set launches by site, one set launch a predicate, and every
-    kernel's device runs as its graph's replays and bodies say."""
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _read_as_checked(state, vm, mesh) -> list:
+    """The state as the benchmark's check reads it straight after a step
+    (perfbench/harness/window.py::flat_parts): every tensor of the filter
+    state, the plane map, the point map and the store cloned on the
+    current stream, with no synchronize."""
+    return [(n, t.clone()) for n, t in graphs.named_tensors(
+        {"state": state, "vm": vm, "gm": mesh.gm, "store": mesh.store})]
+
+
+@contextlib.contextmanager
+def _traced():
+    """The frame trace on, then off and empty again."""
+    trace.disable()
+    trace.clear()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.clear()
+
+
+COUNTERS = ("pose_before_mesh", "lio_over_mesh", "mesh_joins")
+
+
+def _counted() -> tuple:
+    """The mesh half's counters of the frame trace's newest frame."""
+    counts = trace.frame_counts()[-1]
+    return tuple(counts.get(c, 0) for c in COUNTERS)
+
+
+def _mesh_scalars(mesh, diag) -> dict:
+    """The mesh half's device scalars as a caller reads them: after a join
+    of the half (no synchronize), diag's mesh entries and last_drops."""
+    mesh.join()
+    return {**{k: int(v) for k, v in diag.items()
+               if k == "n_active_voxels" or k.startswith("drop_")},
+            **{f"last.{k}": int(v) for k, v in mesh.last_drops.items()}}
+
+
+@pytest.mark.cuda
+def test_one_graph_frame_on_the_card():
+    """small_config on the card two ways from the same start: the frame's
+    two graphs (the LIO's, then the mesh half's on its own stream) and
+    eager, bit for bit every frame (a forced compaction of both maps
+    included); the two graphs' IF nodes and set launches by site, one set
+    launch a predicate, and every kernel's device runs as the graphs'
+    replays and bodies say."""
+    dev = _card()
     import chip_smoke
     from immesh_tpu_torch.kernels import hash_probe as hp
     from immesh_tpu_torch.kernels import pairs_argmin as pk
     from immesh_tpu_torch.kernels import scatter_drop as sd
-    from immesh_tpu_torch.lio.pipeline import LioPipeline
-    from immesh_tpu_torch.mesh.pipeline import MeshPipeline
     from immesh_tpu_torch.runtime.joint import JointPipeline
-    dev = torch.device("cuda")
     cfg = chip_smoke.small_config()
     sim = chip_smoke.make_sim(cfg.preprocess.max_points, 16)
-    one = JointPipeline(cfg, adaptive_mesh_budget=256, device=dev)
+    two = JointPipeline(cfg, adaptive_mesh_budget=256, device=dev)
     eager = JointPipeline(cfg, adaptive_mesh_budget=256, device=dev,
                           graph=False)
-    two = JointPipeline(cfg, adaptive_mesh_budget=256, device=dev,
-                        graph=False)
-    two.lio = LioPipeline(cfg, device=dev)
-    two.mesh = MeshPipeline(cfg, device=dev)
-    assert one.lio.captured is None and one.mesh.captured is None
-    pipes = (eager, one, two)
+    assert eager.captured is None and two.mesh.stream is not None
+    pipes = (eager, two)
     for mod in (hp, sd, pk, gc):
         mod.reset_launches()
     n = 8
@@ -367,39 +468,35 @@ def test_one_graph_frame_on_the_card():
             for p in pipes:
                 chip_smoke.compact_half(p.lio.vm, p.state.pos)
                 chip_smoke.compact_mesh_half(p.mesh, p.state.pos)
-        we, de = outs[0]
-        for p, (w, d) in zip(pipes[1:], outs[1:]):
-            assert chip_smoke.lio_differs(eager.lio.state, p.lio.state,
-                                          eager.lio.vm, p.lio.vm) == []
-            assert chip_smoke.mesh_differs(eager.mesh, p.mesh, [
-                ("world", we, w), *[(x, de[x], d[x]) for x in de],
-                *zip(("slots", "smask"), eager.mesh.last_active,
-                     p.mesh.last_active)]) == []
-        _, d = outs[1]
+        (we, de), (w, d) = outs
+        assert chip_smoke.mesh_differs(eager.mesh, two.mesh, [
+            ("world", we, w), *[(x, de[x], d[x]) for x in de],
+            *zip(("slots", "smask"), eager.mesh.last_active,
+                 two.mesh.last_active)]) == []
+        assert chip_smoke.lio_differs(eager.lio.state, two.lio.state,
+                                      eager.lio.vm, two.lio.vm) == []
         rows.append({"iterations": int(d["iterations"]),
                      "levels": int(d["levels"]),
                      "chunks": chip_smoke.active_chunks(
-                         one.mesh.last_active[1], cfg.mesh.mesh_chunk)})
-    (g,) = one.captured.graphs
-    assert g.replays == n - 1
+                         two.mesh.last_active[1], cfg.mesh.mesh_chunk)})
+    torch.cuda.synchronize()
+    graphs_ = two.captured.graphs
+    lg, mg = graphs_
+    assert (lg.replays, mg.replays, two.captured.replays) == (n - 1,) * 3
     n_chunks = -(-cfg.mesh.active_voxels_per_frame // cfg.mesh.mesh_chunk)
-    sites = chip_smoke.check_sites("one graph", [g], rows, cfg)
+    sites = chip_smoke.check_sites("two graphs", graphs_, rows, cfg)
     assert sites["if_nodes"]["nodes"] == {**chip_smoke.lio_sites(cfg),
                                           "chunk": n_chunks}
     assert sites["set_launches"] == {**chip_smoke.lio_launches(cfg),
                                      "chunk": n_chunks}
     # one launch a predicate: the ESIKF body's two nodes share one
-    assert g.captured["graph_cond"] == sum(sites["set_launches"].values())
-    assert len(g.bodies) == sum(sites["if_nodes"]["nodes"].values())
-    assert sum(bd.captured.get("graph_cond", 0) for bd in g.bodies) == 0
-    lg, mg = chip_smoke.pipe_graphs(two)
-    nodes, lnodes, mnodes = g.nodes(), lg.nodes(), mg.nodes()
-    for kind in ("kernel", "conditional"):
-        assert nodes[kind] == lnodes[kind] + mnodes[kind], kind
-    # every kernel's device runs: the one graph's and the two graphs'
-    graphs_ = [g, lg, mg]
-    taken = gc.taken([bd.slot for gr in graphs_ for bd in gr.bodies])
+    assert sum(g.captured["graph_cond"] for g in graphs_) == sum(
+        sites["set_launches"].values())
     bodies = [bd for gr in graphs_ for bd in gr.bodies]
+    assert len(bodies) == sum(sites["if_nodes"]["nodes"].values())
+    assert sum(bd.captured.get("graph_cond", 0) for bd in bodies) == 0
+    # every kernel's device runs: the two graphs' and the eager frames'
+    taken = gc.taken([bd.slot for bd in bodies])
     launches = {**hp.launches, "scatter_drop": sd.launches,
                 "pairs_argmin": pk.launches, "graph_cond": 0}
     runs = {**hp.runs(), "scatter_drop": sd.runs(),
@@ -409,6 +506,75 @@ def test_one_graph_frame_on_the_card():
                                  for gr in graphs_) + sum(
             t * bd.captured.get(k, 0) for t, bd in zip(taken, bodies))
         assert runs[k] == want, k
+
+
+@pytest.mark.cuda
+def test_pipelined_frame_equals_eager_on_the_card():
+    """The JointPipeline on the card, its mesh half on its own stream,
+    against graph=False (eager, serial) from the same start, over 26
+    small_config frames whose mesh map compacts every 2-3 frames on its
+    own (its 8,192-point capacity), the frame trace on: the pose, the world
+    scan, diag's LIO entries, the compaction counts and the state as the
+    benchmark's check reads it straight after the step bit for bit every
+    frame, and the mesh half's scalars (diag's n_active_voxels and drop_*,
+    last_drops) read as ints after a join, with no synchronize, equal;
+    then 10 frames each with the pose read alone, and the state bit for
+    bit after them.  The trace's counters: pose_before_mesh on every
+    replayed frame without a mesh compaction (its host reads end the half
+    before the step returns), mesh_joins on the joins, lio_over_mesh in
+    the pose-only frames; none on the eager pipeline."""
+    dev = _card()
+    import chip_smoke
+    from immesh_tpu_torch.runtime.joint import JointPipeline
+    cfg = chip_smoke.small_config()
+    sim = chip_smoke.make_sim(cfg.preprocess.max_points, 16)
+    bundles = [chip_smoke.bundle(sim.frame(k), cfg, dev) for k in range(36)]
+    with _traced():
+        eager = JointPipeline(cfg, adaptive_mesh_budget=256, device=dev,
+                              graph=False)
+        piped = JointPipeline(cfg, adaptive_mesh_budget=256, device=dev)
+        pipes = (eager, piped)
+        totals = {id(p): np.zeros(3, np.int64) for p in pipes}
+        steady, compacted = [], 0
+        for k in range(26):
+            got = []
+            for p in pipes:
+                before = p.mesh.n_compactions
+                world, diag = p.step(bundles[k])
+                pose = p.state.pos.cpu()
+                scalars = _mesh_scalars(p.mesh, diag)
+                got.append((pose, world, diag, scalars,
+                            _read_as_checked(p.state, p.lio.vm, p.mesh),
+                            _counted(), p.mesh.n_compactions - before))
+                totals[id(p)] += got[-1][5]
+                if k == 0:
+                    p.prime_adaptive()
+            ((pe, we, de, me, se, _, ce),
+             (pp, wp, dp, mp, sp, counted, cp)) = got
+            bad = [n for (n, x), (_, y) in zip(se, sp)
+                   if not chip_smoke.same_bits(x, y)]
+            bad += [x for x in de if not chip_smoke.same_bits(de[x], dp[x])]
+            bad += [n for n, x, y in (("pose", pe, pp), ("world", we, wp))
+                    if not chip_smoke.same_bits(x, y)]
+            assert bad == [] and me == mp and ce == cp, (k, bad, me, mp)
+            compacted += cp
+            if k >= 2 and not cp:
+                steady.append(counted[0])
+        assert compacted >= 5 and len(steady) >= 8
+        assert steady == [1] * len(steady)
+        assert totals[id(piped)][2] >= len(steady)
+        over = totals[id(piped)][1]
+        for p in pipes:   # the pose alone, each pipeline on its own
+            for b in bundles[26:]:
+                p.step(b)
+                p.state.pos.cpu()
+                totals[id(p)] += _counted()
+        assert totals[id(piped)][1] - over >= 3
+        assert totals[id(eager)].tolist() == [0, 0, 0]
+        se, sp = (_read_as_checked(p.state, p.lio.vm, p.mesh) for p in pipes)
+        assert [n for (n, x), (_, y) in zip(se, sp)
+                if not chip_smoke.same_bits(x, y)] == []
+        assert eager.mesh.n_compactions == piped.mesh.n_compactions
 
 
 @pytest.mark.cuda

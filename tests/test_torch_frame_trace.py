@@ -20,12 +20,14 @@ On the card (`cuda`, skips here; on the GPU machine
 
     python -m pytest --noconftest -m cuda tests/test_torch_frame_trace.py
 
-runs them): the frame graph captured with the trace off holds no
+runs them): the frame's two graphs captured with the trace off hold no
 event-record node; captured with it on, the same kernel nodes and one
-event-record node a device span end, and its replays are bit for bit the
-trace-off ones; every frame's `graph` start, placed on the host clock,
-falls no more than 10 us before its `launch` span's start, and the
-device spans nest in their graph.
+event-record node a device span end, and their replays are bit for bit
+the trace-off ones; every `graph` start, placed on the host clock, falls
+no more than 10 us before its `launch` span's start, the device spans
+nest in their graph, the mesh half's after the LIO graph, every frame's
+mesh span is read though no frame synchronises, and the trace counts
+pose_before_mesh.
 """
 
 import dataclasses
@@ -144,6 +146,8 @@ def test_joint_spans_nest_under_their_frames(tr):
         assert sum(r.name == "compact" for r in fr) == (2 if k == 1 else 0)
         _nested_in_order(fr, [n for n in parents
                               if k == 1 or n != "compact"])
+    # the CPU's mesh half is serial: nothing counted
+    assert tr.frame_counts() == [{}] * N_FRAMES
 
 
 def test_runtime_spans_nest_under_their_frames(tr):
@@ -227,9 +231,10 @@ def _card():
 
 @pytest.mark.cuda
 def test_trace_adds_event_nodes_only(tr):
-    """The same frames through the frame graph captured with the trace off
-    and on: no event-record node off; on, the same kernel nodes and one
-    event-record node a device span end; every frame bit for bit."""
+    """The same frames through the frame's two graphs (the LIO's, the mesh
+    half's) captured with the trace off and on: no event-record node off;
+    on, the same kernel nodes and one event-record node a device span end;
+    every frame bit for bit."""
     import chip_smoke
     dev = _card()
     cfg = chip_smoke.small_config()
@@ -237,45 +242,110 @@ def test_trace_adds_event_nodes_only(tr):
     off, off_poses = _joint(cfg, bundles, dev)
     tr.enable()
     on, on_poses = _joint(cfg, bundles, dev)
-    (g_off,), (g_on,) = off.captured.graphs, on.captured.graphs
-    n_off, n_on = g_off.nodes(), g_on.nodes()
-    assert "event_record" not in n_off and not g_off.spans
-    assert [s[0] for s in g_on.spans] == ["lio.map_update", "lio", "mesh"]
-    assert n_on["event_record"] == 2 * len(g_on.spans)
-    # a capture after the first in a process may hold stream-ordered
-    # allocations (mem_alloc, mem_free) trace or no trace: compared are the
-    # nodes chip_smoke.py compares
-    for kind in ("kernel", "memcpy", "memset", "conditional"):
-        assert n_on[kind] == n_off[kind], kind
+    gs_off, gs_on = off.captured.graphs, on.captured.graphs
+    assert len(gs_off) == len(gs_on) == 2
+    assert [[s[0] for s in g.spans] for g in gs_on] == [
+        ["lio.map_update", "lio"], ["mesh"]]
+    for g_off, g_on in zip(gs_off, gs_on):
+        n_off, n_on = g_off.nodes(), g_on.nodes()
+        assert "event_record" not in n_off and not g_off.spans
+        assert n_on["event_record"] == 2 * len(g_on.spans)
+        # a capture after the first in a process may hold stream-ordered
+        # allocations (mem_alloc, mem_free) trace or no trace: compared are
+        # the nodes chip_smoke.py compares
+        for kind in ("kernel", "memcpy", "memset", "conditional"):
+            assert n_on[kind] == n_off[kind], kind
     assert all(torch.equal(a, b) for a, b in zip(off_poses, on_poses))
     assert chip_smoke.lio_differs(off.lio.state, on.lio.state, off.lio.vm,
                                   on.lio.vm) == []
     assert chip_smoke.mesh_differs(off.mesh, on.mesh) == []
 
 
+class _Event:
+    """A CUDA event's stand-in: recorded at `ms` on the device clock,
+    complete or not."""
+
+    def __init__(self, ms: float, done: bool = True):
+        self.ms, self.done, self.waited = ms, done, False
+
+    def query(self) -> bool:
+        return self.done
+
+    def synchronize(self) -> None:
+        self.done = self.waited = True
+
+    def elapsed_time(self, end) -> float:
+        return end.ms - self.ms
+
+
+def test_late_device_spans_are_read_later():
+    """A device span whose end has not completed as the next frame begins
+    is read later, on its own frame: once it has completed, or, before a
+    replay of the graph that records it, after a wait for its end."""
+    tr = FrameTrace()
+    tr.enable()
+    cpu = torch.device("cpu")
+    tr._begin_frame(0, cpu)
+    fr = tr._frames[-1]
+    fr.anchor, fr.anchor_ns = _Event(0.0), 10_000_000
+    lio = ("lio", "graph", _Event(1.0), _Event(3.0))
+    mesh = ("mesh", "graph", _Event(3.0), _Event(5.0, done=False))
+    tail = ("graph", None, _Event(3.0), _Event(6.0, done=False))
+    fr.pending += [lio, mesh, tail]
+    tr._read_device()   # the pose read: not all complete, none read
+    assert fr.records == [] and len(fr.pending) == 3
+    tr._begin_frame(1, cpu)   # the next frame: the LIO span read
+    assert [r.name for r in fr.records] == ["lio"] and len(tr._late) == 2
+    tr.replaying([lio])   # another graph's replay: no wait
+    assert not mesh[3].waited and len(tr._late) == 2
+    tail[3].done = True
+    tr._read_device()   # completed on its own: read without a wait
+    assert [r.name for r in fr.records] == ["lio", "graph"]
+    tr.replaying([mesh])   # its own graph's next replay: waited for, read
+    assert mesh[3].waited and tr._late == []
+    assert [(r.frame, r.name, r.start_ns, r.end_ns) for r in tr.frames()[0]] \
+        == [(0, "lio", 11_000_000, 13_000_000),
+            (0, "graph", 13_000_000, 16_000_000),
+            (0, "mesh", 13_000_000, 15_000_000)]
+
+
 @pytest.mark.cuda
 def test_device_spans_sit_on_the_host_clock(tr):
-    """Each replayed frame: its `graph` span placed on the host clock
-    starts no more than 10 us before its `launch` span, the `lio` and
-    `mesh` spans nest in it in that order, and the pose read ends after
-    it."""
+    """Each replayed frame: its two `graph` spans placed on the host clock
+    start no more than 10 us before their `launch` spans, the `lio` span
+    nests in the LIO graph's and the `mesh` span in the mesh half's, which
+    starts after the LIO graph's end, and the pose read ends after the LIO
+    graph's end.  No frame synchronises but its pose read, so a mesh
+    half's spans may not have completed as the next frame begins: each
+    frame has them all the same (read before the mesh graph's next replay
+    at the latest).  The trace counted pose_before_mesh, at most once a
+    frame."""
     import chip_smoke
+    from immesh_tpu_torch.runtime.joint import JointPipeline
     dev = _card()
     cfg = chip_smoke.small_config()
     tr.enable()
-    _joint(cfg, _bundles(cfg, 8, dev), dev)
+    pipe = JointPipeline(cfg, device=dev)
+    for b in _bundles(cfg, 8, dev):
+        pipe.step(b)
+        pipe.read_pose()
+    torch.cuda.synchronize()
     frames = tr.frames()
     assert len(frames) == 8
     for fr in frames[2:]:   # frame 0 eager, frame 1 captured then replayed
         by = {}
         for r in fr:
-            by.setdefault(r.name, r)
-        g, launch = by["graph"], by["launch"]
-        assert g.start_ns >= launch.start_ns - 10_000, (g, launch)
-        assert g.start_ns <= by["lio"].start_ns <= by["lio"].end_ns \
-            <= by["mesh"].start_ns <= by["mesh"].end_ns <= g.end_ns
-        assert by["lio"].start_ns <= by["lio.map_update"].start_ns \
-            <= by["lio.map_update"].end_ns <= by["lio"].end_ns
-        assert by["pose_read"].end_ns >= g.end_ns
+            by.setdefault(r.name, []).append(r)
+        (lg, mg), (ll, ml) = by["graph"], by["launch"]
+        (lio,), (mesh,), (mu,) = by["lio"], by["mesh"], by["lio.map_update"]
+        (read,) = by["pose_read"]
+        for g, launch in ((lg, ll), (mg, ml)):
+            assert g.start_ns >= launch.start_ns - 10_000, (g, launch)
+        assert lg.start_ns <= lio.start_ns <= lio.end_ns <= lg.end_ns \
+            <= mg.start_ns <= mesh.start_ns <= mesh.end_ns <= mg.end_ns
+        assert lio.start_ns <= mu.start_ns <= mu.end_ns <= lio.end_ns
+        assert read.end_ns >= lg.end_ns
         assert {r.parent for r in fr if r.name in ("lio", "mesh")} == {
             "graph"}
+    counted = [c.get("pose_before_mesh", 0) for c in tr.frame_counts()]
+    assert max(counted) == 1 and sum(counted) > 0

@@ -38,8 +38,9 @@ run passes it the base config and logs the budget it was asked for.
       plain versions, which stand for a kernel launch on the CPU, and that
       read, one a chunk); with that read trapped too it trips the trap.
   (g) On the card (`cuda`, skips here): the captured JointPipeline (its
-      frame, LIO and mesh steps, as one graph) against the eager one bit
-      for bit, one graph serving both budgets, and pairs_argmin's device
+      LIO graph, then its mesh graph on the mesh half's own stream)
+      against the eager one bit for bit, one mesh graph serving both
+      budgets, and pairs_argmin's device
       runs = its eager launches + the runs of the chunk bodies (the set
       kernel's taken counts) x their recorded launches.  The reference is imported inside a
       fixture, so on the GPU machine (no JAX)
@@ -479,9 +480,9 @@ def test_captured_mesh_step_equals_the_eager_step_on_the_card():
             ("world", we, wc), *[(x, de[x], dc[x]) for x in de],
             *zip(("slots", "smask"), e.mesh.last_active,
                  c.mesh.last_active)]) == []
-    cap = pipes[1].captured  # the frame graph: LIO and mesh steps
-    assert pipes[1].mesh.captured is None
-    (g,) = cap.graphs  # lo and hi frames: one graph
+    torch.cuda.synchronize()
+    assert pipes[1].mesh.stream is not None  # the mesh half's own stream
+    (g,) = pipes[1].mesh.captured.graphs  # lo and hi frames: one graph
     assert g.replays == n - 1 and g.captured["pairs_argmin"] == 0
     chunks = [b for b in g.bodies if b.what == "chunk"]
     assert len(chunks) == 2  # 128 voxels, 64 a chunk

@@ -18,7 +18,7 @@ downsample, (131,072, 4) into 8,192 with a 3,229-row segment and 32,212
 dropped rows; a map-update level, (8,192, 11) into 4,096 with 5,920
 dropped) and to the plain version on the CPU at other widths and layouts,
 count its launches, captured launches and device runs, and replay the
-KITTI-shaped frame graph bit for bit against the eager frame; they skip
+KITTI-shaped frame's graphs bit for bit against the eager frame; they skip
 without a card.  The reference is imported inside the tests, so on the GPU
 machine (no JAX)
 
@@ -386,10 +386,11 @@ def test_counts_split_launches_captured_and_device_runs(dev):
 
 @pytest.mark.cuda
 def test_kitti_frame_graph_replays_the_eager_frame_on_the_card(dev):
-    """The KITTI-shaped frame (small_config) as one captured graph and
-    eagerly from the same start, bit for bit every frame; the kernel's
-    device runs are the eager launches plus the graph's replays and its
-    level bodies' runs times the launches recorded into them."""
+    """The KITTI-shaped frame (small_config) as its captured LIO and mesh
+    graphs and eagerly from the same start, bit for bit every frame; the
+    kernel's device runs are the eager launches plus the LIO graph's
+    replays and its level bodies' runs times the launches recorded into
+    them (the mesh graph holds none)."""
     import chip_smoke
     from immesh_tpu_torch.kernels import graph_cond as gc
     from immesh_tpu_torch.runtime.joint import JointPipeline
@@ -411,8 +412,11 @@ def test_kitti_frame_graph_replays_the_eager_frame_on_the_card(dev):
                                       eager.lio.vm, one.lio.vm,
                                       [("world", we, w1)]) == []
         assert chip_smoke.mesh_differs(eager.mesh, one.mesh) == []
-    (g,) = one.captured.graphs
-    assert g.replays == n - 1
+    torch.cuda.synchronize()
+    g, mg = one.captured.graphs  # the LIO graph's segmented sums
+    assert g.replays == mg.replays == n - 1
+    assert mg.captured.get("segment_sum", 0) == 0 and not any(
+        bd.captured.get("segment_sum", 0) for bd in mg.bodies)
     bodies = g.bodies
     taken = gc.taken([bd.slot for bd in bodies])
     in_bodies = sum(t * bd.captured.get("segment_sum", 0)

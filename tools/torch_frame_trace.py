@@ -12,7 +12,11 @@ trace's per-layer metrics (perfbench/metrics/ and perfbench/harness/
 frame_trace.py: `outside.*`, `pose_wait_ms`, `lio_device_ms`,
 `map_update_device_ms`, `mesh_device_ms`, `compact_ms`); with `--trace 0`
 it holds the end-to-end metrics, so a pair of runs on one seed, the trace
-on and off, gives the trace's cost a frame.  Needs a CUDA device."""
+on and off, gives the trace's cost a frame.  With the trace on, the result
+line also holds the mesh half's counters (mesh/pipeline.py::MeshPipeline:
+`pose_before_mesh`, `lio_over_mesh`, `mesh_joins`) summed over the
+window's frames and over the traced segment's, and standard error the
+trace's report.  Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ METRICS = [f"outside.{p}" for p in ("copy_in", "launch", "clone_out",
                                      "compact", "pose_read", "other")] + [
     "pose_wait_ms", "lio_device_ms", "map_update_device_ms",
     "mesh_device_ms", "compact_ms"]
+COUNTERS = ("pose_before_mesh", "lio_over_mesh", "mesh_joins")
 
 
 def main(argv=None) -> int:
@@ -49,7 +54,7 @@ def main(argv=None) -> int:
 
     from perfbench.entries import joint
     from perfbench.harness import cell as cells
-    from perfbench.harness.window import run_cell
+    from perfbench.harness.window import TRACE_FRAMES, run_cell
     from immesh_tpu_torch.utils.timers import trace
 
     if not torch.cuda.is_available():
@@ -71,6 +76,16 @@ def main(argv=None) -> int:
     for line in out["lines"]:
         print(line, file=sys.stderr)
     result = dict(out["result"], frame_trace=bool(args.frame_trace))
+    if args.frame_trace:
+        print(f"frame trace: {trace.report()}", file=sys.stderr)
+        counts = trace.frame_counts()
+        n, p = result["attempted"], TRACE_FRAMES if args.trace else 0
+        end = len(counts) - p
+        result["counters"] = {
+            part: dict(frames=len(rows), **{c: sum(r.get(c, 0) for r in rows)
+                                           for c in COUNTERS})
+            for part, rows in (("window", counts[max(0, end - n):end]),
+                               ("traced", counts[end:]))}
     print(json.dumps(result), flush=True)
     return 0
 

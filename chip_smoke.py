@@ -57,9 +57,9 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 capture) beside a bound of the distinct bytes the call must
                 move over the memory rate;
   4. main     — JointPipeline at the KITTI operating point (131,072-ray
-                scans from the outdoor simulator, adaptive re-mesh budget)
-                for warm-up plus N timed frames, the frame two captured
-                CUDA graphs, its LIO step's and its mesh step's, the mesh
+                scans from the outdoor simulator) for warm-up plus N
+                timed frames, the frame two captured CUDA graphs, its LIO
+                step's and its mesh step's, the mesh
                 half on its own stream (frame 0 eager, frame 1 captured,
                 then replayed; so on every path but the ablation's and the
                 stage profilers' mesh step and dist/); the two graphs' IF
@@ -162,18 +162,17 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 sharded mesh over NCCL at world 1; 13e the scaling curve at
                 worlds 1 and 2;
  14. ablate   — the cumulative ablation sweep of tools/torch_ablate_e2e.py
-                at the KITTI point on phase 4's scans (JointPipeline
-                without the adaptive budget, 3 warm-up + ABLATE_FRAMES
-                frames a variant): base, lioonly, the five append cuts, the
-                nine triangulation cuts in pipeline order, base again and
-                fake_tri3; structural checks on every variant (no
-                pairs_argmin launch before argmin0, one a frame with active
-                voxels from it on, no triangles after a cut, no map points
-                after an append cut, every pose within POSE_TOL_M; the
-                chain runs ABLATE_PASSES times, a frame timed by its least
-                time over the passes), W of
-                argmin0's last chunk against the plain version, the map copy
-                an append cut costs, and each stage's Δ ms and Δ launches;
+                at the KITTI point on phase 4's scans (JointPipeline, 3
+                warm-up + ABLATE_FRAMES frames a variant): base, lioonly,
+                the five append cuts, the nine triangulation cuts in
+                pipeline order, base again and fake_tri3; structural checks
+                on every variant (no pairs_argmin launch before argmin0, one
+                a frame with active voxels from it on, no triangles after a
+                cut, no map points after an append cut, every pose within
+                POSE_TOL_M; the chain runs ABLATE_PASSES times, a frame
+                timed by its least time over the passes), W of argmin0's
+                last chunk against the plain version, the map copy an append
+                cut costs, and each stage's Δ ms and Δ launches;
  15. profile  — the two stage profilers: tools/torch_profile_lio.py at
                 the KITTI point on phase 4's scans and at the Avia point
                 (IMU on, extrinsics) on phase 6's simulator, PROFILE_WARM
@@ -228,31 +227,29 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
                 `kernels` line, its costliest single call (a 768-byte
                 slot-row set) and the LIO's costliest group (the plane
                 refit's 8 fields, also timed as 8 single launches) too;
- 17. frame graphs — the KITTI JointPipeline (phase 4's 3 + 40
-                scans, adaptive budget) two ways from the same start, in
-                turns: eager (graph=False, serial) and the frame's two
-                captured graphs, the mesh half on its own stream; then the
-                two again from a new start with the pose read alone (ms a
-                frame, the share of frames whose LIO step overlapped the
-                last mesh half), bit for bit at the end; then the Avia
-                ImMeshRuntime (3 + 30 frames) with its mesh step eager and
-                captured: point map,
-                store, work list, active count, every drop counter, filter
-                state and plane map bit for bit on every frame, the plane
-                maps compacted to half after GRAPH_COMPACT_AT and the KITTI
-                mesh maps on their own (Avia: both maps forced after
-                GRAPH_AVIA_COMPACT_AT); the compaction and hi/lo budget
-                frames equal; the two graphs' kernel, memcpy, memset and
-                conditional nodes and recorded launches equal to phase
-                4's, the LIO graph's to phase 16's;
-                the inserts of the cluster form; IF nodes and set launches
-                by site, the bodies run on the device against diag, the
-                chunks skipped a frame; one frame of each (the polls left
-                out) under torch.profiler, 0 syncs in the captured ones;
-                ms a frame each way, and the frame split: wall, the
-                frame's device span (CUDA events from the LIO replay's
-                start to the mesh replay's end) and the time outside it,
-                and the two graphs' device-busy ms replayed alone.
+ 17. frame graphs — the KITTI JointPipeline (phase 4's 3 + 40 scans) two
+                ways from the same start, in turns: eager (graph=False,
+                serial) and the frame's two captured graphs, the mesh half
+                on its own stream; then the two again from a new start with
+                the pose read alone (ms a frame, the share of frames whose
+                LIO step overlapped the last mesh half), bit for bit at the
+                end; then the Avia ImMeshRuntime (3 + 30 frames) with its
+                mesh step eager and captured: point map, store, work list,
+                active count, every drop counter, filter state and plane map
+                bit for bit on every frame, the plane maps compacted to half
+                after GRAPH_COMPACT_AT and the KITTI mesh maps on their own
+                (Avia: both maps forced after GRAPH_AVIA_COMPACT_AT); the
+                compaction frames equal; the two graphs' kernel, memcpy,
+                memset and conditional nodes and recorded launches equal to
+                phase 4's, the LIO graph's to phase 16's; the inserts of the
+                cluster form; IF nodes and set launches by site, the bodies
+                run on the device against diag, the chunks skipped a frame;
+                one frame of each (no poll pending: the polls only copy)
+                under torch.profiler, 0 syncs in the captured ones; ms a
+                frame each way, and the frame split: wall, the frame's
+                device span (CUDA events from the LIO replay's start to the
+                mesh replay's end) and the time outside it, and the two
+                graphs' device-busy ms replayed alone.
 
 Phase 16b, after 16, holds segment_sum (csrc/segment_sum.cu) bit for bit
 to the parent's `values[order]` + torch.segment_reduce (one segment more,
@@ -2174,8 +2171,6 @@ def phase_main(dev, sim, gt, warmup: int, kernel_ms: float):
                 + pipe.lio.n_compactions > comp_before):
             probes[k], scatters[k] = calls, scat
         del calls, scat
-        if k == 0:
-            pipe.prime_adaptive()  # run the hi-budget variant during warm-up
         pos = pipe.state.pos.cpu().numpy().astype(np.float64)
         if not (np.isfinite(pos).all()
                 and bool(torch.isfinite(pipe.state.rot).all())
@@ -2318,10 +2313,9 @@ def eager_mesh_calls(cfg, dev, worlds, at, mesh_ref):
     for k, (w, m, p) in enumerate(worlds):
         if k in at:
             (_, probes[k]), scatters[k] = record_scatters(
-                lambda: record_probes(lambda: mesh.advance(w, m, p)))
+                lambda: record_probes(lambda: mesh.step(w, m, p)))
         else:
-            mesh.advance(w, m, p)
-        mesh.maybe_compact(p)
+            mesh.step(w, m, p)
     bad = mesh_differs(mesh, mesh_ref)
     if bad or mesh.n_compactions != mesh_ref.n_compactions:
         raise AssertionError(f"main: the eager mesh run parts from phase "
@@ -4195,12 +4189,11 @@ def phase_ablate(dev, main_info: dict) -> int:
     n_all = ABLATE_WARMUP + ABLATE_FRAMES
     scans = main_info["gt"][:n_all]
     R0, p0 = main_info["R0"], main_info["p0"]
-    log(f"[ablate] JointPipeline(kitti_config()) without the adaptive "
-        f"budget (active_voxels_per_frame "
+    log(f"[ablate] JointPipeline(kitti_config()) (active_voxels_per_frame "
         f"{kitti_config().mesh.active_voxels_per_frame}, as "
-        f"tools/ablate_e2e.py; phase 4 runs with budget 2048) on phase 4's "
-        f"first {n_all} scans, {ABLATE_WARMUP} warm-up + {ABLATE_FRAMES} "
-        f"timed frames a variant, synchronised after every frame")
+        f"tools/ablate_e2e.py and phase 4) on phase 4's first {n_all} "
+        f"scans, {ABLATE_WARMUP} warm-up + {ABLATE_FRAMES} timed frames a "
+        f"variant, synchronised after every frame")
 
     pairs_argmin = tri.pairs_argmin
     last = {}
@@ -5485,14 +5478,12 @@ def run_frames(pipes: dict, frames, compact_at, mesh_compact_at,
     the same start) stepped in turns over `frames`; the first is the
     reference.  Every frame: each other pipeline's point map, store, work
     list, active count, every drop counter, filter state and plane map bit
-    for bit as the reference's, both maps' compaction counts and
-    (JointPipeline) the hi/lo budget equal; a JointPipeline is primed for
-    the hi budget after frame 0, as phase 4's.  After the frames in
-    `compact_at` all compact their plane map to half, after those in
-    `mesh_compact_at` their mesh map.  Returns per-frame rows (ms a frame
-    of each pipeline, the frame's diag counts of pipeline `counted`: ESIKF
-    iterations, levels, the chunks with an active voxel; compactions; the
-    budget) and the counts (path_now) of `counted`'s steps alone."""
+    for bit as the reference's, both maps' compaction counts equal.  After
+    the frames in `compact_at` all compact their plane map to half, after
+    those in `mesh_compact_at` their mesh map.  Returns per-frame rows (ms
+    a frame of each pipeline, the frame's diag counts of pipeline
+    `counted`: ESIKF iterations, levels, the chunks with an active voxel;
+    compactions) and the counts (path_now) of `counted`'s steps alone."""
     import immesh_tpu_torch.runtime.joint as joint
     names = list(pipes)
     ref = pipes[names[0]]
@@ -5500,13 +5491,6 @@ def run_frames(pipes: dict, frames, compact_at, mesh_compact_at,
     chunk = ref.cfg.mesh.mesh_chunk
     counts = {part: dict.fromkeys(COUNTED, 0)
               for part in ("launches", "recorded", "runs")}
-    budgets, frame = {n: [] for n in names}, joint._frame
-    by_id = {id(p): n for n, p in pipes.items()}
-
-    def recorded(*args):
-        budgets[by_id[id(args[0])]].append(
-            args[-1].mesh.active_voxels_per_frame)
-        return frame(*args)
 
     def run(p, k, b):
         torch.cuda.synchronize()
@@ -5538,50 +5522,37 @@ def run_frames(pipes: dict, frames, compact_at, mesh_compact_at,
         return comp[counted]
 
     rows = []
-    joint._frame = recorded
-    try:
-        for k, b in enumerate(frames):
-            diags, ms = {}, {}
-            for n, p in pipes.items():
-                if n == counted:
-                    before = path_now()
-                diags[n], ms[n] = run(p, k, b)
-                if n == counted:
-                    after = path_now()
-                    for part, c in counts.items():
-                        for name in c:
-                            c[name] += after[part][name] - before[part][name]
-            for n in names[1:]:
-                bad = [x for x in diags[n]
-                       if not same_bits(diags[names[0]][x], diags[n][x])]
-                if bad:
-                    raise AssertionError(f"mesh graph: frame {k}: {n}'s diag "
-                                         f"{bad}")
-            comp = differs(k, "after the step,")
-            if k == 0 and not runtime:
-                for p in pipes.values():
-                    p.prime_adaptive()
-            if k in compact_at or k in mesh_compact_at:
-                for p in pipes.values():
-                    if k in compact_at:
-                        compact_half(p.lio.vm, p.lio.state.pos)
-                    if k in mesh_compact_at:
-                        compact_mesh_half(p.mesh, p.lio.state.pos)
-                differs(k, "after the forced compaction,")
-            d = diags[counted]
-            rows.append({"ms": ms, "compactions": comp,
-                         "iterations": int(d["iterations"]),
-                         "levels": int(d["levels"]),
-                         "chunks": active_chunks(
-                             pipes[counted].mesh.last_active[1], chunk)})
-    finally:
-        joint._frame = frame
-    if not runtime:
-        if any(budgets[n] != budgets[names[0]] for n in names):
-            raise AssertionError(f"mesh graph: hi/lo budgets differ: "
-                                 f"{budgets}")
-        for r, n in zip(rows, budgets[names[0]]):
-            r["budget"] = n
+    for k, b in enumerate(frames):
+        diags, ms = {}, {}
+        for n, p in pipes.items():
+            if n == counted:
+                before = path_now()
+            diags[n], ms[n] = run(p, k, b)
+            if n == counted:
+                after = path_now()
+                for part, c in counts.items():
+                    for name in c:
+                        c[name] += after[part][name] - before[part][name]
+        for n in names[1:]:
+            bad = [x for x in diags[n]
+                   if not same_bits(diags[names[0]][x], diags[n][x])]
+            if bad:
+                raise AssertionError(f"mesh graph: frame {k}: {n}'s diag "
+                                     f"{bad}")
+        comp = differs(k, "after the step,")
+        if k in compact_at or k in mesh_compact_at:
+            for p in pipes.values():
+                if k in compact_at:
+                    compact_half(p.lio.vm, p.lio.state.pos)
+                if k in mesh_compact_at:
+                    compact_mesh_half(p.mesh, p.lio.state.pos)
+            differs(k, "after the forced compaction,")
+        d = diags[counted]
+        rows.append({"ms": ms, "compactions": comp,
+                     "iterations": int(d["iterations"]),
+                     "levels": int(d["levels"]),
+                     "chunks": active_chunks(
+                         pipes[counted].mesh.last_active[1], chunk)})
     for n, p in pipes.items():
         reps = sum(g.replays for g in pipe_graphs(p))
         want = sum(len(frames) - 1 for part in (p.lio, p.mesh)
@@ -5656,9 +5627,9 @@ def pose_only(pipe, frames) -> dict:
 
 
 def phase_mesh_graph(dev, main_info) -> dict:
-    """Phase 17.  The KITTI JointPipeline (phase 4's 3 + 40 scans, its
-    adaptive budget) two ways from the same start, in turns (run_frames):
-    eager (graph=False, serial) and the frame's two captured graphs with
+    """Phase 17.  The KITTI JointPipeline (phase 4's 3 + 40 scans) two
+    ways from the same start, in turns (run_frames): eager (graph=False,
+    serial) and the frame's two captured graphs with
     the mesh half on its own stream (the default on the card), the plane
     maps compacted to half after GRAPH_COMPACT_AT and the mesh maps on
     their own; then the same two from a new start with the pose read alone
@@ -5735,8 +5706,6 @@ def phase_mesh_graph(dev, main_info) -> dict:
     comp = [r["compactions"] for r in rows]
     kitti["mesh_compaction_frames"] = [
         k for k in range(1, len(rows)) if comp[k][1] > comp[k - 1][1]]
-    kitti["hi_budget_frames"] = [k for k, r in enumerate(rows)
-                                 if r["budget"] > mc.active_voxels_per_frame]
     if not kitti["mesh_compaction_frames"]:
         raise AssertionError("mesh graph: the KITTI mesh map never "
                              "compacted on its own")
@@ -5749,15 +5718,13 @@ def phase_mesh_graph(dev, main_info) -> dict:
     if err > POSE_TOL_M:
         raise AssertionError(f"mesh graph: KITTI pose {err:.3f} m from "
                              f"ground truth (limit {POSE_TOL_M} m)")
-    # one frame of each (the last scan again, no poll pending: the mesh
-    # poll only copies) under torch.profiler, and the two graphs replayed
-    # alone (their static inputs: the last frame again): their device-busy
-    # time
+    # one frame of each (the last scan again, no poll pending: the polls
+    # only copy) under torch.profiler, and the two graphs replayed alone
+    # (their static inputs: the last frame again): their device-busy time
     prof = {}
     for n, p in pipes.items():
-        p.mesh._occ_pending = None
-        _, prof[n] = profile_counts(lambda: joint._frame(p, frames[-1],
-                                                          p.cfg))
+        p.lio._occ_pending = p.mesh._occ_pending = None
+        _, prof[n] = profile_counts(lambda: p.step(frames[-1]))
     if prof["pipelined"]["syncs"] != 0:
         raise AssertionError(f"mesh graph: the pipelined frame waited on "
                              f"the card: {prof['pipelined']}")
@@ -5784,8 +5751,7 @@ def phase_mesh_graph(dev, main_info) -> dict:
             f"{n} {kitti[n]['median']:.2f} / {kitti[n]['p90']:.2f}"
             for n in ("eager", "pipelined"))
         + f"; compactions of the mesh map after frames "
-        f"{kitti['mesh_compaction_frames']}, hi budget on frames "
-        f"{kitti['hi_budget_frames']}; the two graphs' nodes {nodes} "
+        f"{kitti['mesh_compaction_frames']}; the two graphs' nodes {nodes} "
         f"(phase 4's); {kitti['chunk_nodes']} chunk IF nodes, "
         f"{kitti['chunk_runs']} chunk bodies run on the device as the "
         f"chunks with an active voxel say, "
@@ -5837,7 +5803,8 @@ def phase_mesh_graph(dev, main_info) -> dict:
     mframe = (world, aframes[-1].mask, acap.lio.state.pos)
     aprof = {}
     for n, p in (("eager", aeager), ("captured", acap)):
-        _, aprof[n] = profile_counts(lambda: p.mesh.advance(*mframe))
+        p.mesh._occ_pending = None  # the poll only copies
+        _, aprof[n] = profile_counts(lambda: p.mesh.step(*mframe))
     if aprof["captured"]["syncs"] != 0:
         raise AssertionError(f"mesh graph: Avia: the captured mesh step "
                              f"waited on the card: {aprof['captured']}")

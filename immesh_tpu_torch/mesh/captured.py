@@ -10,8 +10,8 @@ replayed.  Each replay copies the world scan, its mask and the sensor
 position into the static buffers, checks that no tensor of the point map
 or the triangle store moved since the capture (compaction copies back in
 place), and clones out the work list (slots, smask), the active count and
-every diag counter: the adaptive budget reads drop_deferred two frames
-later, and the texture and render paths read the work list.
+every diag counter: the frame's diag hands the counters on, and the
+texture and render paths read the work list.
 
 Each chunk is the body of an IF node on "the chunk has an active point"
 (triangles.triangulate_voxels, utils/graphs.py::device_if), so a replay

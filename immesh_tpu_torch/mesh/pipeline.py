@@ -8,23 +8,22 @@ graph, replayed every frame, empty chunks skipped on the device by IF nodes
 (mesh/captured.py); `graph=False` and the CPU run `mesh_step` eagerly,
 with the host-side skip of empty chunks.
 
-The mesh half of a frame (`MeshPipeline.half`: the step, the compaction
-poll and what a caller adds) runs on a CUDA stream of the pipeline's own
-where the step is a captured graph, as the reference runs meshing on a
-worker thread beside the odometry (SURVEY.md §3.3).  It starts after the
-work its caller's stream holds, the LIO half that made its world scan and
-pose, and an event recorded after it marks its end, so the caller's stream
-goes on (the pose's read) without it.  Whoever reads what the half writes
-outside it joins first (`join`: the caller's stream waits on that event,
-the host does not): the `gm`, `store`, `last_active` and `last_drops`
-properties do; the active-voxel count that `step` and `advance` return is
-read after a `join` too.  The eager step and the CPU stay on the caller's
+The mesh half of a frame (`MeshPipeline.step`: the step, then the
+compaction poll) runs on a CUDA stream of the pipeline's own where the
+step is a captured graph, as the reference runs meshing on a worker thread
+beside the odometry (SURVEY.md §3.3).  It starts after the work its
+caller's stream holds, the LIO half that made its world scan and pose, and
+an event recorded after it marks its end, so the caller's stream goes on
+(the pose's read) without it.  Whoever reads what the half writes outside
+it joins first (`join`: the caller's stream waits on that event, the host
+does not): the `gm`, `store`, `last_active` and `last_drops` properties
+do; the active-voxel count and drop counters that `step` returns are read
+after a `join` too.  The eager step and the CPU stay on the caller's
 stream, serial.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -70,7 +69,7 @@ class MeshPipeline:
     """Host-side wrapper holding the global map + triangle store.
 
     On a CUDA device the step is one captured CUDA graph (`graph=True`,
-    mesh/captured.py) run on the pipeline's own stream (`half`);
+    mesh/captured.py) run on the pipeline's own stream (`step`);
     `graph=False` runs mesh_step eagerly there, as the CPU always does, on
     the caller's stream.
 
@@ -94,7 +93,6 @@ class MeshPipeline:
         self.stream = (torch.cuda.Stream(self.device)
                        if self.captured is not None else None)
         self.done = None      # event recorded after the last half
-        self._caller = None   # the stream the open half was started from
         self.frame_idx = 0
         self._last_active = None  # (slots, smask) of the most recent step
         self._last_drops = None   # drop counters of the most recent step
@@ -137,26 +135,6 @@ class MeshPipeline:
         self.join()
         return self._last_drops
 
-    @contextlib.contextmanager
-    def half(self):
-        """The mesh half of a frame: on the pipeline's stream where the step
-        is a captured graph, after the work the caller's stream holds now,
-        with the event `done` recorded after it; elsewhere, and inside a
-        half already open, on the current stream as it is."""
-        if self.stream is None or self._caller is not None:
-            yield
-            return
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        self._caller = caller
-        try:
-            with torch.cuda.stream(self.stream):
-                yield
-        finally:
-            self._caller = None
-        self.done = torch.cuda.Event()
-        self.done.record(self.stream)
-
     def count_pending(self, counter: str) -> None:
         """While the frame trace is on, count `counter` (pose_before_mesh or
         lio_over_mesh) where the last mesh half still runs: one query of its
@@ -167,56 +145,64 @@ class MeshPipeline:
     def join(self, done=None) -> None:
         """Order the caller's current stream after the last mesh half (or
         the half whose `done` event is given): one wait on its event, none
-        on the host.  Nothing inside the half, or where the mesh is
-        serial."""
+        on the host.  Nothing on the half's own stream, or where the mesh
+        is serial."""
         done = self.done if done is None else done
-        if self._caller is not None or done is None:
+        if done is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        if current == self.stream:
             return
         if trace.on and not done.query():
             trace.count("mesh_joins")
-        torch.cuda.current_stream(self.device).wait_event(done)
-
-    def _crossing(self, tensors, stream) -> None:
-        """Tensors that cross between the caller's stream and the half's:
-        their memory is not handed out again until `stream`'s work queued
-        at their release has run."""
-        if self._caller is not None:
-            for t in tensors:
-                if torch.is_tensor(t):
-                    t.record_stream(stream)
+        current.wait_event(done)
 
     def step(self, pts_world, mask, sensor_pos):
-        """Returns the active-voxel count as a device scalar, written by the
-        mesh half: read it after `join()`."""
+        """The frame's mesh half, the one place that switches to the
+        pipeline's stream: `advance`, then `maybe_compact`, on that stream
+        where the step is a captured graph, after the work the caller's
+        stream holds now, with the event `done` recorded after them;
+        elsewhere on the caller's stream.  Returns (n_active, drops): the
+        active-voxel count and the drop counters (`last_drops`' dict),
+        device scalars the half writes, handed back without a wait: read
+        them after `join()`."""
         if pts_world.shape[0] == 0:  # static shapes need ≥1 row; mask it out
             pts_world = torch.zeros((1, 3), dtype=torch.float32)
             mask = torch.zeros(1, dtype=torch.bool)
-        with self.half():
-            n_active = self.advance(
-                torch.as_tensor(pts_world, device=self.device),
-                torch.as_tensor(mask, device=self.device),
-                torch.as_tensor(sensor_pos, device=self.device))
-            self.maybe_compact(sensor_pos)
-        return n_active
+        args = [torch.as_tensor(x, device=self.device)
+                for x in (pts_world, mask, sensor_pos)]
+        if self.stream is None:
+            n_active = self.advance(*args)
+            self.maybe_compact(args[2])
+            return n_active, self._last_drops
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        _crossing(args, self.stream)
+        with torch.cuda.stream(self.stream):
+            n_active = self.advance(*args)
+            self.maybe_compact(args[2])
+        _crossing((n_active, *self._last_active,
+                   *self._last_drops.values()), caller)
+        self.done = torch.cuda.Event()
+        self.done.record(self.stream)
+        return n_active, self._last_drops
 
     def advance(self, pts_world: torch.Tensor, mask: torch.Tensor,
                 sensor_pos: torch.Tensor) -> torch.Tensor:
         """The mesh step on this pipeline's map and store, without the
         compaction trigger: the captured graph, or mesh_step eagerly, at
-        the map's mesh_chunk.  Sets last_active and last_drops; returns the
-        active-voxel count (a device scalar, read after `join()`)."""
+        the map's mesh_chunk, on the current stream, after the last half
+        (`join`).  Sets last_active and last_drops; returns the
+        active-voxel count (a device scalar)."""
+        self.join()
         if self.captured is None:
             (self._gm, self._store, n_active, slots, smask,
              self._last_drops) = mesh_step(self._gm, self._store, pts_world,
                                           mask, sensor_pos,
                                           self._gm.cfg.mesh_chunk)
         else:
-            with self.half():
-                self._crossing((pts_world, mask, sensor_pos), self.stream)
-                n_active, slots, smask, self._last_drops = self.captured(
-                    self._gm, self._store, pts_world, mask, sensor_pos)
-                self._crossing((n_active, slots, smask,
-                                *self._last_drops.values()), self._caller)
+            n_active, slots, smask, self._last_drops = self.captured(
+                self._gm, self._store, pts_world, mask, sensor_pos)
         self._last_active = (slots, smask)
         self.frame_idx += 1
         return n_active
@@ -231,44 +217,44 @@ class MeshPipeline:
         to the host asynchronously after each frame and read on the next
         (device.HostCopy), so no frame waits on its own work and the
         compactions fall on the same frames in both.  Part of the mesh
-        half (`half`)."""
+        half (`step`); alone, on the current stream after the last half
+        (`join`)."""
         mc = self.cfg.mesh
         if mc.compact_check_every <= 0:
             return False
-        with self.half():
-            gm = self._gm
-            high_p = mc.compact_high_water * mc.points_capacity
-            high_v = mc.compact_high_water * mc.voxel_capacity
-            pending = self._occ_pending
-            # a copy of pt_count's value now: the next frame writes it in place
-            self._occ_pending = HostCopy(torch.stack([
-                gm.n_points().to(torch.int64), gm.vox.occupancy()]))
-            if pending is None:
-                return False
-            n_p, n_v = pending.value()
-            if n_p <= high_p and n_v <= high_v:
-                return False
-            self._occ_pending = None  # state changes below invalidate the poll
-            self.n_compactions += 1
-            with trace.span("compact"):
-                # hysteresis: target the LOW water mark, radius solved in one
-                # pass
-                low_p = mc.compact_low_water * mc.points_capacity
-                low_v = mc.compact_low_water * mc.voxel_capacity
-                center = torch.as_tensor(sensor_pos, device=self.device)
-                self._crossing((center,), self.stream)
-                radius = _keep_radius_mesh(gm, center, int(low_p),
-                                           int(low_v), mc.local_map_radius)
-                _compact_mesh(gm, self._store, center, radius)
-                r = float(radius) * 0.7
-                for _ in range(2):  # quantile-granularity guard, rarely taken
-                    if (int(gm.n_points()) <= high_p
-                            and int(gm.vox.occupancy()) <= high_v):
-                        break
-                    _compact_mesh(gm, self._store, center, torch.tensor(
-                        r, dtype=torch.float32, device=self.device))
-                    r *= 0.7
-            return True
+        self.join()
+        gm = self._gm
+        high_p = mc.compact_high_water * mc.points_capacity
+        high_v = mc.compact_high_water * mc.voxel_capacity
+        pending = self._occ_pending
+        # a copy of pt_count's value now: the next frame writes it in place
+        self._occ_pending = HostCopy(torch.stack([
+            gm.n_points().to(torch.int64), gm.vox.occupancy()]))
+        if pending is None:
+            return False
+        n_p, n_v = pending.value()
+        if n_p <= high_p and n_v <= high_v:
+            return False
+        self._occ_pending = None  # state changes below invalidate the poll
+        self.n_compactions += 1
+        with trace.span("compact"):
+            # hysteresis: target the LOW water mark, radius solved in one
+            # pass
+            low_p = mc.compact_low_water * mc.points_capacity
+            low_v = mc.compact_low_water * mc.voxel_capacity
+            center = torch.as_tensor(sensor_pos, device=self.device)
+            radius = _keep_radius_mesh(gm, center, int(low_p),
+                                       int(low_v), mc.local_map_radius)
+            _compact_mesh(gm, self._store, center, radius)
+            r = float(radius) * 0.7
+            for _ in range(2):  # quantile-granularity guard, rarely taken
+                if (int(gm.n_points()) <= high_p
+                        and int(gm.vox.occupancy()) <= high_v):
+                    break
+                _compact_mesh(gm, self._store, center, torch.tensor(
+                    r, dtype=torch.float32, device=self.device))
+                r *= 0.7
+        return True
 
     def pending_occupancy(self):
         """The mesh maps' (points, voxels) after the last frame, as the
@@ -288,6 +274,15 @@ class MeshPipeline:
         remap = np.full(pts.shape[0], -1, np.int64)
         remap[used] = np.arange(used.size)
         return pts[used], remap[tri]
+
+
+def _crossing(tensors, stream) -> None:
+    """Tensors that cross between the caller's stream and the mesh half's:
+    their memory is not handed out again until `stream`'s work queued at
+    their release has run."""
+    for t in tensors:
+        if torch.is_tensor(t):
+            t.record_stream(stream)
 
 
 def _compact_mesh(gm: GlobalPointMap, store: TriangleStore,

@@ -118,8 +118,8 @@ class ImMeshRuntime:
 
         `imu_gap` (a stream anomaly) re-initialises the filter before the
         step (reference m_flg_reset, src/voxel_mapping.cpp:1791-1797).  The
-        LIO step is launched, then the mesh step (on the MeshPipeline's
-        own stream on the card, mesh/pipeline.py::MeshPipeline.half), then
+        LIO step is launched, then the mesh half (on the MeshPipeline's
+        own stream on the card, mesh/pipeline.py::MeshPipeline.step), then
         the pose is read, which waits for the LIO step alone.  The
         active-voxel count is a device scalar; it reaches the cost log one
         frame late, after a join of its own frame's mesh half.  The frame
@@ -137,8 +137,8 @@ class ImMeshRuntime:
             if mesh is not None:
                 # on the mesh's own stream where it is a captured graph:
                 # the pose below waits for the LIO step alone
-                n_active_dev = mesh.step(world_scan, bundle.mask,
-                                         self.lio.state.pos)
+                n_active_dev, _ = mesh.step(world_scan, bundle.mask,
+                                            self.lio.state.pos)
                 done = mesh.done
                 mesh.count_pending("pose_before_mesh")
 

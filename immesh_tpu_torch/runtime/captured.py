@@ -5,7 +5,7 @@ lio_step, then mesh_step on the world scan and pose it made
 (immesh_tpu/runtime/joint.py:32-42).  On the card `JointPipeline` replays
 it as two CUDA graphs, lio/captured.py's step on the caller's stream and
 mesh/captured.py's on the MeshPipeline's own stream after it
-(mesh/pipeline.py::MeshPipeline.half), so the pose is read before the mesh
+(mesh/pipeline.py::MeshPipeline.step), so the pose is read before the mesh
 half ends.  `FrameSteps` shows the pair as the frame's captured step: both
 graphs, the frames replayed, and one device span a frame.
 """

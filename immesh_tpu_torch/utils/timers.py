@@ -446,7 +446,7 @@ class TrajectoryLogger:
 
 
 # the host's waits on the device and its device↔host copies, by CUDA runtime
-# call (tools/torch_profile.py counts the same names)
+# call
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 COPY_CALLS = ("cudaMemcpyAsync",)
 _PROFILED = "profiled_call"

@@ -100,7 +100,7 @@ def _reference(cut: str) -> dict:
 def _port(cut: str):
     tm = TMeshPipe(TConfig.from_dict(_mesh_config(cut).to_dict()),
                    device="cpu")
-    ns = [int(tm.step(p, np.ones(N_PTS, bool), SENSOR)) for p in _scans()]
+    ns = [int(tm.step(p, np.ones(N_PTS, bool), SENSOR)[0]) for p in _scans()]
     return tm, ns
 
 

@@ -9,6 +9,7 @@ the magnitudes involved — rtol 1e-5 / atol 1e-6 throughout, except where
 noted."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -269,12 +270,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "tools", "torch_profile.py")
-    yield os.path.join(REPO, "tools", "torch_ablate_e2e.py")
-    yield os.path.join(REPO, "tools", "torch_profile_lio.py")
-    yield os.path.join(REPO, "tools", "torch_profile_stages.py")
-    yield os.path.join(REPO, "tools", "torch_ab_lio.py")
-    yield os.path.join(REPO, "tools", "torch_graph_nodes.py")
+    yield from glob.glob(os.path.join(REPO, "tools", "torch_*.py"))
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),

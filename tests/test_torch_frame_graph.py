@@ -280,28 +280,34 @@ def test_first_esikf_body_runs_unconditionally(J, monkeypatch, iterations):
 # ---------------------------------------------------------------------------
 def test_cpu_frame_composes_the_eager_steps(monkeypatch):
     """On the CPU JointPipeline has no frame graph and its inner pipelines
-    none of their own; each step goes through the _frame hook with the
-    frame's config and then _mesh_half."""
+    none of their own; each step is the LioPipeline's step without its
+    compaction trigger (advance), the mesh half (MeshPipeline.step), once
+    each, then the plane map's poll."""
     import chip_smoke
-    import immesh_tpu_torch.runtime.joint as joint
+    from immesh_tpu_torch.lio.pipeline import LioPipeline
+    from immesh_tpu_torch.mesh.pipeline import MeshPipeline
+    from immesh_tpu_torch.runtime.joint import JointPipeline
     cfg = chip_smoke.small_config()
     cfg = cfg.replace(preprocess=dataclasses.replace(cfg.preprocess,
                                                      max_points=1024))
-    pipe = joint.JointPipeline(cfg, adaptive_mesh_budget=256, device="cpu")
+    pipe = JointPipeline(cfg, adaptive_mesh_budget=256, device="cpu")
     assert pipe.captured is None
     assert pipe.lio.captured is None and pipe.mesh.captured is None
     calls = []
-    for name in ("_frame", "_mesh_half"):
-        inner = getattr(joint, name)
+    for cls, name in ((LioPipeline, "advance"), (MeshPipeline, "step"),
+                      (LioPipeline, "maybe_compact")):
+        inner = getattr(cls, name)
 
-        def hooked(*args, _name=name, _inner=inner):
-            calls.append((_name, args[-1].mesh.active_voxels_per_frame))
+        def hooked(*args, _name=f"{cls.__name__}.{name}", _inner=inner):
+            calls.append(_name)
             return _inner(*args)
-        monkeypatch.setattr(joint, name, hooked)
+        monkeypatch.setattr(cls, name, hooked)
     sim = chip_smoke.make_sim(1024, 16)
     world, diag = pipe.step(chip_smoke.bundle(sim.frame(0), cfg, "cpu"))
-    assert calls == [("_frame", 128), ("_mesh_half", 128)]
+    assert calls == ["LioPipeline.advance", "MeshPipeline.step",
+                     "LioPipeline.maybe_compact"]
     assert world.shape == (1024, 3) and "n_active_voxels" in diag
+    assert set(pipe.mesh.last_drops) <= set(diag)
     assert pipe.mesh.last_active is not None and pipe.frame_idx == 1
 
 
@@ -461,9 +467,6 @@ def test_one_graph_frame_on_the_card():
     for k in range(n):
         b = chip_smoke.bundle(sim.frame(k), cfg, dev)
         outs = [p.step(b) for p in pipes]
-        if k == 0:
-            for p in pipes:
-                p.prime_adaptive()
         if k == 4:
             for p in pipes:
                 chip_smoke.compact_half(p.lio.vm, p.state.pos)
@@ -547,8 +550,6 @@ def test_pipelined_frame_equals_eager_on_the_card():
                             _read_as_checked(p.state, p.lio.vm, p.mesh),
                             _counted(), p.mesh.n_compactions - before))
                 totals[id(p)] += got[-1][5]
-                if k == 0:
-                    p.prime_adaptive()
             ((pe, we, de, me, se, _, ce),
              (pp, wp, dp, mp, sp, counted, cp)) = got
             bad = [n for (n, x), (_, y) in zip(se, sp)

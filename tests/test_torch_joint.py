@@ -1,8 +1,8 @@
 """Port parity, the whole slice: JointPipeline (LIO step, mesh step, both
-maps' occupancy-triggered compaction, the adaptive hi-budget variant) run
-side by side with the JAX reference on a KITTI-shaped scan sequence cut to
-8,192 rays and capacities small enough that compaction fires every few
-frames.
+maps' occupancy-triggered compaction, the reference's adaptive hi-budget
+variant) run side by side with the JAX reference on a KITTI-shaped scan
+sequence cut to 8,192 rays and capacities small enough that compaction
+fires every few frames.
 
 End-to-end parity cannot be exact: the LIO posterior differs from the
 reference's by f32 ulps (reduction order), the world scan inherits them,
@@ -10,7 +10,9 @@ and the Delaunay tie keys hash raw position bits, so an ulp re-rolls
 near-cocircular diagonals.  Held invariants, per frame:
   * pose within 1e-3 m of the reference's;
   * the same stored vertex sets at 1e-4 m, but for ≤ 0.1 % of points;
-  * compactions and hi/lo budget decisions on the same frames;
+  * compactions on the same frames, with the reference's lo and hi
+    budgets both run (the hi one never reaches its mesh step, reference
+    behaviour 7; the port computes no hi-budget config);
   * live triangle counts within 5 % (the port runs 1-3 % above the
     reference on this sequence, seed 0, and -1.5…+0.2 % from it on seeds
     1-6; why seed 0 leans one way is open, ROADMAP queue 3 item 9).
@@ -84,8 +86,7 @@ def _split(jax_tris, port_tris):
 
 def _budget_recorder(module, name, log):
     """Wrap module.<name>, whose last argument is the frame's config, to log
-    the re-mesh budget of each call: the reference's joint_step, the port's
-    _mesh_half (JointPipeline.step's mesh half)."""
+    the re-mesh budget of each call: the reference's joint_step."""
     inner = getattr(module, name)
 
     def recorded(*args):
@@ -105,12 +106,10 @@ def runs():
                               adaptive_threshold=600)
     tp = tjoint.JointPipeline(tcfg, adaptive_mesh_budget=256,
                               adaptive_threshold=600, device="cpu")
-    budgets = {"jax": [], "port": []}
+    budgets = []
     mp = pytest.MonkeyPatch()
     mp.setattr(jjoint, "joint_step",
-               _budget_recorder(jjoint, "joint_step", budgets["jax"]))
-    mp.setattr(tjoint, "_mesh_half",
-               _budget_recorder(tjoint, "_mesh_half", budgets["port"]))
+               _budget_recorder(jjoint, "joint_step", budgets))
     frames = []
     try:
         for k in range(N_FRAMES):
@@ -167,8 +166,8 @@ def test_joint_pipeline_tracks_the_reference(runs, k):
 
 def test_joint_pipeline_exercises_compaction_and_budgets(runs):
     frames, budgets = runs
-    assert budgets["jax"] == budgets["port"]
-    assert set(budgets["port"]) == {128, 256}      # both variants ran
+    assert len(budgets) == N_FRAMES
+    assert set(budgets) == {128, 256}  # the reference ran both variants
     assert frames[-1]["comp"][1][0] >= 1           # the mesh map compacted
 
 

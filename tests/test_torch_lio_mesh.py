@@ -268,7 +268,7 @@ def test_mesh_pipeline_matches_reference_over_frames(ref):
     jp, tp = JMeshPipe(ref["cfg"]), TMeshPipe(ref["tcfg"], device="cpu")
     for world, mask, sensor in ref["worlds"]:
         jn = jp.step(world, mask, sensor)
-        tn = tp.step(_t(world), _t(mask), _t(sensor))
+        tn, _ = tp.step(_t(world), _t(mask), _t(sensor))
         assert int(jn) == int(tn)
         assert jp.n_compactions == tp.n_compactions
         np.testing.assert_array_equal(np.asarray(jp.store.tri_ids),

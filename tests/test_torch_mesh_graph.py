@@ -29,8 +29,10 @@ run passes it the base config and logs the budget it was asked for.
       place: the map's bits as before the frame, frame_no + 1, pointers
       unchanged.
   (e) With the polls copied to the host asynchronously (device.HostCopy),
-      the port's plane-map and mesh compactions and its hi/lo budget fall
-      on the same frames as the reference's.
+      the port's plane-map and mesh compactions fall on the same frames as
+      the reference's, which runs both its budgets; the port, which
+      computes no hi-budget config, gives the reference's result on its
+      hi frames.
   (f) The mesh step reads no device value on the host but its chunks'
       tests (device_if's host read, which the captured step makes an IF
       node's set kernel): Tensor.__bool__, __int__, __float__, __index__,
@@ -39,11 +41,11 @@ run passes it the base config and logs the budget it was asked for.
       read, one a chunk); with that read trapped too it trips the trap.
   (g) On the card (`cuda`, skips here): the captured JointPipeline (its
       LIO graph, then its mesh graph on the mesh half's own stream)
-      against the eager one bit for bit, one mesh graph serving both
-      budgets, and pairs_argmin's device
-      runs = its eager launches + the runs of the chunk bodies (the set
-      kernel's taken counts) x their recorded launches.  The reference is imported inside a
-      fixture, so on the GPU machine (no JAX)
+      against the eager one bit for bit, one mesh graph, and
+      pairs_argmin's device runs = its eager launches + the runs of the
+      chunk bodies (the set kernel's taken counts) x their recorded
+      launches.  The reference is imported inside a fixture, so on the
+      GPU machine (no JAX)
 
     python -m pytest --noconftest -m cuda tests/test_torch_mesh_graph.py
 """
@@ -125,7 +127,7 @@ def run():
                               adaptive_threshold=THRESHOLD)
     tp = tjoint.JointPipeline(tcfg, adaptive_mesh_budget=HI_BUDGET,
                               adaptive_threshold=THRESHOLD, device="cpu")
-    budgets = {"jax": [], "port": []}
+    budgets = []  # the budget the reference's joint program was asked for
     compactions = []  # (inputs, outputs) of the reference's mesh compactions
 
     def recorder(module, name, log, base=None):
@@ -153,9 +155,7 @@ def run():
 
     mp = pytest.MonkeyPatch()
     mp.setattr(jjoint, "joint_step",
-               recorder(jjoint, "joint_step", budgets["jax"], base=cfg))
-    mp.setattr(tjoint, "_mesh_half",
-               recorder(tjoint, "_mesh_half", budgets["port"]))
+               recorder(jjoint, "joint_step", budgets, base=cfg))
     mp.setattr(jmesh, "_compact_mesh_jit", recorded_compact)
     frames = []
     try:
@@ -333,30 +333,33 @@ def test_polls_decide_on_the_reference_frames(run):
         assert f["comp"][0] == f["comp"][1]
     lio, mesh = run.frames[-1]["comp"][1]
     assert lio >= 2 and mesh >= 2           # both high-water marks crossed
-    assert run.budgets["jax"] == run.budgets["port"]
-    assert set(run.budgets["port"]) == {BUDGET, HI_BUDGET}
+    assert len(run.budgets) == N_FRAMES
+    assert set(run.budgets) == {BUDGET, HI_BUDGET}  # the reference ran both
 
 
 def test_one_mesh_step_serves_both_budgets(run):
-    """The hi-budget config reaches the mesh step only as its chunk: the
-    step sizes its work list from the map's own config, so the lo and hi
-    frames give the same bits (one captured graph serves both)."""
-    import immesh_tpu_torch.runtime.joint as tjoint
+    """The hi-budget config never reaches the mesh step (reference
+    behaviour 7), so the port computes none: a port MeshPipeline stepped
+    from the reference's start of each hi frame that no compaction
+    followed gives the reference's recorded map, store, work list, active
+    count and drop counters (as (a) holds them: exact but for the smoothed
+    positions)."""
     from immesh_tpu_torch.mesh.pipeline import MeshPipeline
-    f = run.frames[3]
-    hi = run.tcfg.replace(mesh=dataclasses.replace(
-        run.tcfg.mesh, active_voxels_per_frame=HI_BUDGET))
-    got = []
-    for cfg in (run.tcfg, hi):
+    hi = [f for f, budget in zip(run.frames, run.budgets)
+          if budget == HI_BUDGET and f["after"] is not None]
+    assert hi
+    for f in hi:
         mp = MeshPipeline(run.tcfg, device="cpu")
         o = _port(run, f["before"])
         mp.gm, mp.store = o["gm"], o["store"]
-        diag = tjoint._mesh_half(
-            mp, _t(f["world"]), SimpleNamespace(mask=_t(f["mask"])),
-            SimpleNamespace(pos=_t(f["pos"])), {}, cfg)
-        got.append(tensors((mp.gm, mp.store, mp.last_active, diag)))
-    assert len(got[0]) == len(got[1])
-    assert all(_same_bits(a, b) for a, b in zip(*got))
+        n_active, drops = mp.step(_t(f["world"]), _t(f["mask"]),
+                                  _t(f["pos"]))
+        _check_mesh(f["after"], mp.gm, mp.store)
+        np.testing.assert_array_equal(f["slots"], mp.last_active[0].numpy())
+        np.testing.assert_array_equal(f["smask"], mp.last_active[1].numpy())
+        assert {**{k: int(v) for k, v in drops.items()},
+                "n_active_voxels": int(n_active)} == f["diag"]
+        assert mp.n_compactions == 0
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +451,7 @@ def test_captured_mesh_step_equals_the_eager_step_on_the_card():
     """The KITTI-shaped JointPipeline on the card, eager (graph=False) and
     captured from the same start, bit for bit on every frame (map, store,
     work list, diag), a forced compaction of both maps included; one mesh
-    graph serving the lo and hi budgets; and pairs_argmin's device runs =
+    graph; and pairs_argmin's device runs =
     its eager launches + the graph's replays x its recorded launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
@@ -467,9 +470,6 @@ def test_captured_mesh_step_equals_the_eager_step_on_the_card():
     for k in range(n):
         b = chip_smoke.bundle(sim.frame(k), cfg, dev)
         outs = [p.step(b) for p in pipes]
-        if k == 0:
-            for p in pipes:
-                p.prime_adaptive()  # frames 1-2 take the hi budget
         if k == 4:
             for p in pipes:
                 chip_smoke.compact_half(p.lio.vm, p.state.pos)
@@ -482,7 +482,7 @@ def test_captured_mesh_step_equals_the_eager_step_on_the_card():
                  c.mesh.last_active)]) == []
     torch.cuda.synchronize()
     assert pipes[1].mesh.stream is not None  # the mesh half's own stream
-    (g,) = pipes[1].mesh.captured.graphs  # lo and hi frames: one graph
+    (g,) = pipes[1].mesh.captured.graphs
     assert g.replays == n - 1 and g.captured["pairs_argmin"] == 0
     chunks = [b for b in g.bodies if b.what == "chunk"]
     assert len(chunks) == 2  # 128 voxels, 64 a chunk

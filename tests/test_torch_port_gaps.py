@@ -115,7 +115,7 @@ def test_mesh_step_on_a_zero_row_scan_matches_reference():
     for p, m in ((pts, np.ones(500, bool)),
                  (np.zeros((0, 3), np.float32), np.zeros(0, bool))):
         n_j = int(jm.step(p, m, sensor))
-        n_t = int(tm.step(p, m, sensor))
+        n_t = int(tm.step(p, m, sensor)[0])
         assert n_t == n_j
     assert int(tm.gm.pt_count) == int(jm.gm.pt_count) > 0
     np.testing.assert_array_equal(tm.gm.pts.numpy(), np.asarray(jm.gm.pts))

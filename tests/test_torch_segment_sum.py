@@ -405,9 +405,6 @@ def test_kitti_frame_graph_replays_the_eager_frame_on_the_card(dev):
     for k in range(n):
         b = chip_smoke.bundle(sim.frame(k), cfg, dev)
         (we, de), (w1, d1) = eager.step(b), one.step(b)
-        if k == 0:
-            for p in (eager, one):
-                p.prime_adaptive()
         assert chip_smoke.lio_differs(eager.lio.state, one.lio.state,
                                       eager.lio.vm, one.lio.vm,
                                       [("world", we, w1)]) == []

@@ -99,10 +99,8 @@ def shapes_from_frames(dev, n_frames: int) -> dict:
     _, gt = cs.kitti_scans(n_frames)
     pipe = JointPipeline(cfg, adaptive_mesh_budget=2048, device=dev,
                          graph=False)
-    for k, f in enumerate(gt[:-1]):
+    for f in gt[:-1]:
         pipe.step(cs.bundle(f, cfg, dev))
-        if k == 0:
-            pipe.prime_adaptive()
     _, calls = cs.record_probes(lambda: pipe.step(cs.bundle(gt[-1], cfg,
                                                             dev)))
     torch.cuda.synchronize()
